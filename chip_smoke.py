@@ -1,0 +1,467 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (any failure exits non-zero with no ``ok``
+line):
+
+1. device  — the card's name and power limit (``nvidia-smi``); build every
+             CUDA source under ``src/repro_torch/kernels/csrc`` (one ``nvcc``
+             each, all started together) and print the build seconds.
+2. kernels — each kernel against its plain PyTorch version on the same
+             tensors on the card: ``sched_events`` and ``sched_step``
+             bitwise at R=4096, F=40, W=1600 and at W=100,000;
+             ``ssd_scan`` at mamba2-130m width (H=24, P=64, N=128,
+             chunk=256) in float32 to atol=1e-4, rtol=1e-3 and in bfloat16
+             to atol=rtol=5e-2.  Median kernel and plain times in CUDA events.
+3. sched   — the main scheduling path: ``sched_many_fused`` (chunk 1024)
+             and ``sched_many_adaptive`` on a 65,536-event seeded stream at
+             W=1600, F=40, both bitwise equal to ``sched_many`` on the CPU.
+4. serve   — the main serving path: a ``ServingEngine`` on the card with
+             three full-width mamba2-130m endpoints (24 layers, d_model 768,
+             vocab 50280; random weights from seeds 0-2), 2 workers, hiku;
+             8 requests with 1,024-token seeded prompts, gen_len 8.  Checks
+             cold-then-warm on the same worker, that every prefill went
+             through the ``ssd_scan`` kernel (24 launches each), and one
+             request's logits and tokens against the plain path on the CPU.
+5. profile — where a warm request's time goes: prefill and request time on
+             the host clock, device time by kernel and the device's busy
+             share from ``torch.profiler`` ("not measured" if it sees none).
+
+The launch counters are set to 0 just before phases 3-4 and read just after;
+launches made in phase 2 do not count.  Before the last line it prints one
+JSON line ``{"kernels": [...]}``, and the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Needs one card and the CUDA toolkit; exits 2 without CUDA or outside a
+checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+
+DEVICE = "cuda"
+FULL_WIDTH = (24, 768, 50280)  # mamba2-130m: layers, d_model, vocab
+
+TOL_F32 = dict(atol=1e-4, rtol=1e-3)
+TOL_BF16 = dict(atol=5e-2, rtol=5e-2)
+TOL_LOGITS = dict(atol=1e-3, rtol=1e-3)  # 24 layers of float32 matmuls, card vs CPU order
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def time_cuda(torch, fn, reps: int, warmup: int = 1) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs, in CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, nops: float):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs(a, b) -> float:
+    return float((a.float().cpu() - b.float().cpu()).abs().max()) if a.numel() else 0.0
+
+
+# ------------------------------------------------------------------ inputs
+def sched_burst(np, R, F, W, seed, arrival_only=False):
+    rng = np.random.default_rng(seed)
+    kinds = np.zeros(R, np.int32) if arrival_only else rng.choice(
+        np.array([0, 1, 2], np.int32), R, p=[0.5, 0.45, 0.05])
+    funcs = ((rng.zipf(1.5, R) - 1) % F).astype(np.int32)
+    workers = np.where(kinds == 0, -1, rng.integers(0, W, R)).astype(np.int32)
+    idle = rng.integers(0, 3, (F, W)).astype(np.int32)
+    conns = rng.integers(0, 5, W).astype(np.int32)
+    return kinds, funcs, workers, idle, conns
+
+
+def sched_stream(np, n, F, W, seed):
+    """Zipf-like function ids; 16 windows of n/16 events, windows 0 and 8
+    pure arrival bursts (flash crowds) and the rest mixed, so that the whole
+    stream is ~50% ARRIVAL, ~45% FINISH, ~5% EVICT."""
+    rng = np.random.default_rng(seed)
+    win = n // 16
+    kinds = rng.choice(np.array([0, 1, 2], np.int32), n, p=[0.4286, 0.5143, 0.0571])
+    kinds[:win] = 0
+    kinds[8 * win: 9 * win] = 0
+    funcs = ((rng.zipf(1.5, n) - 1) % F).astype(np.int32)
+    workers = np.where(kinds == 0, -1, rng.integers(0, W, n)).astype(np.int32)
+    return np.stack([kinds, funcs, workers], 1).astype(np.int32)
+
+
+def ssd_inputs(torch, B, S, H=24, P=64, N=128, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g) * 0.5
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g))
+    A = -torch.exp(torch.randn(H, generator=g) * 0.3)
+    Bm = torch.randn(B, S, 1, N, generator=g) * 0.3
+    Cm = torch.randn(B, S, 1, N, generator=g) * 0.3
+    return [t.to(DEVICE) for t in (x, dt, A, Bm, Cm)]
+
+
+def ssd_counts(B, S, H, P, N, Q, elem):
+    """Bytes each input read once / output written once, and float32
+    operations counted once (C.B^T shared by the heads, ngroups=1)."""
+    Sp = -(-S // Q) * Q
+    nc = Sp // Q
+    tri = Q * (Q + 1) // 2
+    ops = B * nc * (2 * tri * N + H * (2 * tri * P + 4 * Q * N * P))
+    nbytes = (2 * B * S * H * P * elem + 2 * B * S * N * elem + B * S * H * 4 + H * 4
+              + B * H * P * N * 4)
+    return nbytes, ops
+
+
+def sched_counts(kinds, F, W):
+    """Bytes (events read, idle/conns read and written, outputs written) and
+    operations (two compares per worker per ARRIVAL of this run's data)."""
+    R = len(kinds)
+    nbytes = 3 * R * 4 + 2 * F * W * 4 + 2 * W * 4 + 2 * R * 4
+    return nbytes, 2 * W * int((kinds == 0).sum())
+
+
+# ------------------------------------------------------------------ phases
+def phase_device(torch, build):
+    q = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60)
+    if q.returncode != 0:
+        fail(f"nvidia-smi: {q.stderr.strip()}")
+    card = q.stdout.strip().splitlines()[0]
+    log(f"[device] {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
+        f"torch={torch.__version__} cuda={torch.version.cuda}")
+    secs = build.build()
+    log(f"[device] kernels built in {secs:.2f} s ({', '.join(build.SOURCES)})")
+    return card
+
+
+def phase_kernels(torch, np, ops, ref, rows):
+    dev = torch.device(DEVICE)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    for name, arrival_only in (("sched_events", False), ("sched_step", True)):
+        R, F, W = 4096, 40, 1600
+        kinds, funcs, workers, idle, conns = (t(a) for a in sched_burst(
+            np, R, F, W, seed=1, arrival_only=arrival_only))
+        if arrival_only:
+            kern = lambda: ops.sched_step(funcs, idle, conns)  # noqa: E731
+            plain = lambda: ref.sched_step_ref(funcs, idle, conns)  # noqa: E731
+        else:
+            kern = lambda: ops.sched_events(kinds, funcs, workers, idle, conns)  # noqa: E731
+            plain = lambda: ref.sched_events_ref(kinds, funcs, workers, idle, conns)  # noqa: E731
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max(max_abs(a, b) for a, b in zip(got, want))
+        if err != 0:
+            fail(f"{name} differs from its plain version (max abs {err})")
+        ms = time_cuda(torch, kern, reps=20)
+        plain_ms = time_cuda(torch, plain, reps=2, warmup=0)
+        nbytes, nops = sched_counts(kinds.cpu().numpy(), F, W)
+        b_ms, b_by = bound(nbytes, nops)
+        rows[name] = dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/sched.cu",
+            replaces="src/repro/kernels/sched_step.py:" + ("68" if arrival_only else "152"),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None,
+        )
+        log(f"[kernels] {name} R={R} F={F} W={W}: bitwise equal; {ms:.4f} ms "
+            f"({ms * 1e6 / R:.1f} ns/event), plain {plain_ms:.1f} ms, bound {b_ms:.6f} ms ({b_by})")
+
+    # the 100k-worker anchor: conns no longer fits in shared memory
+    R, F, W = 4096, 40, 100_000
+    args = [t(a) for a in sched_burst(np, R, F, W, seed=2)]
+    got, want = ops.sched_events(*args), ref.sched_events_ref(*args)
+    torch.cuda.synchronize()
+    err = max(max_abs(a, b) for a, b in zip(got, want))
+    if err != 0:
+        fail(f"sched_events at W={W} differs from its plain version (max abs {err})")
+    ms = time_cuda(torch, lambda: ops.sched_events(*args), reps=5)
+    log(f"[kernels] sched_events R={R} F={F} W={W}: bitwise equal; {ms:.3f} ms "
+        f"({ms * 1e6 / R:.0f} ns/event)")
+
+    # ssd_scan at mamba2-130m width
+    H, P, N, Q = 24, 64, 128, 256
+    main = None
+    for B, S in ((1, 1024), (2, 1024), (1, 1000)):
+        x, dt, A, Bm, Cm = ssd_inputs(torch, B, S, seed=B * 7 + S)
+        y, st = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+        yr, sr = ref.ssd_scan_ref(*pad_to(torch, (x, dt, A, Bm, Cm), S, Q), Q)
+        torch.cuda.synchronize()
+        yr = yr[:, :S]
+        for got, want in ((y, yr), (st, sr)):
+            if not torch.allclose(got, want, **TOL_F32):
+                fail(f"ssd_scan f32 B={B} S={S}: max abs err {max_abs(got, want):.3e}")
+        err = max(max_abs(y, yr), max_abs(st, sr))
+        log(f"[kernels] ssd_scan f32 B={B} S={S}: max abs err {err:.3e} (atol 1e-4, rtol 1e-3)")
+        if (B, S) == (1, 1024):
+            main = (x, dt, A, Bm, Cm, err)
+    x, dt, A, Bm, Cm, err = main
+    xb, Bb, Cb = (v.to(torch.bfloat16) for v in (x, Bm, Cm))
+    yb, sb = ops.ssd_scan(xb, dt, A, Bb, Cb, chunk=Q)
+    yr, sr = ref.ssd_scan_ref(xb.float(), dt, A, Bb.float(), Cb.float(), Q)
+    if not (torch.allclose(yb.float(), yr, **TOL_BF16) and torch.allclose(sb, sr, **TOL_BF16)):
+        fail(f"ssd_scan bf16: max abs err {max(max_abs(yb, yr), max_abs(sb, sr)):.3e}")
+    log(f"[kernels] ssd_scan bf16 B=1 S=1024: max abs err "
+        f"{max(max_abs(yb, yr), max_abs(sb, sr)):.3e} (atol 5e-2, rtol 5e-2)")
+    ms = time_cuda(torch, lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q), reps=20)
+    plain_ms = time_cuda(torch, lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q), reps=10)
+    nbytes, nops = ssd_counts(1, 1024, H, P, N, Q, 4)
+    b_ms, b_by = bound(nbytes, nops)
+    rows["ssd_scan"] = dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:62", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    log(f"[kernels] ssd_scan B=1 S=1024 H={H} P={P} N={N} Q={Q}: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB)")
+
+
+def pad_to(torch, ts, S, Q):
+    pad = (-S) % Q
+    if not pad:
+        return ts
+    x, dt, A, Bm, Cm = ts
+    F = torch.nn.functional
+    return (F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), A,
+            F.pad(Bm, (0, 0, 0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, 0, 0, pad)))
+
+
+def phase_sched(torch, np, core):
+    n, F, W = 65_536, 40, 1600
+    ev = torch.from_numpy(sched_stream(np, n, F, W, seed=3))
+    t0 = time.perf_counter()
+    s_ref, (w_ref, warm_ref) = core.sched_many(core.init_state(F, W, "cpu"), ev)
+    cpu_s = time.perf_counter() - t0
+
+    def same(name, s, ws, warm):
+        for a, b in ((ws, w_ref), (warm, warm_ref), (s.idle, s_ref.idle), (s.conns, s_ref.conns)):
+            if not torch.equal(a.cpu(), b):
+                fail(f"{name} differs from sched_many on the CPU")
+
+    core.sched_many_fused(core.init_state(F, W), ev[:1024], chunk=1024)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, (ws, warm) = core.sched_many_fused(core.init_state(F, W), ev, chunk=1024)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    same("sched_many_fused", s, ws, warm)
+
+    det = core.BurstDetector()
+    # per-window densities: bursts at windows 0 and 8, two quiet windows that
+    # step event by event
+    dens = [5000, 3000, 1500, 1200, 300, 0, 0, 300, 8000, 5000, 2000, 1000, 400, 300, 1500, 1500]
+    t0 = time.perf_counter()
+    s, (ws, warm) = core.sched_many_adaptive(core.init_state(F, W), ev, det, densities=dens,
+                                             segment=n // 16)
+    torch.cuda.synchronize()
+    adaptive_s = time.perf_counter() - t0
+    same("sched_many_adaptive", s, ws, warm)
+    log(f"[sched] {n} events W={W} F={F}: fused {n / fused_s:,.0f} ev/s, adaptive "
+        f"{n / adaptive_s:,.0f} ev/s, plain scan on the CPU {n / cpu_s:,.0f} ev/s; "
+        "both bitwise equal to the CPU scan")
+
+
+def phase_serve(torch, np, Endpoint, ServingEngine, get_config):
+    """Returns (engine, worker of the first request, its prompt, the number of
+    Mamba layer calls in prefill: one ``ssd_scan`` launch each)."""
+    cfg = get_config("mamba2_130m")
+    if (cfg.n_layers, cfg.d_model, cfg.vocab) != FULL_WIDTH:
+        fail(f"mamba2_130m is not at full width {FULL_WIDTH}")
+    eps = [Endpoint(f"mamba{i}", cfg, seed=i) for i in range(3)]
+    eng = ServingEngine(eps, n_workers=2, scheduler="hiku")
+    rng = np.random.default_rng(4)
+    order = ["mamba0", "mamba0", "mamba1", "mamba1", "mamba2", "mamba0", "mamba1", "mamba2"]
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, (1, 1024)).astype(np.int32))
+               for _ in order]
+    first = {}
+    for func, tok in zip(order, prompts):
+        r = eng.submit(func, tok, gen_len=8)
+        if func not in first:
+            first[func] = r
+            if not r.cold:
+                fail(f"first request to {func} was warm")
+        elif r.cold or r.worker != first[func].worker:
+            fail(f"repeat request to {func} was cold or left its warm worker")
+    cold = [r.latency_ms for r in eng.records if r.cold]
+    warm = [r.latency_ms for r in eng.records if not r.cold]
+    log(f"[serve] 8 requests, 3 x mamba2-130m ({cfg.n_layers}L, d{cfg.d_model}, vocab "
+        f"{cfg.vocab}), 1024-token prompts, "
+        f"gen_len 8: cold {statistics.median(cold):.1f} ms (median of {len(cold)}), warm "
+        f"{statistics.median(warm):.1f} ms (median of {len(warm)}), scheduler overhead "
+        f"{eng.summary()['sched_overhead_ms'] * 1e3:.1f} us")
+    # each request runs one prefill, each cold start one more (its warm-up)
+    return eng, first["mamba0"].worker, prompts[0], (len(order) + len(cold)) * cfg.n_layers
+
+
+def generate_with_logits(torch, inst, prompt, gen_len):
+    """``Instance.generate``'s loop (prefill, then decode from a zero cache),
+    also returning each step's logits."""
+    model = inst.model
+    prompt = prompt.to(inst.device)
+    cache = model.init_cache(1, inst.endpoint.max_cache_len, dtype=torch.float32)
+    _, lg = model.prefill(inst.params, {"tokens": prompt})
+    logits, out = [lg], [lg.argmax(-1)]
+    idx = min(prompt.shape[1], inst.endpoint.max_cache_len - gen_len - 1)
+    for i in range(gen_len - 1):
+        lg, cache = model.decode_step(inst.params, out[-1][:, None], cache, idx + i)
+        logits.append(lg)
+        out.append(lg.argmax(-1))
+    return torch.stack(out, 1).cpu(), [v.cpu() for v in logits]
+
+
+def check_serve_against_cpu(torch, Instance, eng, wid, prompt):
+    """One request re-run on the CPU copy of the same parameters, through the
+    plain path: the prefill logits within TOL_LOGITS, and the same tokens up
+    to the first step whose CPU top-2 logits are closer than the tolerance
+    (a near-tie may rightly flip)."""
+    inst = eng.workers[wid].idle["mamba0"][0]
+    tokens = inst.generate(prompt, 8).cpu()
+    gpu_tokens, gpu_logits = generate_with_logits(torch, inst, prompt, 8)
+    if not torch.equal(tokens, gpu_tokens):
+        fail("Instance.generate and its loop disagree on the card")
+    cpu = Instance(inst.endpoint, device="cpu", params=_to_cpu(inst.params))
+    cpu_tokens, cpu_logits = generate_with_logits(torch, cpu, prompt, 8)
+    err = max_abs(gpu_logits[0], cpu_logits[0])
+    if not torch.allclose(gpu_logits[0], cpu_logits[0], **TOL_LOGITS):
+        fail(f"prefill logits differ from the CPU plain path: max abs err {err:.3e}")
+    agree = 8
+    if not torch.equal(gpu_tokens, cpu_tokens):
+        agree = int((gpu_tokens != cpu_tokens).int().argmax())
+        top2 = cpu_logits[agree].topk(2).values[0]
+        if float(top2[0] - top2[1]) > 2 * TOL_LOGITS["atol"]:
+            fail(f"generated tokens differ from the CPU plain path at step {agree}: "
+                 f"{gpu_tokens.tolist()} vs {cpu_tokens.tolist()}")
+    log(f"[serve] card vs CPU plain path on the same weights: prefill logits max abs err "
+        f"{err:.3e} (atol 1e-3, rtol 1e-3); tokens equal for {agree}/8 steps "
+        f"{gpu_tokens.tolist()[0]}")
+
+
+def profile_warm_request(torch, eng, wid, prompt):
+    """Where a warm request's time goes: prefill and the whole request on
+    the host clock (each ending in a synchronize), then one request under
+    ``torch.profiler`` for device time by kernel and the device's busy share
+    of the request's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    inst = eng.workers[wid].idle["mamba0"][0]
+    tok = prompt.to(inst.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inst.model.prefill(inst.params, {"tokens": tok})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    inst.generate(prompt, 8)
+    request_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        inst.generate(prompt, 8)
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    self_us = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731
+    busy_ms = sum(self_us(e) for e in kern) / 1e3
+    log(f"[profile] warm request (1,024-token prefill + 7 decode steps): {request_ms:.1f} ms, "
+        f"of which prefill {prefill_ms:.1f} ms (host clock)")
+    if busy_ms == 0:
+        log("[profile] device time: not measured (the profiler saw no kernel time)")
+        return
+    log(f"[profile] traced request {traced_ms:.1f} ms: device busy {busy_ms:.2f} ms "
+        f"({100 * busy_ms / traced_ms:.1f}%), idle {100 * (1 - busy_ms / traced_ms):.1f}%, "
+        f"{sum(e.count for e in kern)} kernel launches")
+    for e in sorted(kern, key=self_us, reverse=True)[:8]:
+        log(f"[profile]   {self_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def main() -> int:
+    try:
+        import numpy as np
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository (src/repro_torch missing)",
+              file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import core, default_device
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.serving import Endpoint, Instance, ServingEngine
+
+    default_device()  # full float32 matmuls on the card (TF32 off)
+    t_start = time.perf_counter()
+    card = phase_device(torch, build)
+    rows = {}
+    phase_kernels(torch, np, ops, ref, rows)
+
+    ops.reset_launches()  # ---- the main path: scheduling, then serving
+    phase_sched(torch, np, core)
+    eng, wid, prompt, layer_calls = phase_serve(torch, np, Endpoint, ServingEngine, get_config)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)  # ---- read just after
+    log(f"[main path] launches {launches}; mamba layer prefill calls {layer_calls}")
+    for name in rows:
+        if launches[name] < 1:
+            fail(f"the main path never launched {name}")
+    if launches["ssd_scan"] != layer_calls:
+        fail(f"ssd_scan launched {launches['ssd_scan']} times for {layer_calls} layer prefills")
+    check_serve_against_cpu(torch, Instance, eng, wid, prompt)
+    profile_warm_request(torch, eng, wid, prompt)
+
+    kernels = []
+    for name in ("sched_events", "sched_step", "ssd_scan"):
+        row = rows[name]
+        row["launches"] = launches[name]
+        kernels.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
+                                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")})
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,118 @@
+"""Model assembly for the ported families (counterpart of the JAX package's
+``models/model.py``).
+
+So far the ``ssm`` family (mamba2-130m): ``init``, ``forward``, ``prefill``,
+``decode_step`` and ``init_cache`` with the JAX package's signatures and
+parameter/cache layouts, so the two can be held against each other on the
+same weights.  Parameters are a nested dict of tensors whose per-layer
+entries are stacked along a leading layer axis, as in the JAX value tree;
+the layers run in a Python loop over that axis.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from .. import default_device
+from .layers import apply_norm, embed_tokens, init_embedding, init_norm, unembed
+from .mamba import MambaState, init_mamba, init_mamba_state, mamba_decode, mamba_forward
+
+
+def build_model(cfg, param_dtype=torch.float32, device=None) -> "Model":
+    return Model(cfg, param_dtype, device)
+
+
+class Model:
+    def __init__(self, cfg, param_dtype=torch.float32, device=None):
+        if cfg.family != "ssm":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet: the attention, MoE, hybrid and "
+                "encoder-decoder families are ROADMAP Queue 1 items 5 and 7"
+            )
+        self.cfg = cfg
+        self.dtype = param_dtype
+        self.device = default_device(device)
+
+    # ================================================================ init
+    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+        """Random parameters on ``self.device`` from ``generator`` (which
+        must live on that device), with the JAX package's distributions:
+        normal / sqrt(fan_in), embeddings x 0.02, ``conv_w`` x 0.5, zeros and
+        ones where the JAX package has them."""
+        cfg, dev = self.cfg, self.device
+        layers = [
+            {"ln": init_norm(cfg, dev), "mamba": init_mamba(cfg, generator, dev, self.dtype)}
+            for _ in range(cfg.n_layers)
+        ]
+        return {
+            "embed": init_embedding(cfg, generator, dev, self.dtype),
+            "final_norm": init_norm(cfg, dev),
+            "layers": _stack(layers),
+        }
+
+    # ============================================================= forward
+    def forward(self, params, batch: Dict[str, torch.Tensor], mode: str = "train"):
+        """Full-sequence forward.  Returns (logits, aux, caches_or_None)."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], batch["tokens"], cfg, self.dtype)
+        x, caches = self._run_ssm(params, x, mode)
+        x = apply_norm(params["final_norm"], x, cfg)
+        return unembed(params["embed"], x, cfg), torch.zeros((), device=x.device), caches
+
+    def _run_ssm(self, params, x, mode, states: Optional[Dict] = None):
+        cfg = self.cfg
+        layers = params["layers"]
+        convs, ssms = [], []
+        for i in range(cfg.n_layers):
+            p_l = _index(layers, i)
+            hn = apply_norm(p_l["ln"], x, cfg)
+            if mode == "decode":
+                st = MambaState(states["layers"].conv[i], states["layers"].ssm[i])
+                y, new_st = mamba_decode(p_l["mamba"], hn, cfg, st)
+            else:
+                y, new_st = mamba_forward(p_l["mamba"], hn, cfg)
+            x = x + y
+            if mode in ("prefill", "decode"):
+                convs.append(new_st.conv)
+                ssms.append(new_st.ssm)
+        caches = None
+        if mode in ("prefill", "decode"):
+            caches = {"layers": MambaState(torch.stack(convs), torch.stack(ssms))}
+        return x, caches
+
+    # ============================================================ serving
+    def prefill(self, params, batch):
+        """Forward + cache build.  Returns (cache, last-position logits)."""
+        logits, _, caches = self.forward(params, batch, mode="prefill")
+        return caches, logits[:, -1]
+
+    def decode_step(self, params, tokens, cache, cache_index):
+        """tokens: (B, 1) — one token for the whole batch.  ``cache_index`` is
+        accepted for the JAX signature; the SSM state needs no position."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens, cfg, self.dtype)
+        x, cache = self._run_ssm(params, x, "decode", states=cache)
+        x = apply_norm(params["final_norm"], x, cfg)
+        return unembed(params["embed"], x, cfg)[:, 0], cache
+
+    def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16):
+        """Zero decode state, one entry per layer stacked along axis 0."""
+        st = init_mamba_state(self.cfg, batch, dtype, self.device)
+        L = self.cfg.n_layers
+        return {"layers": MambaState(*(torch.stack([a] * L) for a in st))}
+
+
+def _stack(trees):
+    """Stack per-layer dicts along a new leading layer axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]

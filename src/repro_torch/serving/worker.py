@@ -1,0 +1,168 @@
+"""Worker host: the function-instance lifecycle (Figure 2) on real models
+(counterpart of the JAX package's ``serving/worker.py``).
+
+A worker owns a memory pool and a table of idle *instances*: one endpoint's
+parameters materialised on the worker's device.  Cold start = parameter
+materialisation + one warm-up ``generate`` at the request's shape (the
+counterpart of the JAX package's XLA compile: it loads the kernels and warms
+PyTorch's allocator); warm start = reuse of a resident idle instance.  The
+evictor implements keep-alive timeouts and LRU force-eviction under memory
+pressure, emitting the scheduler notifications of Section IV-A.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from .. import default_device
+from ..models import build_model
+
+
+@dataclasses.dataclass
+class Endpoint:
+    """A deployable function type: model config + weight seed."""
+
+    name: str
+    cfg: object  # ModelConfig
+    seed: int = 0
+    max_cache_len: int = 128
+
+    def est_bytes(self) -> int:
+        p = self.cfg.n_params() * 4  # float32 parameters
+        return int(p * 1.2) + 64 * self.max_cache_len * 1024
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Instance:
+    """One warm sandbox: an endpoint's parameters on a device.
+
+    Parameters are drawn from a ``torch.Generator`` on the device seeded with
+    ``endpoint.seed``; pass ``params`` to use given ones instead (a test
+    hands in the JAX package's, converted by ``models.params_from_numpy``).
+    """
+
+    __slots__ = ("endpoint", "device", "model", "params", "last_used")
+
+    def __init__(self, endpoint: Endpoint, device=None, params: Optional[Dict] = None):
+        self.endpoint = endpoint
+        self.device = default_device(device)
+        self.model = build_model(endpoint.cfg, param_dtype=torch.float32, device=self.device)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(endpoint.seed)
+            params = self.model.init(gen)
+        self.params = params
+        _sync(self.device)
+        self.last_used = time.monotonic()
+
+    @torch.no_grad()
+    def generate(self, tokens: torch.Tensor, gen_len: int = 4) -> torch.Tensor:
+        """Prefill + a few greedy decode steps (the 'function execution').
+
+        As in the JAX package, decoding starts from a fresh zero cache: the
+        cache that prefill builds is discarded, so the tokens after the first
+        depend only on the previous token (ROADMAP Queue 3).  Kept so that
+        the two packages generate the same tokens.
+        """
+        model, ep = self.model, self.endpoint
+        tokens = tokens.to(self.device)
+        B, S = tokens.shape
+        cache = model.init_cache(B, ep.max_cache_len, dtype=torch.float32)
+        _, last_logits = model.prefill(self.params, {"tokens": tokens})
+        out = [last_logits.argmax(-1)]
+        idx = min(S, ep.max_cache_len - gen_len - 1)
+        for i in range(gen_len - 1):
+            logits, cache = model.decode_step(self.params, out[-1][:, None], cache, idx + i)
+            out.append(logits.argmax(-1))
+        result = torch.stack(out, 1)
+        _sync(self.device)
+        return result
+
+
+@dataclasses.dataclass
+class ExecutionRecord:
+    func: str
+    worker: int
+    cold: bool
+    init_ms: float
+    exec_ms: float
+
+    @property
+    def total_ms(self) -> float:
+        return self.init_ms + self.exec_ms
+
+
+class WorkerHost:
+    def __init__(self, wid: int, mem_pool_bytes: int = 2 * 2**30, keep_alive_s: float = 60.0,
+                 device=None):
+        self.wid = wid
+        self.device = default_device(device)
+        self.pool = mem_pool_bytes
+        self.keep_alive_s = keep_alive_s
+        self.idle: Dict[str, List[Instance]] = {}
+        self.used_bytes = 0
+        self.on_evict: Optional[Callable[[int, str], None]] = None
+
+    # ------------------------------------------------------------- memory
+    def _evict_lru(self) -> bool:
+        lru_key, lru_i, lru_t = None, -1, float("inf")
+        for name, lst in self.idle.items():
+            for i, inst in enumerate(lst):
+                if inst.last_used < lru_t:
+                    lru_key, lru_i, lru_t = name, i, inst.last_used
+        if lru_key is None:
+            return False
+        inst = self.idle[lru_key].pop(lru_i)
+        if not self.idle[lru_key]:
+            del self.idle[lru_key]
+        self.used_bytes -= inst.endpoint.est_bytes()
+        if self.on_evict:
+            self.on_evict(self.wid, lru_key)
+        return True
+
+    def sweep(self) -> None:
+        now = time.monotonic()
+        for name in list(self.idle):
+            keep = []
+            for inst in self.idle[name]:
+                if now - inst.last_used > self.keep_alive_s:
+                    self.used_bytes -= inst.endpoint.est_bytes()
+                    if self.on_evict:
+                        self.on_evict(self.wid, name)
+                else:
+                    keep.append(inst)
+            if keep:
+                self.idle[name] = keep
+            else:
+                del self.idle[name]
+
+    # ------------------------------------------------------------ execute
+    def execute(self, ep: Endpoint, tokens: torch.Tensor, gen_len: int = 4) -> ExecutionRecord:
+        cold = not self.idle.get(ep.name)
+        t0 = time.perf_counter()
+        if cold:
+            need = ep.est_bytes()
+            while self.used_bytes + need > self.pool and self._evict_lru():
+                pass
+            inst = Instance(ep, self.device)  # materialise ...
+            inst.generate(tokens, gen_len)    # ... + warm up == cold start
+            self.used_bytes += need
+        else:
+            inst = self.idle[ep.name].pop()
+        t1 = time.perf_counter()
+        inst.generate(tokens, gen_len)
+        t2 = time.perf_counter()
+        inst.last_used = time.monotonic()
+        self.idle.setdefault(ep.name, []).append(inst)
+        return ExecutionRecord(
+            func=ep.name, worker=self.wid, cold=cold,
+            init_ms=(t1 - t0) * 1e3 if cold else 0.0,
+            exec_ms=(t2 - t1) * 1e3,
+        )
