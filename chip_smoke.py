@@ -14,7 +14,17 @@ line):
              bitwise at R=4096, F=40, W=1600 and at W=100,000;
              ``ssd_scan`` at mamba2-130m width (H=24, P=64, N=128,
              chunk=256) in float32 to atol=1e-4, rtol=1e-3 and in bfloat16
-             to atol=rtol=5e-2.  Median kernel and plain times in CUDA events.
+             to atol=rtol=5e-2; ``flash_attention`` at minicpm-2b prefill
+             (B=1, S=1024, H=KH=36, hd=64, causal) and gemma3-4b width
+             (S=2048, H=8, KH=4, hd=256, causal, with and without window
+             1024), and ``decode_attention`` at both widths over a 2,048-long
+             cache (valid_len 1,024 and 2,047, with and without the window),
+             in float32 to atol=rtol=2e-5 and in bfloat16 to 2e-2.  Median
+             kernel and plain times in CUDA events; the attention kernels,
+             their plain versions and one ``scaled_dot_product_attention``
+             call (the library yardstick, timed here and never called by the
+             port) from CUDA graphs of back-to-back calls, decode over 8
+             caches in turn so that its reads miss the L2 cache.
 3. sched   — the main scheduling path: ``sched_many_fused`` (chunk 1024)
              and ``sched_many_adaptive`` on a 65,536-event seeded stream at
              W=1600, F=40, both bitwise equal to ``sched_many`` on the CPU.
@@ -25,12 +35,24 @@ line):
              cold-then-warm on the same worker, that every prefill went
              through the ``ssd_scan`` kernel (24 launches each), and one
              request's logits and tokens against the plain path on the CPU.
-5. profile — where a warm request's time goes: prefill and request time on
-             the host clock, device time by kernel and the device's busy
-             share from ``torch.profiler`` ("not measured" if it sees none).
+5. dense   — the dense serving path: a ``ServingEngine`` on the card with
+             three full-width minicpm-2b endpoints (40 layers, d_model 2304,
+             vocab 122,753; random weights from seeds 0-2, max_cache_len
+             2048, a 32 GiB pool per worker), 2 workers, hiku; the same 8
+             requests with 1,024-token prompts, gen_len 8.  Checks
+             cold-then-warm, exactly 40 ``flash_attention`` launches per
+             prefill and 40 ``decode_attention`` launches per decode step,
+             and one request with a 128-token prompt against the plain path
+             on the CPU.
+6. launcher — ``repro_torch.launch.serve.main`` on the card with its tiny
+             endpoints and ``--fail-at 2``.
+7. profile — where a warm request's time goes, for mamba2-130m and for
+             minicpm-2b: prefill and request time on the host clock, device
+             time by kernel and the device's busy share from
+             ``torch.profiler`` ("not measured" if it sees none).
 
-The launch counters are set to 0 just before phases 3-4 and read just after;
-launches made in phase 2 do not count.  Before the last line it prints one
+The launch counters are set to 0 just before each main path (phases 3, 4
+and 5) and read just after; launches made in phase 2 do not count.  Before the last line it prints one
 JSON line ``{"kernels": [...]}``, and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs one card and the CUDA toolkit; exits 2 without CUDA or outside a
@@ -54,10 +76,14 @@ PEAK_F32_OPS_PER_S = 67e12
 
 DEVICE = "cuda"
 FULL_WIDTH = (24, 768, 50280)  # mamba2-130m: layers, d_model, vocab
+DENSE_WIDTH = (40, 2304, 122753)  # minicpm-2b: layers, d_model, vocab
+ORDER = [0, 0, 1, 1, 2, 0, 1, 2]  # endpoint of each serve request
 
 TOL_F32 = dict(atol=1e-4, rtol=1e-3)
 TOL_BF16 = dict(atol=5e-2, rtol=5e-2)
-TOL_LOGITS = dict(atol=1e-3, rtol=1e-3)  # 24 layers of float32 matmuls, card vs CPU order
+TOL_LOGITS = dict(atol=1e-3, rtol=1e-3)  # 24-40 layers of float32 matmuls, card vs CPU order
+TOL_ATTN = dict(atol=2e-5, rtol=2e-5)    # float32, as tests/test_kernels.py
+TOL_ATTN_BF16 = dict(atol=2e-2, rtol=2e-2)
 
 
 def log(*a):
@@ -81,6 +107,36 @@ def time_cuda(torch, fn, reps: int, warmup: int = 1) -> float:
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def time_graph(torch, fns, reps: int = 20) -> float:
+    """Median milliseconds of one call of ``fns`` (run in turn), from a CUDA
+    graph that holds them all, replayed ``reps`` times between CUDA events.
+    The host's launch overhead is not in it; each function may take its own
+    inputs so that together they exceed the 50 MB L2 cache where the caller
+    would find its inputs cold."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        for f in fns:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for f in fns:
+            f()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / len(fns))
     return statistics.median(times)
 
 
@@ -244,6 +300,161 @@ def phase_kernels(torch, np, ops, ref, rows):
         f"{nbytes / 1e6:.2f} MB)")
 
 
+def attn_inputs(torch, shapes, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(*sh, generator=g).to(DEVICE) for sh in shapes]
+
+
+def live_pairs(S, causal, window):
+    """(query, key) pairs the masks leave live in one head."""
+    n = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window else 0
+        n += (i if causal else S - 1) - lo + 1
+    return n
+
+
+def flash_counts(B, S, H, KH, hd, causal, window, elem):
+    """q, k, v read once and out written once; 4*hd operations (q.k and
+    p*v) per live pair."""
+    return (2 * B * S * H + 2 * B * S * KH) * hd * elem, 4 * hd * B * H * live_pairs(S, causal, window)
+
+
+def decode_counts(B, S, H, KH, hd, valid, window, elem):
+    """q and out, and the live K/V rows only (the kernel reads no other)."""
+    n_live = min(valid, S - 1) - (max(0, valid - window + 1) if window else 0) + 1
+    return (2 * B * H + 2 * B * n_live * KH) * hd * elem, 4 * hd * B * H * n_live
+
+
+def check_close(torch, name, got, want, dtype):
+    tol = TOL_ATTN if dtype == torch.float32 else TOL_ATTN_BF16
+    err = max_abs(got, want)
+    if got.dtype != dtype or not torch.allclose(got.float(), want.float(), **tol):
+        fail(f"{name} differs from its plain version: max abs err {err:.3e} ({tol})")
+    return err
+
+
+def phase_attention(torch, ops, ref, rows):
+    """Both attention kernels against their plain versions at minicpm-2b and
+    gemma3-4b width, then times at the shapes of the main path."""
+    F = torch.nn.functional
+    f32, bf16 = torch.float32, torch.bfloat16
+    MINI = (1, 36, 36, 64)   # B, H, KH, hd
+    GEMMA = (1, 8, 4, 256)
+    errs = {"flash_attention": [], "decode_attention": []}
+    for label, (B, H, KH, hd), S, window in (("minicpm-2b", MINI, 1024, None),
+                                             ("gemma3-4b", GEMMA, 2048, 1024),
+                                             ("gemma3-4b", GEMMA, 2048, None)):
+        q, k, v = attn_inputs(torch, [(B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)], S + hd)
+        for dtype in (f32, bf16):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            got = ops.flash_attention(qd, kd, vd, True, window)
+            err = check_close(torch, f"flash_attention {label} {dtype}", got,
+                              ref.flash_attention_ref(qd, kd, vd, True, window), dtype)
+            if dtype == f32:
+                errs["flash_attention"].append(err)
+            log(f"[kernels] flash_attention {label} S={S} H={H} KH={KH} hd={hd} causal "
+                f"window={window} {str(dtype)[6:]}: max abs err {err:.3e}")
+    for label, (B, H, KH, hd) in (("minicpm-2b", MINI), ("gemma3-4b", GEMMA)):
+        S = 2048
+        q, kc, vc = attn_inputs(torch, [(B, H, hd), (B, S, KH, hd), (B, S, KH, hd)], hd)
+        for valid in (1024, 2047):
+            for window in (None, 1024):
+                for dtype in (f32, bf16):
+                    qd, kd, vd = (t.to(dtype) for t in (q, kc, vc))
+                    got = ops.decode_attention(qd, kd, vd, valid, window)
+                    err = check_close(torch, f"decode_attention {label} {dtype}", got,
+                                      ref.decode_attention_ref(qd, kd, vd, valid, window), dtype)
+                    if dtype == f32:
+                        errs["decode_attention"].append(err)
+                    log(f"[kernels] decode_attention {label} cache {S} H={H} KH={KH} hd={hd} "
+                        f"valid_len={valid} window={window} {str(dtype)[6:]}: max abs err {err:.3e}")
+
+    # times: CUDA graphs of back-to-back calls (time_graph); prefill's q, k, v
+    # were just written by the layer and sit in L2, a decode step's cache was
+    # last touched a whole model ago, so decode cycles through 8 caches (> L2)
+    for label, (B, H, KH, hd), S, window in (("minicpm-2b", MINI, 1024, None),
+                                             ("gemma3-4b", GEMMA, 2048, 1024)):
+        q, k, v = attn_inputs(torch, [(B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)], 7)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+        else:
+            i = torch.arange(S, device=DEVICE)
+            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        want = ref.flash_attention_ref(q, k, v, True, window)
+        lib_err = max_abs(lib().transpose(1, 2), want)
+        ms = time_graph(torch, [lambda: ops.flash_attention(q, k, v, True, window)] * 10)
+        plain_ms = time_graph(torch, [lambda: ref.flash_attention_ref(q, k, v, True, window)] * 3)
+        lib_ms = time_graph(torch, [lib] * 10)
+        nbytes, nops = flash_counts(B, S, H, KH, hd, True, window, 4)
+        b_ms, b_by = bound(nbytes, nops)
+        log(f"[kernels] flash_attention {label} B={B} S={S} H={H} KH={KH} hd={hd} causal "
+            f"window={window} f32: {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
+            f"(max abs diff {lib_err:.2e}), bound {b_ms:.4f} ms ({b_by}: "
+            f"{nops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        if label == "minicpm-2b":
+            rows["flash_attention"] = dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:75",
+                max_abs_err=max(errs["flash_attention"]), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    for label, (B, H, KH, hd), valid, window in (("minicpm-2b", MINI, 1024, None),
+                                                 ("gemma3-4b", GEMMA, 2047, 1024)):
+        S, n = 2048, 8
+        q, = attn_inputs(torch, [(B, H, hd)], 8)
+        caches = [attn_inputs(torch, [(B, S, KH, hd), (B, S, KH, hd)], 9 + c) for c in range(n)]
+        lo = max(0, valid - window + 1) if window else 0
+        qt = q[:, :, None, :]
+        live = [[t[:, lo:valid + 1].transpose(1, 2) for t in kv] for kv in caches]
+        want = ref.decode_attention_ref(q, *caches[0], valid, window)
+        lib_err = max_abs(F.scaled_dot_product_attention(qt, *live[0], enable_gqa=True)[:, :, 0], want)
+        ms = time_graph(torch, [lambda kv=kv: ops.decode_attention(q, *kv, valid, window)
+                                for kv in caches])
+        plain_ms = time_graph(torch, [lambda kv=kv: ref.decode_attention_ref(q, *kv, valid, window)
+                                      for kv in caches])
+        lib_ms = time_graph(torch, [lambda kv=kv: F.scaled_dot_product_attention(
+            qt, *kv, enable_gqa=True) for kv in live])
+        nbytes, nops = decode_counts(B, S, H, KH, hd, valid, window, 4)
+        b_ms, b_by = bound(nbytes, nops)
+        log(f"[kernels] decode_attention {label} cache {S} H={H} KH={KH} hd={hd} "
+            f"valid_len={valid} window={window} f32, {n} caches in turn: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}), bound "
+            f"{b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {nops / 1e6:.2f} MFLOP)")
+        if label == "minicpm-2b":
+            rows["decode_attention"] = dict(
+                name="decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:71",
+                max_abs_err=max(errs["decode_attention"]), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def run_launcher():
+    """``python -m repro_torch.launch.serve --fail-at 2`` on the card, in
+    process; checks its request lines, the failure/join line and the
+    summary."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as launch_serve
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        launch_serve.main(["--fail-at", "2"])
+    lines = out.getvalue().splitlines()
+    reqs = [ln for ln in lines if ln.strip().startswith("[")]
+    if len(reqs) != 24 or not any("failed; worker" in ln for ln in lines) \
+            or not lines[-1].startswith("summary:") or f"device={DEVICE}" not in lines[0]:
+        fail("launcher output is not as expected:\n" + "\n".join(lines))
+    log(f"[launcher] 24 requests on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{next(ln.strip() for ln in lines if 'failed; worker' in ln)}; {lines[-1]}")
+
+
 def pad_to(torch, ts, S, Q):
     pad = (-S) % Q
     if not pad:
@@ -289,17 +500,15 @@ def phase_sched(torch, np, core):
         "both bitwise equal to the CPU scan")
 
 
-def phase_serve(torch, np, Endpoint, ServingEngine, get_config):
-    """Returns (engine, worker of the first request, its prompt, the number of
-    Mamba layer calls in prefill: one ``ssd_scan`` launch each)."""
-    cfg = get_config("mamba2_130m")
-    if (cfg.n_layers, cfg.d_model, cfg.vocab) != FULL_WIDTH:
-        fail(f"mamba2_130m is not at full width {FULL_WIDTH}")
-    eps = [Endpoint(f"mamba{i}", cfg, seed=i) for i in range(3)]
-    eng = ServingEngine(eps, n_workers=2, scheduler="hiku")
+def serve(torch, np, eng, prefix, vocab, label):
+    """Submit the 8 requests of ``ORDER`` (1,024-token seeded prompts,
+    gen_len 8) to ``eng``'s endpoints ``prefix0..2``; check cold then warm on
+    the same worker.  Returns (worker of the first request, its prompt, the
+    number of ``generate`` calls: one per request and one per cold start's
+    warm-up)."""
     rng = np.random.default_rng(4)
-    order = ["mamba0", "mamba0", "mamba1", "mamba1", "mamba2", "mamba0", "mamba1", "mamba2"]
-    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, (1, 1024)).astype(np.int32))
+    order = [f"{prefix}{i}" for i in ORDER]
+    prompts = [torch.from_numpy(rng.integers(0, vocab, (1, 1024)).astype(np.int32))
                for _ in order]
     first = {}
     for func, tok in zip(order, prompts):
@@ -312,13 +521,19 @@ def phase_serve(torch, np, Endpoint, ServingEngine, get_config):
             fail(f"repeat request to {func} was cold or left its warm worker")
     cold = [r.latency_ms for r in eng.records if r.cold]
     warm = [r.latency_ms for r in eng.records if not r.cold]
-    log(f"[serve] 8 requests, 3 x mamba2-130m ({cfg.n_layers}L, d{cfg.d_model}, vocab "
-        f"{cfg.vocab}), 1024-token prompts, "
-        f"gen_len 8: cold {statistics.median(cold):.1f} ms (median of {len(cold)}), warm "
+    log(f"[{label}] {len(order)} requests, 1024-token prompts, gen_len 8: cold "
+        f"{statistics.median(cold):.1f} ms (median of {len(cold)}), warm "
         f"{statistics.median(warm):.1f} ms (median of {len(warm)}), scheduler overhead "
-        f"{eng.summary()['sched_overhead_ms'] * 1e3:.1f} us")
-    # each request runs one prefill, each cold start one more (its warm-up)
-    return eng, first["mamba0"].worker, prompts[0], (len(order) + len(cold)) * cfg.n_layers
+        f"{eng.summary()['sched_overhead_ms'] * 1e3:.1f} us; workers "
+        f"{[r.worker for r in eng.records]}")
+    return first[f"{prefix}0"].worker, prompts[0], len(order) + len(cold)
+
+
+def full_width(get_config, name, width):
+    cfg = get_config(name)
+    if (cfg.n_layers, cfg.d_model, cfg.vocab) != width:
+        fail(f"{name} is not at full width {width}")
+    return cfg
 
 
 def generate_with_logits(torch, inst, prompt, gen_len):
@@ -337,12 +552,12 @@ def generate_with_logits(torch, inst, prompt, gen_len):
     return torch.stack(out, 1).cpu(), [v.cpu() for v in logits]
 
 
-def check_serve_against_cpu(torch, Instance, eng, wid, prompt):
+def check_serve_against_cpu(torch, Instance, eng, wid, func, prompt, label):
     """One request re-run on the CPU copy of the same parameters, through the
     plain path: the prefill logits within TOL_LOGITS, and the same tokens up
     to the first step whose CPU top-2 logits are closer than the tolerance
     (a near-tie may rightly flip)."""
-    inst = eng.workers[wid].idle["mamba0"][0]
+    inst = eng.workers[wid].idle[func][0]
     tokens = inst.generate(prompt, 8).cpu()
     gpu_tokens, gpu_logits = generate_with_logits(torch, inst, prompt, 8)
     if not torch.equal(tokens, gpu_tokens):
@@ -359,12 +574,12 @@ def check_serve_against_cpu(torch, Instance, eng, wid, prompt):
         if float(top2[0] - top2[1]) > 2 * TOL_LOGITS["atol"]:
             fail(f"generated tokens differ from the CPU plain path at step {agree}: "
                  f"{gpu_tokens.tolist()} vs {cpu_tokens.tolist()}")
-    log(f"[serve] card vs CPU plain path on the same weights: prefill logits max abs err "
-        f"{err:.3e} (atol 1e-3, rtol 1e-3); tokens equal for {agree}/8 steps "
-        f"{gpu_tokens.tolist()[0]}")
+    log(f"[{label}] card vs CPU plain path on the same weights, {prompt.shape[1]}-token prompt: "
+        f"prefill logits max abs err {err:.3e} (atol 1e-3, rtol 1e-3); tokens equal for "
+        f"{agree}/8 steps {gpu_tokens.tolist()[0]}")
 
 
-def profile_warm_request(torch, eng, wid, prompt):
+def profile_warm_request(torch, eng, wid, func, prompt, label):
     """Where a warm request's time goes: prefill and the whole request on
     the host clock (each ending in a synchronize), then one request under
     ``torch.profiler`` for device time by kernel and the device's busy share
@@ -372,7 +587,7 @@ def profile_warm_request(torch, eng, wid, prompt):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    inst = eng.workers[wid].idle["mamba0"][0]
+    inst = eng.workers[wid].idle[func][0]
     tok = prompt.to(inst.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -389,16 +604,17 @@ def profile_warm_request(torch, eng, wid, prompt):
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     self_us = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731
     busy_ms = sum(self_us(e) for e in kern) / 1e3
-    log(f"[profile] warm request (1,024-token prefill + 7 decode steps): {request_ms:.1f} ms, "
+    tag = f"[profile {label}]"
+    log(f"{tag} warm request (1,024-token prefill + 7 decode steps): {request_ms:.1f} ms, "
         f"of which prefill {prefill_ms:.1f} ms (host clock)")
     if busy_ms == 0:
-        log("[profile] device time: not measured (the profiler saw no kernel time)")
+        log(f"{tag} device time: not measured (the profiler saw no kernel time)")
         return
-    log(f"[profile] traced request {traced_ms:.1f} ms: device busy {busy_ms:.2f} ms "
+    log(f"{tag} traced request {traced_ms:.1f} ms: device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / traced_ms:.1f}%), idle {100 * (1 - busy_ms / traced_ms):.1f}%, "
         f"{sum(e.count for e in kern)} kernel launches")
     for e in sorted(kern, key=self_us, reverse=True)[:8]:
-        log(f"[profile]   {self_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        log(f"{tag}   {self_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
 def _to_cpu(tree):
@@ -432,23 +648,59 @@ def main() -> int:
     card = phase_device(torch, build)
     rows = {}
     phase_kernels(torch, np, ops, ref, rows)
+    phase_attention(torch, ops, ref, rows)
+    launches = {}
 
-    ops.reset_launches()  # ---- the main path: scheduling, then serving
-    phase_sched(torch, np, core)
-    eng, wid, prompt, layer_calls = phase_serve(torch, np, Endpoint, ServingEngine, get_config)
-    torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)  # ---- read just after
-    log(f"[main path] launches {launches}; mamba layer prefill calls {layer_calls}")
-    for name in rows:
-        if launches[name] < 1:
-            fail(f"the main path never launched {name}")
-    if launches["ssd_scan"] != layer_calls:
-        fail(f"ssd_scan launched {launches['ssd_scan']} times for {layer_calls} layer prefills")
-    check_serve_against_cpu(torch, Instance, eng, wid, prompt)
-    profile_warm_request(torch, eng, wid, prompt)
+    def counted(path, kernels, fn):
+        """Drive one main path with the counters at 0 just before it and
+        read just after; each of ``kernels`` must have launched."""
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(ops.LAUNCHES)
+        log(f"[{path}] launches {got}")
+        for name in kernels:
+            if got[name] < 1:
+                fail(f"the {path} path never launched {name}")
+            launches[name] = got[name]
+        return out
+
+    counted("sched", ("sched_events", "sched_step"), lambda: phase_sched(torch, np, core))
+
+    mcfg = full_width(get_config, "mamba2_130m", FULL_WIDTH)
+    m_eng = ServingEngine([Endpoint(f"mamba{i}", mcfg, seed=i) for i in range(3)],
+                          n_workers=2, scheduler="hiku")
+    m_wid, m_prompt, m_calls = counted(
+        "serve", ("ssd_scan",), lambda: serve(torch, np, m_eng, "mamba", mcfg.vocab,
+                                              f"serve mamba2-130m {mcfg.n_layers}L"))
+    if launches["ssd_scan"] != m_calls * mcfg.n_layers:  # one per Mamba layer per prefill
+        fail(f"ssd_scan launched {launches['ssd_scan']} times for {m_calls} prefills")
+
+    dcfg = full_width(get_config, "minicpm_2b", DENSE_WIDTH)
+    d_eps = [Endpoint(f"minicpm{i}", dcfg, seed=i, max_cache_len=2048) for i in range(3)]
+    d_eng = ServingEngine(d_eps, n_workers=2, scheduler="hiku", mem_pool_bytes=32 * 2**30)
+    d_wid, d_prompt, d_calls = counted(
+        "dense", ("flash_attention", "decode_attention"),
+        lambda: serve(torch, np, d_eng, "minicpm", dcfg.vocab,
+                      f"dense minicpm-2b {dcfg.n_layers}L d{dcfg.d_model} vocab {dcfg.vocab}"))
+    L = dcfg.n_layers  # one launch per attention layer per prefill / per decode step
+    if launches["flash_attention"] != L * d_calls or launches["decode_attention"] != L * 7 * d_calls:
+        fail(f"dense path launched flash {launches['flash_attention']} and decode "
+             f"{launches['decode_attention']} times for {d_calls} generate calls of 7 decode steps")
+    log(f"[dense] {d_calls} generate calls: flash_attention {L} x {d_calls}, decode_attention "
+        f"{L} x 7 x {d_calls}, as expected; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    check_serve_against_cpu(torch, Instance, m_eng, m_wid, "mamba0", m_prompt, "serve")
+    short = torch.from_numpy(np.random.default_rng(5).integers(0, dcfg.vocab, (1, 128))
+                             .astype(np.int32))
+    check_serve_against_cpu(torch, Instance, d_eng, d_wid, "minicpm0", short, "dense")
+    run_launcher()
+    profile_warm_request(torch, m_eng, m_wid, "mamba0", m_prompt, "mamba2-130m")
+    profile_warm_request(torch, d_eng, d_wid, "minicpm0", d_prompt, "minicpm-2b")
 
     kernels = []
-    for name in ("sched_events", "sched_step", "ssd_scan"):
+    for name in ("sched_events", "sched_step", "ssd_scan", "flash_attention", "decode_attention"):
         row = rows[name]
         row["launches"] = launches[name]
         kernels.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",

@@ -10,6 +10,7 @@ error, and adds one to ``LAUNCHES[name]``, only where it launches.
 
 from __future__ import annotations
 
+import operator
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -18,7 +19,16 @@ import torch.nn.functional as F
 from . import build, ref
 
 #: kernel launches per wrapper since the last ``reset_launches()``
-LAUNCHES: Dict[str, int] = {"sched_events": 0, "sched_step": 0, "ssd_scan": 0}
+LAUNCHES: Dict[str, int] = {"sched_events": 0, "sched_step": 0, "ssd_scan": 0,
+                            "flash_attention": 0, "decode_attention": 0}
+
+#: head dims the attention kernels are instantiated for (the repo's attention
+#: configs, plus 16 and 32 for the tiny serving and test configs)
+ATTN_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+#: CTAs the decode kernel aims for when it splits the live range (four per
+#: SM of an H100's 132), and the granule of cache rows a split takes
+DECODE_TARGET_CTAS = 528
+DECODE_SPLIT_ROWS = 16
 
 
 def reset_launches() -> None:
@@ -147,3 +157,103 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tens
     _raise_on(err, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
     return (y[:, :S] if pad else y), st
+
+
+def _attn_checks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_shape, kv_shape) -> None:
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    _check("q", q, q.dtype, q_shape)
+    _check("k", k, q.dtype, kv_shape)
+    _check("v", v, q.dtype, kv_shape)
+    H, KH, hd = q_shape[-2], kv_shape[-2], q_shape[-1]
+    if KH < 1 or H % KH:
+        raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {KH}")
+    if hd not in ATTN_HEAD_DIMS:
+        raise ValueError(f"attention kernels take head_dim in {ATTN_HEAD_DIMS}, got {hd}")
+
+
+def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None):
+    """Attention over a whole sequence (prefill).  q (B,S,H,hd); k, v
+    (B,S,KH,hd), float32 or bfloat16 alike; query head h reads kv head
+    h // (H/KH).  Key j is live for query i when ``j <= i`` (causal) and
+    ``i - j < window`` (window set): the kernel takes positions from row and
+    column indices, so callers' positions must be ``arange(S)``.  Any S.
+    Returns (B,S,H,hd) in q's dtype."""
+    if not _on_cuda(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal, window)
+    B, S, H, hd = q.shape
+    _attn_checks(q, k, v, (B, S, H, hd), (B, S, k.shape[2], hd))
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    out = torch.empty_like(q)
+    lib = build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], hd,
+            int(causal), window or 0, int(q.dtype == torch.bfloat16), _stream(q),
+        )
+    _raise_on(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def decode_splits(n_live: int, batch_kv: int) -> Tuple[int, int]:
+    """(n_splits, rows per split) for ``n_live`` live cache rows and
+    ``batch_kv`` = B * KH: about ``DECODE_TARGET_CTAS`` CTAs, each taking a
+    multiple of ``DECODE_SPLIT_ROWS`` rows."""
+    want = max(1, -(-DECODE_TARGET_CTAS // batch_kv))
+    g = DECODE_SPLIT_ROWS
+    chunk = -(-n_live // (want * g)) * g
+    return -(-n_live // chunk), chunk
+
+
+def decode_attention(q, k_cache, v_cache, valid_len: int, window: Optional[int] = None):
+    """One new token per sequence against a cache.  q (B,H,hd); caches
+    (B,S,KH,hd) in q's dtype (float32 or bfloat16).  Positions ``<=
+    valid_len`` are live, and with a window only those with ``valid_len -
+    pos < window``.  ``valid_len`` is one Python int for the whole batch
+    (the kernel has no per-row lengths: ROADMAP Queue 1 item 6); on the
+    card a tensor raises.  Returns (B,H,hd) in q's dtype.
+
+    On the card the live range is split over CTAs (``decode_splits``); the
+    partial (m, l, acc) go to float32 scratch allocated here and a second
+    launch merges them.  Both launches count as one."""
+    if not _on_cuda(q, k_cache, v_cache):
+        return ref.decode_attention_ref(q, k_cache, v_cache, valid_len, window)
+    if isinstance(valid_len, torch.Tensor):
+        raise TypeError("decode_attention kernel takes valid_len as one Python int "
+                        "(per-row lengths are ROADMAP Queue 1 item 6), got a tensor")
+    valid_len = operator.index(valid_len)
+    B, S, KH, hd = k_cache.shape
+    H = q.shape[1]
+    _attn_checks(q, k_cache, v_cache, (B, H, hd), (B, S, KH, hd))
+    if any(t.data_ptr() % (4 * t.element_size()) for t in (k_cache, v_cache)):
+        raise ValueError("decode_attention kernel reads the caches 4 elements at a time: "
+                         "their storage must be aligned to 4 elements")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    lib = build.load("decode_attention")
+    G = H // KH
+    if G > lib.decode_attention_max_group():
+        raise ValueError(f"decode kernel takes at most {lib.decode_attention_max_group()} "
+                         f"query heads per kv head, got {G}")
+    lo = max(0, valid_len - window + 1) if window is not None else 0
+    hi = min(valid_len, S - 1)
+    if hi < lo:
+        raise ValueError(f"no live cache position: valid_len {valid_len}, window {window}, "
+                         f"cache length {S}")
+    n_splits, chunk = decode_splits(hi - lo + 1, B * KH)
+    out = torch.empty_like(q)
+    m_part = torch.empty((B, KH, n_splits, G), dtype=torch.float32, device=q.device)
+    l_part = torch.empty_like(m_part)
+    acc_part = torch.empty((B, KH, n_splits, G, hd), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.decode_attention_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+            m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+            B, S, H, KH, hd, lo, hi, chunk, n_splits, int(q.dtype == torch.bfloat16),
+            _stream(q),
+        )
+    _raise_on(err, "decode_attention")
+    LAUNCHES["decode_attention"] += 1
+    return out

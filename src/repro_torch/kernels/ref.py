@@ -3,6 +3,8 @@
   sched_step_ref   <-> csrc/sched.cu, ARRIVAL-only specialisation
   sched_events_ref <-> csrc/sched.cu (mixed ARRIVAL|FINISH|EVICT bursts)
   ssd_scan_ref     <-> csrc/ssd_scan.cu (the chunked SSD of models/mamba.py)
+  flash_attention_ref  <-> csrc/flash_attention.cu
+  decode_attention_ref <-> csrc/decode_attention.cu
 
 ``kernels/ops.py`` takes these for tensors on the CPU; the tests and
 ``chip_smoke.py`` hold each kernel against its plain version on the card.
@@ -10,10 +12,12 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+_NEG_INF = -2.0e38  # masked logits, as in the TPU kernels
 Tensors4 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
@@ -53,3 +57,53 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     from ..models.mamba import ssd_chunked  # deferred: models import ops
 
     return ssd_chunked(x, dt, A, Bm, Cm, chunk, init_state)
+
+
+def _scale(hd: int) -> float:
+    """1/sqrt(hd) computed in float32, as the JAX package does."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Attention over a whole sequence.  q (B,S,H,hd); k, v (B,S,KH,hd);
+    query head h reads kv head h // (H/KH).  Key j is live for query i when
+    ``j <= i`` (causal) and ``i - j < window`` (window set); masked logits are
+    -2e38, the softmax runs in float32 and its probabilities are cast to
+    ``q.dtype`` before the product with ``v``.  Returns (B,S,H,hd)."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, S, KH, G, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * _scale(hd)
+    pos = torch.arange(S, device=q.device)
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        ok &= (pos[:, None] - pos[None, :]) < window
+    logits = logits.masked_fill(~ok, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.to(q.dtype))
+    return out.reshape(B, S, H, hd)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         valid_len: int, window: Optional[int] = None) -> torch.Tensor:
+    """One new token per sequence against a cache.  q (B,H,hd); caches
+    (B,S,KH,hd); positions ``<= valid_len`` are live, and with a window only
+    those with ``valid_len - pos < window``.  Masked logits -2e38, softmax in
+    float32, probabilities cast to ``q.dtype``.  Returns (B,H,hd)."""
+    B, S, KH, hd = k_cache.shape
+    H = q.shape[1]
+    G = H // KH
+    qg = q.reshape(B, KH, G, hd)
+    logits = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.to(q.dtype).float()) * _scale(hd)
+    pos = torch.arange(S, device=q.device)
+    ok = pos <= valid_len
+    if window is not None:
+        ok &= (valid_len - pos) < window
+    logits = logits.masked_fill(~ok, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache.to(q.dtype))
+    return out.reshape(B, H, hd)

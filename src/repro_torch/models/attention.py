@@ -1,0 +1,188 @@
+"""Grouped-query attention with biases, qk-norm, rotary embeddings and a
+per-layer sliding window (counterpart of the JAX package's
+``models/attention.py``).
+
+``attn_forward`` (prefill) calls ``kernels.ops.flash_attention`` and
+``attn_decode`` calls ``kernels.ops.decode_attention``: on the card those are
+the CUDA kernels, on the CPU their plain versions.  ``sdpa`` is the JAX
+package's einsum with an additive mask.  On the CPU it also covers what the
+kernels do not: a logit softcap, cross-attention memory and a per-row
+``(B,)`` ``cache_index``.  On the card each of these raises.
+
+The kernels build their masks from row and column indices, the JAX functions
+from ``positions[0]``; the two agree because the model's positions are
+``arange(S)`` in prefill and the single ``cache_index`` in decode.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..kernels import ops
+from .layers import apply_rope, rmsnorm, stacked_normal
+
+_NEG_INF = -2.0e38
+GLOBAL_WINDOW = 2**30  # "window" value meaning full attention
+
+KV = Tuple[torch.Tensor, torch.Tensor]
+
+
+# ------------------------------------------------------------------- params
+def init_attention(cfg, generator: torch.Generator, device, dtype=torch.float32,
+                   layers: int = 0) -> Dict[str, torch.Tensor]:
+    """Random parameters with the JAX package's distributions (normal /
+    sqrt(fan_in), fan_in the first axis of the per-layer shape; biases and
+    qk-norm scales zero); with ``layers > 0`` stacked along a leading axis."""
+    d, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    lead = (layers,) if layers else ()
+    w = lambda shape: stacked_normal(shape, layers, generator, device, dtype)  # noqa: E731
+    zeros = lambda shape, dt=dtype: torch.zeros(lead + shape, dtype=dt, device=device)  # noqa: E731
+    p = {"wq": w((d, H, hd)), "wk": w((d, KH, hd)), "wv": w((d, KH, hd)), "wo": w((H, hd, d))}
+    if cfg.use_bias:
+        p.update(bq=zeros((H, hd)), bk=zeros((KH, hd)), bv=zeros((KH, hd)), bo=zeros((d,)))
+    if cfg.qk_norm:
+        p.update(q_norm=zeros((hd,), torch.float32), k_norm=zeros((hd,), torch.float32))
+    return p
+
+
+def init_mla(*args, **kwargs):
+    raise NotImplementedError("MLA (absorbed decode) is not ported yet: ROADMAP Queue 1 item 7")
+
+
+mla_forward = mla_decode = init_mla
+
+
+# -------------------------------------------------------------------- core
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int, causal: bool) -> torch.Tensor:
+    """(Sq, Sk) additive mask; ``window == GLOBAL_WINDOW`` is full attention."""
+    dq, dk = q_pos[:, None], k_pos[None, :]
+    ok = (dq - dk) < window
+    if causal:
+        ok &= dk <= dq
+    return torch.where(ok, 0.0, _NEG_INF)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor],
+         softcap: Optional[float] = None) -> torch.Tensor:
+    """Grouped-query attention without repeating K/V.  q (B,Sq,KH,G,hd);
+    k, v (B,Sk,KH,hd); bias broadcastable to (B,KH,G,Sq,Sk).  Logits and
+    softmax in float32, probabilities cast to ``q.dtype``."""
+    scale = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32))
+    logits = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    if bias is not None:
+        logits = logits + bias
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", probs, v.to(q.dtype))
+
+
+def _unsupported_on_card(x: torch.Tensor, what: str) -> None:
+    if x.is_cuda:
+        raise NotImplementedError(f"{what} is not in the attention kernels; it runs on the CPU only")
+
+
+def _kernel_window(window: int) -> Optional[int]:
+    return None if window >= GLOBAL_WINDOW else int(window)
+
+
+def _qkv(p, x: torch.Tensor, src: torch.Tensor):
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    k = torch.einsum("bsd,dhe->bshe", src, p["wk"])
+    v = torch.einsum("bsd,dhe->bshe", src, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    return q, k, v
+
+
+def _out_proj(p, out: torch.Tensor) -> torch.Tensor:
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return y + p["bo"] if "bo" in p else y
+
+
+# --------------------------------------------------------------- GQA paths
+def attn_forward(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,          # (B, S, d)
+    cfg,
+    positions: torch.Tensor,  # (B, S): arange(S) in every row
+    window: Optional[int] = None,   # None or GLOBAL_WINDOW -> full
+    theta: Optional[float] = None,
+    causal: bool = True,
+    kv_memory: Optional[KV] = None,  # cross-attention K/V source (CPU only)
+) -> Tuple[torch.Tensor, KV]:
+    """Prefill/full-sequence attention.  Returns (y (B,S,d), (k, v)) with
+    k, v (B,S,KH,hd) for the cache."""
+    B, S, _ = x.shape
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    src = x if kv_memory is None else kv_memory[0]
+    q, k, v = _qkv(p, x, src)
+    if cfg.rope and kv_memory is None:
+        th = theta if theta is not None else cfg.rope_theta
+        q = apply_rope(q, positions, th)
+        k = apply_rope(k, positions, th)
+    w = window if window is not None else GLOBAL_WINDOW
+    if kv_memory is None and not cfg.attn_logit_softcap:
+        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                                  _kernel_window(w))
+    else:
+        _unsupported_on_card(x, "cross-attention memory" if kv_memory is not None else "softcap")
+        k_pos = positions[0] if kv_memory is None else kv_memory[1][0]
+        bias = _mask_bias(positions[0], k_pos, w, causal and kv_memory is None)[None, None, None]
+        out = sdpa(q.reshape(B, S, KH, H // KH, hd), k, v, bias, cfg.attn_logit_softcap)
+    return _out_proj(p, out.reshape(B, S, H, hd)), (k, v)
+
+
+def attn_decode(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,  # (B, 1, d)
+    cache: KV,        # k/v: (B, S_cache, KH, hd)
+    cfg,
+    cache_index,      # Python int for the whole batch, or (B,) per-slot positions (CPU only)
+    window: Optional[int] = None,
+    theta: Optional[float] = None,
+) -> Tuple[torch.Tensor, KV]:
+    """One-token decode.  Writes the new K/V into ``cache`` in place at
+    ``min(cache_index, S-1)`` (the JAX version returns new arrays; writing in
+    place spares a copy of the cache per layer and step) and attends to the
+    positions ``<= cache_index`` (unclamped, as in the JAX package), within
+    the window.  Returns (y (B,1,d), cache)."""
+    B = x.shape[0]
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    k_cache, v_cache = cache
+    S = k_cache.shape[1]
+    per_slot = isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1
+    if per_slot:
+        _unsupported_on_card(x, "a per-row (B,) cache_index (ROADMAP Queue 1 item 6)")
+        idx_vec = cache_index.to(device=x.device, dtype=torch.long)
+    else:
+        idx = int(cache_index)
+        idx_vec = torch.full((B,), idx, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _qkv(p, x, x)
+    if cfg.rope:
+        th = theta if theta is not None else cfg.rope_theta
+        q = apply_rope(q, idx_vec[:, None], th)
+        k_new = apply_rope(k_new, idx_vec[:, None], th)
+    if per_slot:
+        rows, wr = torch.arange(B, device=x.device), idx_vec.clamp(max=S - 1)
+    else:
+        rows, wr = slice(None), min(idx, S - 1)
+    k_cache[rows, wr] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[rows, wr] = v_new[:, 0].to(v_cache.dtype)
+    w = window if window is not None else GLOBAL_WINDOW
+    kc, vc = k_cache.to(q.dtype), v_cache.to(q.dtype)
+    if not per_slot and not cfg.attn_logit_softcap:
+        out = ops.decode_attention(q.reshape(B, H, hd).contiguous(), kc, vc, idx,
+                                   _kernel_window(w))
+    else:
+        _unsupported_on_card(x, "softcap")
+        k_pos = torch.arange(S, device=x.device)
+        valid = (k_pos[None, :] <= idx_vec[:, None]) & ((idx_vec[:, None] - k_pos[None, :]) < w)
+        bias = torch.where(valid, 0.0, _NEG_INF)[:, None, None, None, :]
+        out = sdpa(q.reshape(B, 1, KH, H // KH, hd), kc, vc, bias, cfg.attn_logit_softcap)
+    return _out_proj(p, out.reshape(B, 1, H, hd)), (k_cache, v_cache)

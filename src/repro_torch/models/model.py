@@ -1,12 +1,13 @@
 """Model assembly for the ported families (counterpart of the JAX package's
 ``models/model.py``).
 
-So far the ``ssm`` family (mamba2-130m): ``init``, ``forward``, ``prefill``,
-``decode_step`` and ``init_cache`` with the JAX package's signatures and
-parameter/cache layouts, so the two can be held against each other on the
-same weights.  Parameters are a nested dict of tensors whose per-layer
-entries are stacked along a leading layer axis, as in the JAX value tree;
-the layers run in a Python loop over that axis.
+So far the ``ssm`` family (mamba2-130m) and the ``dense`` family (minicpm-2b,
+gemma3-4b, command-r-35b): ``init``, ``forward``, ``prefill``, ``decode_step``
+and ``init_cache`` with the JAX package's signatures and parameter/cache
+layouts, so the two can be held against each other on the same weights.
+Parameters are a nested dict of tensors whose per-layer entries are stacked
+along a leading layer axis, as in the JAX value tree; the layers run in a
+Python loop over that axis.
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ import torch
 from .. import default_device
 from .layers import apply_norm, embed_tokens, init_embedding, init_norm, unembed
 from .mamba import MambaState, init_mamba, init_mamba_state, mamba_decode, mamba_forward
+from .transformer import _index, init_block, layer_meta, run_stack
+
+FAMILIES = ("ssm", "dense")
 
 
 def build_model(cfg, param_dtype=torch.float32, device=None) -> "Model":
@@ -26,10 +30,10 @@ def build_model(cfg, param_dtype=torch.float32, device=None) -> "Model":
 
 class Model:
     def __init__(self, cfg, param_dtype=torch.float32, device=None):
-        if cfg.family != "ssm":
+        if cfg.family not in FAMILIES or cfg.moe is not None or cfg.mla is not None:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: the attention, MoE, hybrid and "
-                "encoder-decoder families are ROADMAP Queue 1 items 5 and 7"
+                f"{cfg.name} ({cfg.family}) is not ported yet: MLA, MoE, hybrid, vision and "
+                "encoder-decoder models are ROADMAP Queue 1 items 5 and 7"
             )
         self.cfg = cfg
         self.dtype = param_dtype
@@ -40,8 +44,15 @@ class Model:
         """Random parameters on ``self.device`` from ``generator`` (which
         must live on that device), with the JAX package's distributions:
         normal / sqrt(fan_in), embeddings x 0.02, ``conv_w`` x 0.5, zeros and
-        ones where the JAX package has them."""
+        ones where the JAX package has them.  The dense stack is drawn
+        layer-stacked at once (``stack``, leading axis of ``n_layers``)."""
         cfg, dev = self.cfg, self.device
+        if cfg.family == "dense":
+            return {
+                "embed": init_embedding(cfg, generator, dev, self.dtype),
+                "final_norm": init_norm(cfg, dev),
+                "stack": init_block(cfg, generator, dev, self.dtype, layers=cfg.n_layers),
+            }
         layers = [
             {"ln": init_norm(cfg, dev), "mamba": init_mamba(cfg, generator, dev, self.dtype)}
             for _ in range(cfg.n_layers)
@@ -56,10 +67,22 @@ class Model:
     def forward(self, params, batch: Dict[str, torch.Tensor], mode: str = "train"):
         """Full-sequence forward.  Returns (logits, aux, caches_or_None)."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], batch["tokens"], cfg, self.dtype)
-        x, caches = self._run_ssm(params, x, mode)
+        tokens = batch["tokens"]
+        x = embed_tokens(params["embed"], tokens, cfg, self.dtype)
+        if cfg.family == "ssm":
+            x, caches = self._run_ssm(params, x, mode)
+        else:
+            B, S = tokens.shape
+            positions = torch.arange(S, device=x.device).expand(B, S)
+            x, caches = self._run_lm_stacks(params, x, positions, mode)
         x = apply_norm(params["final_norm"], x, cfg)
         return unembed(params["embed"], x, cfg), torch.zeros((), device=x.device), caches
+
+    def _run_lm_stacks(self, params, x, positions, mode, cache_index=None, caches=None):
+        w, t = layer_meta(self.cfg)
+        x, c = run_stack(params["stack"], x, self.cfg, positions, w, t, mode,
+                         caches["stack"] if caches else None, cache_index)
+        return x, ({"stack": c} if mode in ("prefill", "decode") else None)
 
     def _run_ssm(self, params, x, mode, states: Optional[Dict] = None):
         cfg = self.cfg
@@ -89,16 +112,27 @@ class Model:
         return caches, logits[:, -1]
 
     def decode_step(self, params, tokens, cache, cache_index):
-        """tokens: (B, 1) — one token for the whole batch.  ``cache_index`` is
-        accepted for the JAX signature; the SSM state needs no position."""
+        """tokens: (B, 1) — one token for the whole batch.  ``cache_index``:
+        the dense family's write position, a Python int (or a (B,) tensor of
+        per-slot positions, on the CPU only); the K/V cache is written in
+        place.  The SSM state needs no position."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg, self.dtype)
-        x, cache = self._run_ssm(params, x, "decode", states=cache)
+        if cfg.family == "ssm":
+            x, cache = self._run_ssm(params, x, "decode", states=cache)
+        else:
+            x, cache = self._run_lm_stacks(params, x, None, "decode", cache_index, cache)
         x = apply_norm(params["final_norm"], x, cfg)
         return unembed(params["embed"], x, cfg)[:, 0], cache
 
     def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16):
-        """Zero decode state, one entry per layer stacked along axis 0."""
+        """Zero decode state, one entry per layer stacked along axis 0: the
+        dense family's (k, v) pair of (L, B, seq, KH, hd)."""
+        cfg = self.cfg
+        if cfg.family == "dense":
+            shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim_)
+            return {"stack": (torch.zeros(shape, dtype=dtype, device=self.device),
+                              torch.zeros(shape, dtype=dtype, device=self.device))}
         st = init_mamba_state(self.cfg, batch, dtype, self.device)
         L = self.cfg.n_layers
         return {"layers": MambaState(*(torch.stack([a] * L) for a in st))}
@@ -111,8 +145,3 @@ def _stack(trees):
         return {k: _stack([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
 
-
-def _index(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]

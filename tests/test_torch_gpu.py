@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the dense model through both attention kernels against the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device:
 a CUDA kernel has no interpret mode.  The file imports neither JAX nor the
@@ -124,3 +125,133 @@ def test_ssd_kernel_raises_for_groups(cuda):
     args = [t.to(cuda) for t in _ssd_inputs(1, 64, 4, 8, 8, G=2)]
     with pytest.raises(ValueError):
         ops.ssd_scan(*args, chunk=32)
+
+
+# ------------------------------------------------------------------ attention
+TOL_ATTN = {torch.float32: dict(atol=2e-5, rtol=2e-5), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _attn_inputs(shapes, dtype, seed, cuda):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KH,hd,causal,window", [
+    (1, 128, 4, 4, 64, True, None),     # the shapes of tests/test_kernels.py
+    (2, 256, 8, 2, 64, True, None),
+    (1, 256, 4, 1, 128, True, 64),
+    (2, 128, 4, 4, 32, False, None),
+    (1, 1000, 4, 2, 64, True, None),    # ragged S: no tile divides it
+    (1, 1000, 8, 4, 256, True, 300),    # gemma3-4b heads, window, ragged
+    (2, 200, 4, 4, 80, True, None),
+    (1, 130, 2, 1, 16, False, 40),      # bidirectional window
+])
+def test_flash_kernel_matches_plain(cuda, B, S, H, KH, hd, causal, window, dtype):
+    q, k, v = _attn_inputs([(B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)], dtype, S + hd, cuda)
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert out.dtype == dtype and out.shape == (B, S, H, hd)
+    torch.testing.assert_close(out.float(), want.float(), **TOL_ATTN[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KH,hd,valid,window", [
+    (2, 512, 8, 2, 64, 511, None),      # the shapes of tests/test_kernels.py
+    (1, 256, 4, 4, 128, 100, None),
+    (2, 512, 16, 2, 64, 300, 128),
+    (1, 128, 8, 1, 64, 0, None),
+    (1, 2048, 36, 36, 64, 1031, None),  # minicpm-2b width, mid-block
+    (1, 2048, 8, 4, 256, 2047, 1024),   # gemma3-4b width, last position, window
+    (1, 2048, 8, 4, 256, 0, 1024),
+    (2, 300, 4, 2, 80, 150, None),
+    (1, 64, 4, 2, 128, 63, 1),          # a window of one position
+])
+def test_decode_kernel_matches_plain(cuda, B, S, H, KH, hd, valid, window, dtype):
+    q, kc, vc = _attn_inputs([(B, H, hd), (B, S, KH, hd), (B, S, KH, hd)], dtype, S + valid, cuda)
+    ops.reset_launches()
+    out = ops.decode_attention(q, kc, vc, valid, window=window)
+    want = ref.decode_attention_ref(q, kc, vc, valid, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == 1
+    assert out.dtype == dtype and out.shape == (B, H, hd)
+    torch.testing.assert_close(out.float(), want.float(), **TOL_ATTN[dtype])
+
+
+def test_decode_kernel_never_reads_past_valid_len(cuda):
+    """NaN in every cache row past valid_len (and before the window) must
+    not reach the output."""
+    q, kc, vc = _attn_inputs([(1, 8, 64), (1, 512, 4, 64), (1, 512, 4, 64)], torch.float32, 3, cuda)
+    want = ref.decode_attention_ref(q, kc, vc, 300, window=100)
+    for t in (kc, vc):
+        t[:, 301:] = float("nan")
+        t[:, :201] = float("nan")
+    out = ops.decode_attention(q, kc, vc, 300, window=100)
+    torch.testing.assert_close(out, want, **TOL_ATTN[torch.float32])
+
+
+def test_attention_kernels_check_inputs(cuda):
+    q, kc, vc = _attn_inputs([(2, 4, 64), (2, 32, 2, 64), (2, 32, 2, 64)], torch.float32, 0, cuda)
+    with pytest.raises(TypeError):  # per-row lengths: ROADMAP Queue 1 item 6
+        ops.decode_attention(q, kc, vc, torch.tensor([3, 5], device=cuda))
+    q96, k96, v96 = _attn_inputs([(2, 4, 96), (2, 32, 2, 96), (2, 32, 2, 96)], torch.float32, 0, cuda)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q96, k96, v96, 3)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q96[:, None], k96[:, :1].contiguous(), v96[:, :1].contiguous())
+    with pytest.raises(TypeError):
+        ops.decode_attention(q.double(), kc.double(), vc.double(), 3)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, kc, vc.transpose(1, 2), 3)
+    with pytest.raises(ValueError):  # no live position
+        ops.decode_attention(q, kc, vc, 40, window=4)
+    shifted = torch.empty(kc.numel() + 1, device=cuda)[1:].view(kc.shape)
+    with pytest.raises(ValueError):  # the kernel loads 4 elements at a time
+        ops.decode_attention(q, shifted, vc, 3)
+
+
+def test_dense_model_on_card_matches_cpu(cuda):
+    """Reduced gemma3-4b (GQA, qk-norm, window 16, a global layer) on the
+    card through both kernels, against the same model on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config("gemma3_4b").reduced(), n_layers=6)
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    params_card = {k: _tree_to(v, cuda) for k, v in params.items()}
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)).astype(np.int32))
+    ops.reset_launches()
+    cache_c, logits_c = card.prefill(params_card, {"tokens": tokens.to(cuda)})
+    cache, logits = cpu.prefill(params, {"tokens": tokens})
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(logits_c.cpu(), logits, **TOL)
+    kv_c, kv = card.init_cache(2, 48, torch.float32), cpu.init_cache(2, 48, torch.float32)
+    for a, b, src in zip(kv_c["stack"], kv["stack"], cache["stack"]):
+        a[:, :, :40] = src.to(cuda)
+        b[:, :, :40] = src
+    tok = tokens[:, -1:]
+    for step in range(3):
+        lc, kv_c = card.decode_step(params_card, tok.to(cuda), kv_c, 40 + step)
+        lp, kv = cpu.decode_step(params, tok, kv, 40 + step)
+        torch.testing.assert_close(lc.cpu(), lp, **TOL)
+        tok = lp.argmax(-1, keepdim=True).to(torch.int32)
+    assert ops.LAUNCHES["decode_attention"] == 3 * cfg.n_layers
+    with pytest.raises(NotImplementedError):  # per-row cache_index: ROADMAP Queue 1 item 6
+        card.decode_step(params_card, tok.to(cuda), kv_c, torch.tensor([43, 44], device=cuda))
+    with pytest.raises(NotImplementedError):  # no softcap in the kernels
+        Model(dataclasses.replace(cfg, attn_logit_softcap=50.0), device=cuda).prefill(
+            params_card, {"tokens": tokens.to(cuda)})
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -47,7 +47,7 @@ def test_config_copy_matches_jax():
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
     assert j.n_params() == t.n_params() and j.reduced().n_params() == t.reduced().n_params()
     with pytest.raises(NotImplementedError):
-        get_config("gemma3_4b")
+        get_config("mixtral_8x22b")
 
 
 @pytest.mark.parametrize("S", [40, 32])
@@ -111,4 +111,4 @@ def test_random_init_distributions():
     assert abs(float(m["conv_w"].std()) - 0.5) < 0.05
     assert torch.all(m["D"] == 1) and torch.all(m["A_log"] == 0) and torch.all(m["conv_b"] == 0)
     with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(cfg, family="dense"))
+        Model(dataclasses.replace(cfg, family="hybrid"))

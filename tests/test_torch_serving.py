@@ -1,7 +1,8 @@
 """The port's serving engine on the CPU with the tiny mamba2 endpoints of
 tests/test_serving.py: lifecycle, cold/warm, pull locality, eviction
 notifications, failure rerouting, and token parity with the JAX
-``Instance.generate`` on the same weights."""
+``Instance.generate`` on the same weights; then the same for the tiny
+minicpm-2b endpoint of the serving launcher (the dense family)."""
 
 import dataclasses
 
@@ -14,7 +15,9 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.serving import Endpoint as JaxEndpoint
 from repro.serving.worker import Instance as JaxInstance
+from repro.launch.serve import _endpoint as jax_launch_endpoint
 from repro_torch.configs import get_config
+from repro_torch.launch.serve import _endpoint as launch_endpoint
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.models.mamba import init_mamba_state
 from repro_torch.serving import Endpoint, Instance, ServingEngine, WorkerHost
@@ -120,3 +123,31 @@ def test_entry_points_need_a_device_without_cuda():
         params_from_numpy({"w": np.zeros(2, np.float32)})
     with pytest.raises(RuntimeError):
         init_mamba_state(_tiny_endpoint("f0").cfg, 1)
+
+
+# ------------------------------------------------------------- dense family
+@pytest.mark.parametrize("S,gen_len,seed", [(8, 2, 0), (20, 4, 1), (45, 2, 2)])
+def test_dense_generate_matches_jax_tokens(S, gen_len, seed):
+    """The launcher's tiny minicpm-2b endpoint (max_cache_len 48; S=45 puts
+    the decode index at its clamp, 48 - gen_len - 1)."""
+    jep = jax_launch_endpoint("t", seed)
+    jinst = JaxInstance(jep)
+    params = params_from_numpy(jax.tree.map(np.asarray, jinst.params), device="cpu")
+    ep = launch_endpoint("t", seed)
+    assert dataclasses.asdict(ep.cfg) == dataclasses.asdict(jep.cfg)
+    assert ep.est_bytes() == jep.est_bytes()
+    inst = Instance(ep, device="cpu", params=params)
+    tokens = np.random.default_rng(S).integers(0, ep.cfg.vocab, (2, S)).astype(np.int32)
+    want = np.asarray(jinst.generate(jnp.asarray(tokens), gen_len))
+    got = inst.generate(torch.from_numpy(tokens), gen_len)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_dense_engine_cold_then_warm_and_locality():
+    eng = ServingEngine([launch_endpoint(f"d{i}", i) for i in range(2)], n_workers=2,
+                        scheduler="hiku", device="cpu")
+    first = eng.submit("d0", gen_len=3)
+    again = [eng.submit("d0", gen_len=3) for _ in range(3)]
+    other = eng.submit("d1", gen_len=3)
+    assert first.cold and not any(r.cold for r in again) and other.cold
+    assert {r.worker for r in again} == {first.worker}
