@@ -14,17 +14,19 @@ line):
              bitwise at R=4096, F=40, W=1600 and at W=100,000;
              ``ssd_scan`` at mamba2-130m width (H=24, P=64, N=128,
              chunk=256) in float32 to atol=1e-4, rtol=1e-3 and in bfloat16
-             to atol=rtol=5e-2; ``flash_attention`` at minicpm-2b prefill
+             to atol=rtol=5e-2, and with ngroups G=2 in float32;
+             ``flash_attention`` at minicpm-2b prefill
              (B=1, S=1024, H=KH=36, hd=64, causal) and gemma3-4b width
              (S=2048, H=8, KH=4, hd=256, causal, with and without window
              1024), and ``decode_attention`` at both widths over a 2,048-long
              cache (valid_len 1,024 and 2,047, with and without the window),
              in float32 to atol=rtol=2e-5 and in bfloat16 to 2e-2.  Median
-             kernel and plain times in CUDA events; the attention kernels,
-             their plain versions and one ``scaled_dot_product_attention``
-             call (the library yardstick, timed here and never called by the
-             port) from CUDA graphs of back-to-back calls, decode over 8
-             caches in turn so that its reads miss the L2 cache.
+             times in CUDA events: the sched kernels around each call;
+             ``ssd_scan``, the attention kernels, their plain versions and
+             one ``scaled_dot_product_attention`` call (the library
+             yardstick, timed here and never called by the port) from CUDA
+             graphs of back-to-back calls, decode over 8 caches in turn so
+             that its reads miss the L2 cache.
 3. sched   — the main scheduling path: ``sched_many_fused`` (chunk 1024)
              and ``sched_many_adaptive`` on a 65,536-event seeded stream at
              W=1600, F=40, both bitwise equal to ``sched_many`` on the CPU.
@@ -47,8 +49,9 @@ line):
 6. launcher — ``repro_torch.launch.serve.main`` on the card with its tiny
              endpoints and ``--fail-at 2``.
 7. profile — where a warm request's time goes, for mamba2-130m and for
-             minicpm-2b: prefill and request time on the host clock, device
-             time by kernel and the device's busy share from
+             minicpm-2b: prefill and request time on the host clock; device
+             time by kernel of one traced warm prefill and of one traced
+             warm request, and the device's busy share, from
              ``torch.profiler`` ("not measured" if it sees none).
 
 The launch counters are set to 0 just before each main path (phases 3, 4
@@ -286,8 +289,19 @@ def phase_kernels(torch, np, ops, ref, rows):
         fail(f"ssd_scan bf16: max abs err {max(max_abs(yb, yr), max_abs(sb, sr)):.3e}")
     log(f"[kernels] ssd_scan bf16 B=1 S=1024: max abs err "
         f"{max(max_abs(yb, yr), max_abs(sb, sr)):.3e} (atol 5e-2, rtol 5e-2)")
-    ms = time_cuda(torch, lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q), reps=20)
-    plain_ms = time_cuda(torch, lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q), reps=10)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    B2, C2 = (torch.randn(1, 1024, 2, N, generator=g).to(DEVICE) * 0.3 for _ in range(2))
+    y, st = ops.ssd_scan(x, dt, A, B2, C2, chunk=Q)
+    yr, sr = ref.ssd_scan_ref(x, dt, A, B2, C2, Q)
+    if not (torch.allclose(y, yr, **TOL_F32) and torch.allclose(st, sr, **TOL_F32)):
+        fail(f"ssd_scan ngroups=2: max abs err {max(max_abs(y, yr), max_abs(st, sr)):.3e}")
+    err = max(err, max_abs(y, yr), max_abs(st, sr))
+    log(f"[kernels] ssd_scan f32 ngroups=2 B=1 S=1024: max abs err "
+        f"{max(max_abs(y, yr), max_abs(st, sr)):.3e} (atol 1e-4, rtol 1e-3)")
+    # times from CUDA graphs of back-to-back calls: the layer just wrote its
+    # inputs, so they sit in L2; the wrapper's host overhead is not counted
+    ms = time_graph(torch, [lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)] * 10)
+    plain_ms = time_graph(torch, [lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q)] * 3)
     nbytes, nops = ssd_counts(1, 1024, H, P, N, Q, 4)
     b_ms, b_by = bound(nbytes, nops)
     rows["ssd_scan"] = dict(
@@ -601,10 +615,22 @@ def profile_warm_request(torch, eng, wid, func, prompt, label):
         t0 = time.perf_counter()
         inst.generate(prompt, 8)
         traced_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_prefill:
+        inst.model.prefill(inst.params, {"tokens": tok})
+        torch.cuda.synchronize()
     self_us = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731
-    busy_ms = sum(self_us(e) for e in kern) / 1e3
     tag = f"[profile {label}]"
+    pre = [e for e in prof_prefill.key_averages() if e.device_type == DeviceType.CUDA]
+    pre_ms = sum(self_us(e) for e in pre) / 1e3
+    if pre_ms == 0:
+        log(f"{tag} prefill device time: not measured (the profiler saw no kernel time)")
+    else:
+        log(f"{tag} traced warm prefill: device busy {pre_ms:.2f} ms, "
+            f"{sum(e.count for e in pre)} kernel launches")
+        for e in sorted(pre, key=self_us, reverse=True)[:8]:
+            log(f"{tag}   prefill {self_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:80]}")
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(self_us(e) for e in kern) / 1e3
     log(f"{tag} warm request (1,024-token prefill + 7 decode steps): {request_ms:.1f} ms, "
         f"of which prefill {prefill_ms:.1f} ms (host clock)")
     if busy_ms == 0:

@@ -101,10 +101,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.sched_events_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
         lib.sched_events_launch.restype = i
     elif name == "ssd_scan":
-        lib.ssd_scan_launch.argtypes = [p] * 8 + [i] * 7 + [p]
+        lib.ssd_scan_launch.argtypes = [p] * 11 + [i] * 8 + [p]
         lib.ssd_scan_launch.restype = i
-        lib.ssd_scan_max_n.argtypes = []
-        lib.ssd_scan_max_n.restype = i
+        lib.ssd_scan_max_chunk.argtypes = []
+        lib.ssd_scan_max_chunk.restype = i
     elif name == "flash_attention":
         lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 8 + [p]
         lib.flash_attention_launch.restype = i

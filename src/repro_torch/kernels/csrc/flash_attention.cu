@@ -12,171 +12,262 @@
 // S=1024, H=36, hd=64, causal) it does ~4.8 GFLOP against ~38 MB of q, k, v
 // and out, far above the float32 ridge.  Tensor cores are not used: TF32 or
 // bf16 products would miss the float32 tolerance (2e-5) this kernel is held to.
-// Design: the TPU kernel walked the kv blocks as the sequential last grid axis
-// with (m, l, acc) in VMEM scratch.  Here one CTA takes one (batch, head,
-// 64-row q tile) and loops over the kv tiles itself, visiting only the tiles
-// the causal mask and the window leave live (the counterpart of the TPU
-// kernel's pl.when(jnp.any(ok)) skip): the loop bounds come from the q tile's
-// row range.  Q and each K/V tile are staged in shared memory as float32;
-// 256 threads form a 16 x 16 grid, each owning a 4-row register tile of the
-// scores and of acc, so the row statistics reduce over 16 lanes of one warp
-// with shuffles.  Masks are computed per element, so any S works (the TPU
-// kernel asserted S % block == 0).  At 1,024 tokens, 64-row q tiles give
-// 576 CTAs for 132 SMs.
+//
+// Design.  The TPU kernel walked the kv blocks as the sequential last grid
+// axis with (m, l, acc) in VMEM scratch.  Here one CTA takes one (head,
+// batch, BQ-row q tile) and loops over the kv tiles itself, visiting only the
+// tiles the causal mask and the window leave live.  What it does about the
+// operation bound, on CUDA cores:
+//   - register tiles: the threads form (BQ / RM) row groups of TC lanes; a
+//     thread owns RM query rows x BK / TC keys of the scores (8 x 4 at
+//     hd=64) and RM rows x its float4 column groups of acc.  Q, K and V sit
+//     in shared memory row-major with a 16-byte pad, so both products read
+//     float4: q.k takes RM + BK/TC float4 loads per 4 * RM * BK/TC FMAs,
+//     P.V RM + 4 * groups per 16 * RM * groups (>= 10 FMAs per load at
+//     hd=64, against 2 with scalar reads of a 4 x 4 tile).  A lane's keys
+//     are strided by TC, so the float4 reads of K rows fall in distinct banks;
+//   - cp.async: K and V tiles are copied 16 bytes at a time straight to
+//     shared memory (cp.async.cg, zero-filled past S), K_{j+1} while P.V of
+//     tile j runs and V_{j+1} while the scores of tile j+1 run, so one K and
+//     one V buffer overlap every copy with math; bf16 stays bf16 in shared
+//     memory and is converted when read;
+//   - exp2f with scale * log2(e) folded into the scores;
+//   - the q tiles launch last-first, so under the causal mask the longest
+//     CTAs start first and the tail is short; at 1,024 tokens, 64-row tiles
+//     give 576 CTAs at minicpm-2b width, three per SM.
+// Masks are per element, so any S works (the TPU kernel asserted
+// S % block == 0).  q, k and v must be 16-byte aligned (the wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kRM = kBQ / 16;  // rows per thread
 constexpr float kNegInf = -2.0e38f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+// BQ query rows per CTA, BK keys per tile, RM rows and TC lanes per row group
+template <int HD> struct Cfg;
+template <> struct Cfg<16> { static constexpr int BQ = 64, BK = 16, RM = 8, TC = 4, MinB = 1; };
+template <> struct Cfg<32> { static constexpr int BQ = 64, BK = 32, RM = 8, TC = 8, MinB = 1; };
+template <> struct Cfg<64> { static constexpr int BQ = 64, BK = 64, RM = 8, TC = 16, MinB = 3; };
+template <> struct Cfg<80> { static constexpr int BQ = 64, BK = 16, RM = 4, TC = 4, MinB = 1; };
+template <> struct Cfg<128> { static constexpr int BQ = 64, BK = 64, RM = 4, TC = 16, MinB = 1; };
+template <> struct Cfg<256> { static constexpr int BQ = 64, BK = 64, RM = 4, TC = 16, MinB = 1; };
+
+template <int HD> __host__ __device__ constexpr int threads() {
+  return Cfg<HD>::BQ / Cfg<HD>::RM * Cfg<HD>::TC;
+}
+// shared-memory row of Q, K and V in elements: HD plus 16 bytes
+template <typename T, int HD> __host__ __device__ constexpr int row_ld() {
+  return HD + 16 / (int)sizeof(T);
+}
+template <typename T, int HD> constexpr size_t smem_bytes() {
+  using C = Cfg<HD>;
+  return sizeof(T) * (size_t)(C::BQ + 2 * C::BK) * row_ld<T, HD>() +
+         sizeof(float) * (size_t)C::BQ * (C::BK + 4);
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// kv rows per tile: smaller for the wide heads so that Q, K, V and P fit
-template <int HD> __host__ __device__ constexpr int kv_tile() { return HD >= 128 ? 32 : 64; }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  constexpr int BK = kv_tile<HD>();
-  return sizeof(float) * ((size_t)(kBQ + BK) * (HD + 1) + (size_t)BK * HD + (size_t)kBQ * (BK + 1));
+// rows [row0, row0 + R) of head `head` of a (B, S, heads, HD) tensor into a
+// (R, row_ld) tile; rows at or past S are zero-filled
+template <typename T, int HD, int R, int NT>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int b, int row0,
+                                          int S, int heads, int head) {
+  constexpr int kPer = 16 / (int)sizeof(T);  // elements per 16-byte copy
+  constexpr int kChunks = HD / kPer;         // copies per row
+  constexpr int LD = row_ld<T, HD>();
+  for (int e = threadIdx.x; e < R * kChunks; e += NT) {
+    const int r = e / kChunks, ch = e % kChunks;
+    const int row = row0 + r;
+    const bool in = row < S;
+    const T* from = in ? src + (((size_t)b * S + row) * heads + head) * HD + ch * kPer : src;
+    cp_async16(dst + r * LD + ch * kPer, from, in);
+  }
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(threads<HD>(), Cfg<HD>::MinB)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       T* __restrict__ o, int S, int H, int KH, float scale, int causal,
+                       T* __restrict__ o, int S, int H, int KH, float scale_log2, int causal,
                        int window) {
-  constexpr int BK = kv_tile<HD>();
-  constexpr int LDQ = HD + 1;  // padded: the 16 key rows a half-warp reads sit in distinct banks
-  constexpr int LDP = BK + 1;
-  constexpr int CM = BK / 16;  // score columns per thread
-  constexpr int DM = HD / 16;  // acc columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;              // (kBQ, LDQ)
-  float* Ks = Qs + kBQ * LDQ;    // (BK, LDQ)
-  float* Vs = Ks + BK * LDQ;     // (BK, HD)
-  float* Ps = Vs + BK * HD;      // (kBQ, LDP) probabilities of the tile
+  using C = Cfg<HD>;
+  constexpr int BQ = C::BQ, BK = C::BK, RM = C::RM, TC = C::TC;
+  constexpr int NT = threads<HD>();
+  constexpr int CM = BK / TC;               // score columns per thread
+  constexpr int NG = HD / 4;                // float4 column groups of acc
+  constexpr int GPL = NG / TC;              // groups per lane
+  constexpr int LD = row_ld<T, HD>();
+  constexpr int LDP = BK + 4;
+  static_assert(BK % TC == 0 && NG % TC == 0 && 32 % TC == 0 && BQ % RM == 0, "tile shape");
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // (BQ, LD)
+  T* Ks = Qs + BQ * LD;                    // (BK, LD)
+  T* Vs = Ks + BK * LD;                    // (BK, LD)
+  float* Ps = reinterpret_cast<float*>(Vs + BK * LD);  // (BQ, LDP) probabilities
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // last tile first
   const int kh = h / (H / KH);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int q_end = min(q0 + kBQ, S);
-
-  for (int e = tid; e < kBQ * HD; e += kThreads) {
-    const int i = e / HD, d = e % HD;
-    Qs[i * LDQ + d] = q0 + i < S ? to_f(q[(((size_t)b * S + q0 + i) * H + h) * HD + d]) : 0.f;
-  }
-
-  float m[kRM], l[kRM], acc[kRM][DM];
-#pragma unroll
-  for (int r = 0; r < kRM; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DM; ++j) acc[r][j] = 0.f;
-  }
+  const int tid = threadIdx.x, ty = tid / TC, tx = tid % TC;
+  const int q_end = min(q0 + BQ, S);
 
   // live keys of this q tile: [k_lo, k_hi)
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int k_hi = causal ? q_end : S;
-  for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done (and Q is visible)
-    for (int e = tid; e < BK * HD; e += kThreads) {
-      const int j = e / HD, d = e % HD;
-      const bool in = k0 + j < S;
-      const size_t at = (((size_t)b * S + k0 + j) * KH + kh) * HD + d;
-      Ks[j * LDQ + d] = in ? to_f(k[at]) : 0.f;
-      Vs[j * HD + d] = in ? to_f(v[at]) : 0.f;
-    }
+  const int k_start = (k_lo / BK) * BK;
+
+  load_tile<T, HD, BQ, NT>(Qs, q, b, q0, S, H, h);
+  load_tile<T, HD, BK, NT>(Ks, k, b, k_start, S, KH, kh);
+  cp_async_commit();
+  load_tile<T, HD, BK, NT>(Vs, v, b, k_start, S, KH, kh);
+  cp_async_commit();
+
+  float m[RM], l[RM], acc[RM][4 * GPL];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4 * GPL; ++j) acc[r][j] = 0.f;
+  }
+
+  for (int k0 = k_start; k0 < k_hi; k0 += BK) {
+    const bool more = k0 + BK < k_hi;
+    cp_async_wait<1>();  // Q and K_j have landed (V_j may be in flight)
     __syncthreads();
 
-    float s[kRM][CM];
+    float s[RM][CM];
 #pragma unroll
-    for (int r = 0; r < kRM; ++r)
+    for (int r = 0; r < RM; ++r)
 #pragma unroll
       for (int c = 0; c < CM; ++c) s[r][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qr[kRM], kc[CM];
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 qv[RM], kv[CM];
 #pragma unroll
-      for (int r = 0; r < kRM; ++r) qr[r] = Qs[(ty * kRM + r) * LDQ + d];
+      for (int r = 0; r < RM; ++r) qv[r] = load4(Qs + (ty * RM + r) * LD + d);
 #pragma unroll
-      for (int c = 0; c < CM; ++c) kc[c] = Ks[(tx + 16 * c) * LDQ + d];
+      for (int c = 0; c < CM; ++c) kv[c] = load4(Ks + (tx + TC * c) * LD + d);
 #pragma unroll
-      for (int r = 0; r < kRM; ++r)
+      for (int r = 0; r < RM; ++r)
 #pragma unroll
-        for (int c = 0; c < CM; ++c) s[r][c] += qr[r] * kc[c];
+        for (int c = 0; c < CM; ++c) s[r][c] = dot4(qv[r], kv[c], s[r][c]);
     }
 
 #pragma unroll
-    for (int r = 0; r < kRM; ++r) {
-      const int qi = q0 + ty * kRM + r;
+    for (int r = 0; r < RM; ++r) {
+      const int qi = q0 + ty * RM + r;
       bool ok[CM];
       float mt = kNegInf;
 #pragma unroll
       for (int c = 0; c < CM; ++c) {
-        const int kj = k0 + tx + 16 * c;
+        const int kj = k0 + tx + TC * c;
         ok[c] = kj < S && (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
-        s[r][c] *= scale;
+        s[r][c] *= scale_log2;
         if (ok[c]) mt = fmaxf(mt, s[r][c]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      for (int off = TC / 2; off > 0; off >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
       const float m_new = fmaxf(m[r], mt);
-      const float alpha = expf(m[r] - m_new);
+      const float alpha = exp2f(m[r] - m_new);
       float ls = 0.f;
 #pragma unroll
       for (int c = 0; c < CM; ++c) {
-        const float p = ok[c] ? expf(s[r][c] - m_new) : 0.f;
-        Ps[(ty * kRM + r) * LDP + tx + 16 * c] = p;
+        const float p = ok[c] ? exp2f(s[r][c] - m_new) : 0.f;
+        Ps[(ty * RM + r) * LDP + tx + TC * c] = p;
         ls += p;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
+      for (int off = TC / 2; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
       l[r] = l[r] * alpha + ls;
       m[r] = m_new;
 #pragma unroll
-      for (int j = 0; j < DM; ++j) acc[r][j] *= alpha;
+      for (int j = 0; j < 4 * GPL; ++j) acc[r][j] *= alpha;
     }
+    __syncthreads();  // K_j is free and P is visible
+    if (more) load_tile<T, HD, BK, NT>(Ks, k, b, k0 + BK, S, KH, kh);
+    cp_async_commit();
+    cp_async_wait<1>();  // V_j has landed (K_{j+1} may be in flight)
     __syncthreads();
 
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float vr[DM];
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 pv[RM];
 #pragma unroll
-      for (int j = 0; j < DM; ++j) vr[j] = Vs[c * HD + tx + 16 * j];
+      for (int r = 0; r < RM; ++r) pv[r] = load4(Ps + (ty * RM + r) * LDP + kk);
 #pragma unroll
-      for (int r = 0; r < kRM; ++r) {
-        const float p = Ps[(ty * kRM + r) * LDP + c];
+      for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int j = 0; j < DM; ++j) acc[r][j] += p * vr[j];
+        for (int g = 0; g < GPL; ++g) {
+          const float4 vv = load4(Vs + (kk + i) * LD + 4 * (tx + TC * g));
+#pragma unroll
+          for (int r = 0; r < RM; ++r) {
+            const float p = at(pv[r], i);
+            acc[r][4 * g + 0] = fmaf(p, vv.x, acc[r][4 * g + 0]);
+            acc[r][4 * g + 1] = fmaf(p, vv.y, acc[r][4 * g + 1]);
+            acc[r][4 * g + 2] = fmaf(p, vv.z, acc[r][4 * g + 2]);
+            acc[r][4 * g + 3] = fmaf(p, vv.w, acc[r][4 * g + 3]);
+          }
+        }
       }
     }
+    __syncthreads();  // V_j and P are free
+    if (more) load_tile<T, HD, BK, NT>(Vs, v, b, k0 + BK, S, KH, kh);
+    cp_async_commit();
   }
+  cp_async_wait<0>();  // no copy outlives the CTA
 
 #pragma unroll
-  for (int r = 0; r < kRM; ++r) {
-    const int qi = q0 + ty * kRM + r;
-    if (qi < S) {
-      const float denom = fmaxf(l[r], 1e-30f);
-      T* out = o + (((size_t)b * S + qi) * H + h) * HD;
+  for (int r = 0; r < RM; ++r) {
+    const int qi = q0 + ty * RM + r;
+    if (qi >= S) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    T* out = o + (((size_t)b * S + qi) * H + h) * HD;
 #pragma unroll
-      for (int j = 0; j < DM; ++j) store(&out[tx + 16 * j], acc[r][j] / denom);
-    }
+    for (int g = 0; g < GPL; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) store(&out[4 * (tx + TC * g) + e], acc[r][4 * g + e] * inv);
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
                    int KH, int causal, int window, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = smem_bytes<T, HD>();
   static bool opted_in = false;  // the attribute is set once per instantiation
   if (smem > 48 * 1024 && !opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -184,10 +275,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(H, B, (S + Cfg<HD>::BQ - 1) / Cfg<HD>::BQ);
+  flash_attention_kernel<T, HD><<<grid, threads<HD>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, KH, 1.0f / sqrtf((float)HD), causal, window);
+      static_cast<T*>(o), S, H, KH, (1.0f / sqrtf((float)HD)) * kLog2e, causal, window);
   return cudaGetLastError();
 }
 
@@ -207,13 +298,15 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
 
 }  // namespace
 
-// q, o: (B, S, H, hd); k, v: (B, S, KH, hd), all contiguous, float32 or (when
-// is_bf16) bfloat16.  H % KH == 0; hd one of 16, 32, 64, 80, 128, 256;
-// window <= 0 means no window.
+// q, o: (B, S, H, hd); k, v: (B, S, KH, hd), all contiguous and 16-byte
+// aligned, float32 or (when is_bf16) bfloat16.  H % KH == 0; hd one of 16,
+// 32, 64, 80, 128, 256; window <= 0 means no window.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
                                       int S, int H, int KH, int hd, int causal, int window,
                                       int is_bf16, void* stream) {
-  if (B < 1 || S < 1 || KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
+  if (B < 1 || S < 1 || KH < 1 || H % KH != 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KH, hd, causal, window, s)
                        : dispatch<float>(q, k, v, o, B, S, H, KH, hd, causal, window, s));

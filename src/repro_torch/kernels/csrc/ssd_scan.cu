@@ -1,4 +1,4 @@
-// Mamba2 SSD chunked scan (ngroups = 1) for Hopper (sm_90a).
+// Mamba2 SSD chunked scan for Hopper (sm_90a), in its chunk-parallel form.
 //
 // Replaces the Pallas TPU kernel of the JAX package's kernels/ssd_scan.py
 // (ssd_scan, body _ssd_kernel).  For each chunk of Q positions, with
@@ -8,233 +8,459 @@
 //   h'    = exp(cs_last) h + sum_k exp(cs_last - cs_k) dt_k B_k (x) x_k
 // The state is zero (or init_state) at chunk 0.  Same function as
 // kernels/ref.py::ssd_scan_ref, in float32 throughout; x, B, C and y may be
-// float32 or bfloat16, dt, A and the state are float32.
+// float32 or bfloat16, dt, A and the state are float32.  B and C have G
+// groups; head h reads group h / (H / G).
 //
 // What bounds it on this card: operations.  At mamba2-130m width (H=24, P=64,
-// N=128, Q=256) one layer call at B=1, S=1024 moves ~14.5 MB but does ~1.2
-// GFLOP counted once (more as computed here, see below), so it sits above the
-// float32 ridge of CUDA cores; tensor cores are not used because TF32 would
-// break the 1e-4 / 1e-3 tolerance this kernel is held to.
-// Design: the TPU kernel held the (Q, Q, heads) decay matrix whole in VMEM
-// (2 MB at Q=256 and 8 heads), which no SM holds.  Here one CTA takes one
-// (batch, head, slice of kPT columns of P) and loops over the chunks in
-// order, keeping its (kPT, N) state slice and the chunk's cumsum in shared
-// memory.  The quadratic term runs in kTQ-row tiles against kTK-key tiles of
-// B and x up to the diagonal, with the causal mask and the exp(cs_q - cs_k)
-// decay applied on the fly; then the carried term; then the state update.
-// Splitting P over CTAs gives B*H*P/kPT CTAs (96 at B=1) instead of B*H (24)
-// so more of the 132 SMs work, at the price of recomputing C . B^T per slice.
+// N=128, Q=256) one layer call at B=1, S=1024 moves ~14.5 MB and does ~1.25
+// GFLOP counted once, above the float32 ridge of the CUDA cores.  Tensor cores
+// are not used: TF32 misses the 1e-4 / 1e-3 tolerance this kernel is held to.
+//
+// Design.  The TPU kernel walked the chunks in order per head block, holding
+// the (Q, Q, heads) decay matrix in VMEM.  Here only the state recurrence is
+// sequential, and it is elementwise; the rest is split as the SSD algorithm
+// splits it, into three launches on one stream:
+//   1. chunk_prep, two kinds of independent CTA in one grid:
+//      (a) chunk_scores: CB = C_c . B_c^T, one (Q, Q) float32 matrix per
+//          (batch, chunk, group), in 64 x 64 tiles on and below the diagonal;
+//          every head of the group reads it, so it is computed once, not once
+//          per head;
+//      (b) chunk_states: per (batch, chunk, head, 64 x 64 tile of (N, P)) the
+//          chunk's own state S_c = sum_k exp(cs_last - cs_k) dt_k B_k (x) x_k,
+//          with the chunk's cumsum taken by a block-wide scan (stored for 3).
+//   2. state_pass: per (batch, head, state element) h <- exp(cs_last) h + S_c
+//      over the chunks in order, overwriting S_c in place with the state that
+//      enters chunk c, and writing the final state.
+//   3. chunk_out: per (batch, chunk, head, 64-row q tile, 64 columns of P) the
+//      carried term from the entering state, then the quadratic term from CB
+//      with the decay exp(cs_q - cs_k) and dt_k applied while staging, into
+//      one register tile; the q tiles nearest the end of the chunk, which
+//      carry the most key tiles, launch first.
+// Every product runs on 256 threads, each owning a 4 x 4 register tile of
+// the output, with operands read from shared memory as float4: 8 loads per
+// 64 FMAs, where scalar dot products read two per FMA.  The next 64 x 64
+// stage is loaded into registers while the current one's products run, so
+// the L2 latency of the staging overlaps the math.  At B=1, S=1024,
+// mamba2-130m width chunk_out has 384 CTAs and chunk_prep 192 + 40 live
+// ones.  Chunk 0 skips the carried term when there is no init_state.
+// Decays are exponentials of differences, never quotients of exponentials.
+// Padded rows (dt = 0) leave the state unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTQ = 32;  // query rows per tile
-constexpr int kTK = 32;  // key rows per tile
-constexpr int kPT = 16;  // columns of P per CTA
-constexpr int kMaxN = 256;
-constexpr int kAcc = (kTQ * kPT + kThreads - 1) / kThreads;
-constexpr int kSt = (kPT * kMaxN + kThreads - 1) / kThreads;
+constexpr int kThreads = 256;  // 16 x 16, each thread a 4 x 4 output tile
+constexpr int kT = 64;         // output tile edge
+constexpr int kNC = 32;        // depth of one staged slice of N
+constexpr int kMaxQ = 1024;    // longest chunk (cumsum and dt staged whole)
+constexpr int kLd = kT + 4;    // padded row of a 64-wide tile (float4-aligned)
+constexpr int kLdN = kNC + 4;  // padded row of a 32-deep slice
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
 
+// acc[r][c] += sum_j A[r][j] * Bt[j][c] over 4 consecutive j, where the
+// thread's rows of A are a[r] (float4 along j) and Bt's rows j are b[j]
+// (float4 along the thread's 4 columns)
+__device__ __forceinline__ void outer4(float (&acc)[4][4], const float4 (&a)[4],
+                                       const float4 (&b)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float ar = at(a[r], j);
+      acc[r][0] = fmaf(ar, b[j].x, acc[r][0]);
+      acc[r][1] = fmaf(ar, b[j].y, acc[r][1]);
+      acc[r][2] = fmaf(ar, b[j].z, acc[r][2]);
+      acc[r][3] = fmaf(ar, b[j].w, acc[r][3]);
+    }
+}
+
+// (a) CB[b, c, g] = C_c . B_c^T for one 64 x 64 tile (qt, kt), kt <= qt.
+// Thread (ty, tx) owns rows q0 + 4 ty + r and columns k0 + tx + 16 c: the
+// strided columns make the float4 reads of B's rows conflict-free.
 template <typename T>
+__device__ void chunk_scores(const T* __restrict__ Bm, const T* __restrict__ Cm,
+                             float* __restrict__ CB, int qt, int kt, int g, int bc, int S, int G,
+                             int N, int Q, int nc, float* Cs, float* Bs) {
+  const int b = bc / nc, c = bc % nc;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = qt * kT, k0 = kt * kT;
+  const size_t t0 = (size_t)b * S + (size_t)c * Q;
+  float acc[4][4] = {};
+  for (int n0 = 0; n0 < N; n0 += kNC) {
+    __syncthreads();
+    for (int e = tid; e < kT * kNC; e += kThreads) {
+      const int i = e / kNC, n = e % kNC;
+      const bool nin = n0 + n < N;
+      Cs[i * kLdN + n] = nin && q0 + i < Q ? to_f(Cm[((t0 + q0 + i) * G + g) * N + n0 + n]) : 0.f;
+      Bs[i * kLdN + n] = nin && k0 + i < Q ? to_f(Bm[((t0 + k0 + i) * G + g) * N + n0 + n]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int n4 = 0; n4 < kNC; n4 += 4) {
+      float4 a[4], bb[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = ld4(&Cs[(ty * 4 + r) * kLdN + n4]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bb[j] = ld4(&Bs[(tx + 16 * j) * kLdN + n4]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[r][j] = dot4(a[r], bb[j], acc[r][j]);
+    }
+  }
+  float* out = CB + ((size_t)bc * G + g) * Q * Q;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int q = q0 + ty * 4 + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + tx + 16 * j;
+      if (q < Q && k < Q) out[(size_t)q * Q + k] = acc[r][j];
+    }
+  }
+}
+
+// Inclusive cumsum of dt * a over the chunk into cs[0, Q), by all threads:
+// a warp scan per 256-long segment, then a scan of the 8 warp totals.
+__device__ void chunk_cumsum(const float* __restrict__ dt, size_t row0, int H, int h, float a,
+                             int Q, float* cs, float* dts, float* wtot) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  constexpr int kWarps = kThreads / 32;
+  float carry = 0.f;
+  for (int base = 0; base < Q; base += kThreads) {
+    const int q = base + tid;
+    const float d = q < Q ? dt[(row0 + q) * H + h] : 0.f;
+    float v = d * a;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += o;
+    }
+    if (lane == 31) wtot[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+      float w = lane < kWarps ? wtot[lane] : 0.f;
+#pragma unroll
+      for (int off = 1; off < kWarps; off <<= 1) {
+        const float o = __shfl_up_sync(0xffffffffu, w, off);
+        if (lane >= off) w += o;
+      }
+      if (lane < kWarps) wtot[lane] = w;
+    }
+    __syncthreads();
+    if (q < Q) {
+      cs[q] = carry + (warp > 0 ? wtot[warp - 1] : 0.f) + v;
+      dts[q] = d;
+    }
+    carry += wtot[kWarps - 1];
+    __syncthreads();  // wtot is rewritten by the next segment
+  }
+}
+
+// Staging of 64 x 64 tiles: thread t loads column t % 64 of rows t / 64 + 4 i,
+// i < 16, into registers one stage ahead of the products that read them.
+constexpr int kPer = kT * kT / kThreads;
+
+// (b) The chunk's own state, stored transposed as st[b, c, h] (N, P):
+// st[n][p] = sum_k w_k B_k[n] x_k[p], w_k = exp(cs_last - cs_k) dt_k.
+// Thread (ty, tx) owns n = n0 + 4 ty + r and p = p0 + 4 tx + c.
+template <typename T>
+__device__ void chunk_states(const T* __restrict__ x, const float* __restrict__ dt,
+                             const float* __restrict__ A, const T* __restrict__ Bm,
+                             float* __restrict__ st, float* __restrict__ cs_out, int nt, int pt,
+                             int h, int bc, int S, int H, int G, int P, int N, int Q, int nc,
+                             float* Bs, float* Xs, float* cs, float* ws, float* wtot) {
+  const int b = bc / nc, c = bc % nc;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int col = tid % kT, row0 = tid / kT;
+  const int n0 = nt * kT, p0 = pt * kT;
+  const size_t t0 = (size_t)b * S + (size_t)c * Q;
+
+  chunk_cumsum(dt, t0, H, h, A[h], Q, cs, ws, wtot);
+  const float cl = cs[Q - 1];
+  for (int q = tid; q < Q; q += kThreads) {
+    if (nt == 0 && pt == 0) cs_out[((size_t)bc * H + h) * Q + q] = cs[q];
+    ws[q] = expf(cl - cs[q]) * ws[q];
+  }
+
+  float rb[kPer], rx[kPer];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k = k0 + row0 + 4 * i;
+      rb[i] = k < Q && n0 + col < N ? to_f(Bm[((t0 + k) * G + g) * N + n0 + col]) : 0.f;
+      rx[i] = k < Q && p0 + col < P ? to_f(x[((t0 + k) * H + h) * P + p0 + col]) : 0.f;
+    }
+  };
+  float acc[4][4] = {};
+  fetch(0);
+  for (int k0 = 0; k0 < Q; k0 += kT) {
+    __syncthreads();  // ws is ready; the previous tile's readers are done
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int r = row0 + 4 * i;
+      Bs[r * kLd + col] = rb[i];
+      Xs[r * kLd + col] = k0 + r < Q ? ws[k0 + r] * rx[i] : 0.f;
+    }
+    __syncthreads();
+    if (k0 + kT < Q) fetch(k0 + kT);  // in flight while this tile's products run
+#pragma unroll 4
+    for (int j = 0; j < kT; ++j) {
+      const float4 bn = ld4(&Bs[j * kLd + ty * 4]);
+      const float4 xp = ld4(&Xs[j * kLd + tx * 4]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float br = at(bn, r);
+        acc[r][0] = fmaf(br, xp.x, acc[r][0]);
+        acc[r][1] = fmaf(br, xp.y, acc[r][1]);
+        acc[r][2] = fmaf(br, xp.z, acc[r][2]);
+        acc[r][3] = fmaf(br, xp.w, acc[r][3]);
+      }
+    }
+  }
+  float* out = st + ((size_t)bc * H + h) * N * P;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int n = n0 + ty * 4 + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = p0 + tx * 4 + j;
+      if (n < N && p < P) out[(size_t)n * P + p] = acc[r][j];
+    }
+  }
+}
+
+// (a) and (b) in one launch, which they share as independent CTAs: x < nsx
+// are (b) tiles of head y; the rest are (a) tiles of group y (y < G).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+chunk_prep(const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+           const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ CB,
+           float* __restrict__ st, float* __restrict__ cs_out, int S, int H, int G, int P, int N,
+           int Q, int nc) {
+  __shared__ __align__(16) float Bs[kT * kLd];
+  __shared__ __align__(16) float Xs[kT * kLd];
+  __shared__ float cs[kMaxQ];
+  __shared__ float ws[kMaxQ];
+  __shared__ float wtot[kThreads / 32];
+  const int nnt = (N + kT - 1) / kT, npt = (P + kT - 1) / kT, nsx = nnt * npt;
+  const int bx = blockIdx.x, y = blockIdx.y, bc = blockIdx.z;
+  if (bx < nsx) {
+    chunk_states<T>(x, dt, A, Bm, st, cs_out, bx % nnt, bx / nnt, y, bc, S, H, G, P, N, Q, nc,
+                    Bs, Xs, cs, ws, wtot);
+    return;
+  }
+  const int nqt = (Q + kT - 1) / kT, tile = bx - nsx;
+  const int qt = tile / nqt, kt = tile % nqt;
+  if (y >= G || kt > qt) return;  // above the diagonal: never read
+  chunk_scores<T>(Bm, Cm, CB, qt, kt, y, bc, S, G, N, Q, nc, Bs, Xs);
+}
+
+// (c) h <- exp(cs_last) h + S_c over the chunks in order.  st[b, c, h] is
+// overwritten with the state entering chunk c; the final state goes to
+// state_out (B, H, P, N).  One thread per state element; the loads of 8
+// chunks are issued before their chain of updates.
 __global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
-                const T* __restrict__ Bm, const T* __restrict__ Cm,
-                const float* __restrict__ init_state, T* __restrict__ y,
-                float* __restrict__ state_out, int S, int H, int P, int N, int Q) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y, p0 = blockIdx.z * kPT;
-  const int tid = threadIdx.x;
-  const int ld = N + 1;  // padded row stride of the N-wide tiles (no bank conflicts)
-  float* cs = smem;                 // (Q) cumsum of dt*A over the chunk
-  float* dtv = cs + Q;              // (Q) dt over the chunk
-  float* hs = dtv + Q;              // (kPT, ld) state slice
-  float* Cs = hs + kPT * ld;        // (kTQ, ld)
-  float* Bs = Cs + kTQ * ld;        // (kTK, ld)
-  float* Xs = Bs + kTK * ld;        // (kTK, kPT)
-  float* Ss = Xs + kTK * kPT;       // (kTQ, kTK) masked, decayed scores
-  float* wk = Ss + kTQ * kTK;       // (kTK) exp(cs_last - cs_k) * dt_k
-  const float a = A[h];
-  const size_t head_state = ((size_t)b * H + h) * P;
+state_pass(float* __restrict__ st, const float* __restrict__ cs,
+           const float* __restrict__ init_state, float* __restrict__ state_out, int H, int P,
+           int N, int Q, int nc) {
+  constexpr int kBatch = 8;
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= N * P) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int n = e / P, p = e % P;
+  const size_t at_out = (((size_t)b * H + h) * P + p) * N + n;
+  float hv = init_state != nullptr ? init_state[at_out] : 0.f;
+  for (int c0 = 0; c0 < nc; c0 += kBatch) {
+    float own[kBatch], decay[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const size_t bch = ((size_t)b * nc + c0 + i) * H + h;
+      own[i] = c0 + i < nc ? st[bch * N * P + e] : 0.f;
+      decay[i] = c0 + i < nc ? cs[bch * Q + Q - 1] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (c0 + i < nc) {
+        st[(((size_t)b * nc + c0 + i) * H + h) * N * P + e] = hv;
+        hv = fmaf(expf(decay[i]), hv, own[i]);
+      }
+    }
+  }
+  state_out[at_out] = hv;
+}
 
-  for (int e = tid; e < kPT * N; e += kThreads) {
-    const int p = e / N, n = e % N;
-    hs[p * ld + n] = (init_state != nullptr && p0 + p < P)
-                         ? init_state[(head_state + p0 + p) * N + n] : 0.f;
+// (d) y for one 64-row q tile and 64 columns of P of one (batch, chunk, head):
+// sum_n (exp(cs_q) C_q[n]) h_in[n] over 64-deep slices of N, then
+// sum_{k <= q} (CB[q][k] exp(cs_q - cs_k) dt_k) x_k over the key tiles up to
+// the diagonal, all into one register tile (the carried term is skipped in
+// chunk 0 when there is no init_state).  Thread (ty, tx) owns
+// q = q0 + 4 ty + r and p = p0 + 4 tx + c.  The q tiles are launched last
+// first (z reversed): the tiles nearest the diagonal of a late q tile carry
+// the most key tiles.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+chunk_out(const T* __restrict__ x, const float* __restrict__ dt, const T* __restrict__ Cm,
+          const float* __restrict__ CB, const float* __restrict__ cs_in,
+          const float* __restrict__ st, T* __restrict__ y, int S, int H, int G, int P, int N,
+          int Q, int nc, int has_init) {
+  __shared__ __align__(16) float As[kT * kLd];  // (q, n) C e^{cs_q} / (q, k) decayed scores
+  __shared__ __align__(16) float Bs[kT * kLd];  // (n, p) h_in / (k, p) x
+  __shared__ float cs[kMaxQ];
+  __shared__ float dts[kMaxQ];
+  __shared__ float eq[kT];
+  const int npt = (P + kT - 1) / kT;
+  const int tile = gridDim.z - 1 - blockIdx.z;
+  const int qt = tile / npt, pt = tile % npt;
+  const int h = blockIdx.x, bc = blockIdx.y, b = bc / nc, c = bc % nc;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int col = tid % kT, row0 = tid / kT;
+  const int q0 = qt * kT, p0 = pt * kT;
+  const int q_end = min(Q, q0 + kT);
+  const size_t t0 = (size_t)b * S + (size_t)c * Q;
+  const size_t bch = (size_t)bc * H + h;
+  const float* hin = st + bch * N * P;
+  const float* cb = CB + ((size_t)bc * G + g) * Q * Q;
+
+  for (int i = tid; i < q_end; i += kThreads) {
+    cs[i] = cs_in[bch * Q + i];
+    dts[i] = dt[(t0 + i) * H + h];
+  }
+  __syncthreads();
+  if (tid < kT) eq[tid] = q0 + tid < Q ? expf(cs[q0 + tid]) : 0.f;
+
+  // stages: nin slices of N for the carried term, then qt + 1 key tiles
+  const int nin = c == 0 && !has_init ? 0 : (N + kT - 1) / kT, nst = nin + qt + 1;
+  float ra[kPer], rb[kPer];
+  auto fetch = [&](int s) {
+    if (s < nin) {
+      const int n = s * kT + col;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int r = row0 + 4 * i;
+        ra[i] = q0 + r < Q && n < N ? to_f(Cm[((t0 + q0 + r) * G + g) * N + n]) : 0.f;
+        rb[i] = s * kT + r < N && p0 + col < P ? hin[(size_t)(s * kT + r) * P + p0 + col] : 0.f;
+      }
+    } else {
+      const int k0 = (s - nin) * kT, k = k0 + col;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int r = row0 + 4 * i, q = q0 + r;
+        ra[i] = k <= q && q < Q ? cb[(size_t)q * Q + k] : 0.f;
+        rb[i] = k0 + r < Q && p0 + col < P ? to_f(x[((t0 + k0 + r) * H + h) * P + p0 + col]) : 0.f;
+      }
+    }
+  };
+
+  float acc[4][4] = {};
+  fetch(0);
+  for (int s = 0; s < nst; ++s) {
+    __syncthreads();  // the previous stage's readers are done (and eq is visible)
+    if (s < nin) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int r = row0 + 4 * i;
+        As[r * kLd + col] = ra[i] * eq[r];
+        Bs[r * kLd + col] = rb[i];
+      }
+    } else {
+      const int k = (s - nin) * kT + col;
+      const float ck = k < q_end ? cs[k] : 0.f, dk = k < q_end ? dts[k] : 0.f;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int r = row0 + 4 * i, q = q0 + r;
+        As[r * kLd + col] = k <= q && q < Q ? ra[i] * expf(cs[q] - ck) * dk : 0.f;
+        Bs[r * kLd + col] = rb[i];
+      }
+    }
+    __syncthreads();
+    if (s + 1 < nst) fetch(s + 1);  // in flight while this stage's products run
+#pragma unroll 2
+    for (int k4 = 0; k4 < kT; k4 += 4) {
+      float4 a[4], bb[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = ld4(&As[(ty * 4 + r) * kLd + k4]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bb[j] = ld4(&Bs[(k4 + j) * kLd + tx * 4]);
+      outer4(acc, a, bb);
+    }
   }
 
-  const int nc = S / Q;
-  for (int c = 0; c < nc; ++c) {
-    const size_t t0 = (size_t)b * S + (size_t)c * Q;  // first row of the chunk
-    for (int q = tid; q < Q; q += kThreads) dtv[q] = dt[(t0 + q) * H + h];
-    __syncthreads();
-    if (tid < 32) {  // inclusive cumsum of dt*A by one warp
-      const int per = (Q + 31) / 32;
-      const int lo = tid * per, hi = min(Q, lo + per);
-      float run = 0.f;
-      for (int q = lo; q < hi; ++q) {
-        run += dtv[q] * a;
-        cs[q] = run;
-      }
-      float incl = run;
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, incl, off);
-        if (tid >= off) incl += o;
-      }
-      const float excl = incl - run;
-      for (int q = lo; q < hi; ++q) cs[q] += excl;
+  for (int r = 0; r < 4; ++r) {
+    const int q = q0 + ty * 4 + r;
+    if (q >= Q) continue;
+    T* out = y + ((t0 + q) * H + h) * P;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = p0 + tx * 4 + j;
+      if (p < P) store(&out[p], acc[r][j]);
     }
-    __syncthreads();
-
-    // ---- output rows, one kTQ tile at a time
-    for (int q0 = 0; q0 < Q; q0 += kTQ) {
-      for (int e = tid; e < kTQ * N; e += kThreads) {
-        const int i = e / N, n = e % N;
-        Cs[i * ld + n] = q0 + i < Q ? to_f(Cm[(t0 + q0 + i) * N + n]) : 0.f;
-      }
-      __syncthreads();
-      float acc[kAcc];
-#pragma unroll
-      for (int r = 0; r < kAcc; ++r) {  // carried term from the entering state
-        const int o = tid + r * kThreads;
-        const int i = o / kPT, p = o % kPT;
-        float s = 0.f;
-        if (o < kTQ * kPT && q0 + i < Q) {
-          for (int n = 0; n < N; ++n) s += Cs[i * ld + n] * hs[p * ld + n];
-          s *= expf(cs[q0 + i]);
-        }
-        acc[r] = s;
-      }
-      const int kend = min(q0 + kTQ, Q);
-      for (int k0 = 0; k0 < kend; k0 += kTK) {
-        for (int e = tid; e < kTK * N; e += kThreads) {
-          const int j = e / N, n = e % N;
-          Bs[j * ld + n] = k0 + j < Q ? to_f(Bm[(t0 + k0 + j) * N + n]) : 0.f;
-        }
-        for (int e = tid; e < kTK * kPT; e += kThreads) {
-          const int j = e / kPT, p = e % kPT;
-          Xs[e] = (k0 + j < Q && p0 + p < P) ? to_f(x[((t0 + k0 + j) * H + h) * P + p0 + p]) : 0.f;
-        }
-        __syncthreads();
-        for (int e = tid; e < kTQ * kTK; e += kThreads) {
-          const int i = e / kTK, j = e % kTK;
-          const int q = q0 + i, k = k0 + j;
-          float v = 0.f;
-          if (k <= q && q < Q) {
-            for (int n = 0; n < N; ++n) v += Cs[i * ld + n] * Bs[j * ld + n];
-            v *= expf(cs[q] - cs[k]) * dtv[k];
-          }
-          Ss[e] = v;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int r = 0; r < kAcc; ++r) {
-          const int o = tid + r * kThreads;
-          if (o < kTQ * kPT) {
-            const int i = o / kPT, p = o % kPT;
-            float s = 0.f;
-            for (int j = 0; j < kTK; ++j) s += Ss[i * kTK + j] * Xs[j * kPT + p];
-            acc[r] += s;
-          }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int r = 0; r < kAcc; ++r) {
-        const int o = tid + r * kThreads;
-        const int i = o / kPT, p = o % kPT;
-        if (o < kTQ * kPT && q0 + i < Q && p0 + p < P)
-          store(&y[((t0 + q0 + i) * H + h) * P + p0 + p], acc[r]);
-      }
-    }
-
-    // ---- state update: h' = exp(cs_last) h + sum_k exp(cs_last - cs_k) dt_k B_k x_k
-    const float cl = cs[Q - 1];
-    float st[kSt];
-#pragma unroll
-    for (int r = 0; r < kSt; ++r) {
-      const int e = tid + r * kThreads;
-      st[r] = e < kPT * N ? expf(cl) * hs[(e / N) * ld + e % N] : 0.f;
-    }
-    for (int k0 = 0; k0 < Q; k0 += kTK) {
-      for (int e = tid; e < kTK * N; e += kThreads) {
-        const int j = e / N, n = e % N;
-        Bs[j * ld + n] = k0 + j < Q ? to_f(Bm[(t0 + k0 + j) * N + n]) : 0.f;
-      }
-      for (int e = tid; e < kTK * kPT; e += kThreads) {
-        const int j = e / kPT, p = e % kPT;
-        Xs[e] = (k0 + j < Q && p0 + p < P) ? to_f(x[((t0 + k0 + j) * H + h) * P + p0 + p]) : 0.f;
-      }
-      if (tid < kTK) wk[tid] = k0 + tid < Q ? expf(cl - cs[k0 + tid]) * dtv[k0 + tid] : 0.f;
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < kSt; ++r) {
-        const int e = tid + r * kThreads;
-        if (e < kPT * N) {
-          const int p = e / N, n = e % N;
-          float s = 0.f;
-          for (int j = 0; j < kTK; ++j) s += wk[j] * Bs[j * ld + n] * Xs[j * kPT + p];
-          st[r] += s;
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < kSt; ++r) {
-      const int e = tid + r * kThreads;
-      if (e < kPT * N) hs[(e / N) * ld + e % N] = st[r];
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < kPT * N; e += kThreads) {
-    const int p = e / N, n = e % N;
-    if (p0 + p < P) state_out[(head_state + p0 + p) * N + n] = hs[p * ld + n];
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const float* dt, const float* A, const void* Bm, const void* Cm,
-                   const float* init_state, void* y, float* state_out, int B, int S, int H, int P,
-                   int N, int Q, cudaStream_t stream) {
-  const int ld = N + 1;
-  const size_t smem = sizeof(float) *
-      ((size_t)2 * Q + (size_t)(kPT + kTQ + kTK) * ld + kTK * kPT + kTQ * kTK + kTK);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(H, B, (P + kPT - 1) / kPT);
-  ssd_scan_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-      init_state, static_cast<T*>(y), state_out, S, H, P, N, Q);
+                   const float* init_state, void* y, float* state_out, float* CB, float* cs,
+                   float* st, int B, int S, int H, int G, int P, int N, int Q,
+                   cudaStream_t stream) {
+  const int nc = S / Q;
+  const int nqt = (Q + kT - 1) / kT, nnt = (N + kT - 1) / kT, npt = (P + kT - 1) / kT;
+  const T* xt = static_cast<const T*>(x);
+  const T* Bt = static_cast<const T*>(Bm);
+  const T* Ct = static_cast<const T*>(Cm);
+  chunk_prep<T><<<dim3(nnt * npt + nqt * nqt, H, B * nc), kThreads, 0, stream>>>(
+      xt, dt, A, Bt, Ct, CB, st, cs, S, H, G, P, N, Q, nc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  state_pass<<<dim3((N * P + kThreads - 1) / kThreads, H, B), kThreads, 0, stream>>>(
+      st, cs, init_state, state_out, H, P, N, Q, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  chunk_out<T><<<dim3(H, B * nc, nqt * npt), kThreads, 0, stream>>>(
+      xt, dt, Ct, CB, cs, st, static_cast<T*>(y), S, H, G, P, N, Q, nc, init_state != nullptr);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ssd_scan_max_n() { return kMaxN; }
+extern "C" int ssd_scan_max_chunk() { return kMaxQ; }
 
-// x, y: (B, S, H, P); dt: (B, S, H); A: (H,); Bm, Cm: (B, S, 1, N); init_state
-// (may be null) and state_out: (B, H, P, N).  S must be a multiple of Q and
-// N at most ssd_scan_max_n(); x, Bm, Cm and y are bfloat16 when is_bf16.
+// x, y: (B, S, H, P); dt: (B, S, H); A: (H,); Bm, Cm: (B, S, G, N); init_state
+// (may be null) and state_out: (B, H, P, N).  Scratch, float32, allocated by
+// the caller: CB (B, S/Q, G, Q, Q), cs (B, S/Q, H, Q), st (B, S/Q, H, N, P).
+// S must be a multiple of Q, Q at most ssd_scan_max_chunk(), H a multiple of
+// G; x, Bm, Cm and y are bfloat16 when is_bf16.  Three launches on `stream`.
 extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* A, const void* Bm,
                                const void* Cm, const float* init_state, void* y,
-                               float* state_out, int B, int S, int H, int P, int N, int Q,
-                               int is_bf16, void* stream) {
-  if (N > kMaxN || Q < 1 || S % Q != 0) return (int)cudaErrorInvalidValue;
+                               float* state_out, float* CB, float* cs, float* st, int B, int S,
+                               int H, int G, int P, int N, int Q, int is_bf16, void* stream) {
+  if (B < 1 || Q < 1 || Q > kMaxQ || S < Q || S % Q != 0 || G < 1 || H % G != 0 || P < 1 ||
+      N < 1 || B * (S / Q) > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(x, dt, A, Bm, Cm, init_state, y, state_out, B, S, H, P, N, Q, s)
-              : launch<float>(x, dt, A, Bm, Cm, init_state, y, state_out, B, S, H, P, N, Q, s);
-  return (int)err;
+  return (int)(is_bf16
+      ? launch<__nv_bfloat16>(x, dt, A, Bm, Cm, init_state, y, state_out, CB, cs, st, B, S, H, G,
+                              P, N, Q, s)
+      : launch<float>(x, dt, A, Bm, Cm, init_state, y, state_out, CB, cs, st, B, S, H, G, P, N,
+                      Q, s));
 }

@@ -116,11 +116,14 @@ def sched_step(funcs, idle, conns):
 
 def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tensor] = None):
     """Mamba2 SSD chunked scan.  x (B,S,H,P) float32 or bfloat16; dt (B,S,H)
-    float32 post-softplus; A (H,) float32; Bm, Cm (B,S,G,N) in x's dtype;
-    init_state (B,H,P,N) float32 or None (zeros).  Returns (y (B,S,H,P) in
-    x's dtype, final state (B,H,P,N) float32).  ``S`` is padded to a
-    multiple of ``chunk``.  The kernel covers ngroups G == 1 and raises on
-    the card for any other G."""
+    float32 post-softplus; A (H,) float32; Bm, Cm (B,S,G,N) in x's dtype,
+    G dividing H (head h reads group h // (H/G)); init_state (B,H,P,N)
+    float32 or None (zeros).  Returns (y (B,S,H,P) in x's dtype, final state
+    (B,H,P,N) float32).  ``S`` is padded to a multiple of ``chunk``.
+
+    On the card the kernel runs in three launches (chunk scores and chunk
+    states, state passing, chunk outputs) on float32 scratch allocated here;
+    they count as one."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     on_cuda = _on_cuda(*(t for t in (x, dt, A, Bm, Cm, init_state) if t is not None))
@@ -130,29 +133,33 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tens
     if not on_cuda:
         y, st = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init_state)
         return (y[:, :S] if pad else y), st
-    if G != 1:
-        raise ValueError(f"ssd_scan kernel covers ngroups=1, got {G} (ROADMAP Queue 3)")
+    if G < 1 or H % G:
+        raise ValueError(f"n_heads {H} is not a multiple of ngroups {G}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x: expected float32 or bfloat16, got {x.dtype}")
     Sp = S + pad
     _check("x", x, x.dtype, (Bsz, Sp, H, P))
     _check("dt", dt, torch.float32, (Bsz, Sp, H))
     _check("A", A, torch.float32, (H,))
-    _check("Bm", Bm, x.dtype, (Bsz, Sp, 1, N))
-    _check("Cm", Cm, x.dtype, (Bsz, Sp, 1, N))
+    _check("Bm", Bm, x.dtype, (Bsz, Sp, G, N))
+    _check("Cm", Cm, x.dtype, (Bsz, Sp, G, N))
     if init_state is not None:
         _check("init_state", init_state, torch.float32, (Bsz, H, P, N))
     lib = build.load("ssd_scan")
-    if N > lib.ssd_scan_max_n():
-        raise ValueError(f"ssd_scan kernel takes d_state <= {lib.ssd_scan_max_n()}, got {N}")
+    if chunk > lib.ssd_scan_max_chunk():
+        raise ValueError(f"ssd_scan kernel takes chunk <= {lib.ssd_scan_max_chunk()}, got {chunk}")
+    nc = Sp // chunk
     y = torch.empty_like(x)
     st = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    scores = torch.empty((Bsz, nc, G, chunk, chunk), dtype=torch.float32, device=x.device)
+    cumsum = torch.empty((Bsz, nc, H, chunk), dtype=torch.float32, device=x.device)
+    states = torch.empty((Bsz, nc, H, N, P), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             init_state.data_ptr() if init_state is not None else None,
-            y.data_ptr(), st.data_ptr(),
-            Bsz, Sp, H, P, N, chunk, int(x.dtype == torch.bfloat16), _stream(x),
+            y.data_ptr(), st.data_ptr(), scores.data_ptr(), cumsum.data_ptr(), states.data_ptr(),
+            Bsz, Sp, H, G, P, N, chunk, int(x.dtype == torch.bfloat16), _stream(x),
         )
     _raise_on(err, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
@@ -178,11 +185,15 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None):
     h // (H/KH).  Key j is live for query i when ``j <= i`` (causal) and
     ``i - j < window`` (window set): the kernel takes positions from row and
     column indices, so callers' positions must be ``arange(S)``.  Any S.
-    Returns (B,S,H,hd) in q's dtype."""
+    On the card q, k and v must be 16-byte aligned.  Returns (B,S,H,hd) in
+    q's dtype."""
     if not _on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal, window)
     B, S, H, hd = q.shape
     _attn_checks(q, k, v, (B, S, H, hd), (B, S, k.shape[2], hd))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel copies q, k and v 16 bytes at a time: "
+                         "their storage must be 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     out = torch.empty_like(q)

@@ -95,8 +95,12 @@ def _ssd_inputs(B, S, H, P, N, G=1, seed=1):
     (1, 128, 24, 64, 128, 64),
     (1, 64, 4, 16, 16, 64),
     (2, 192, 6, 16, 32, 64),
-    (1, 1000, 24, 64, 128, 256),   # mamba2-130m, S padded to the chunk
     (2, 100, 4, 8, 8, 32),         # the tiny serving config's head dims
+    (1, 256, 24, 64, 128, 256),    # mamba2-130m width: one chunk
+    (1, 512, 24, 64, 128, 256),    # two: the state entering chunk 1 is chunk 0's
+    (1, 1024, 24, 64, 128, 256),   # four: the main path's prefill
+    (2, 1024, 24, 64, 128, 256),
+    (1, 1000, 24, 64, 128, 256),   # ragged: padded rows leave the state alone
 ])
 def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
     x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N)
@@ -111,20 +115,33 @@ def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
     torch.testing.assert_close(st.cpu(), sr, **tol)
 
 
-def test_ssd_kernel_carries_init_state(cuda):
-    x, dt, A, Bm, Cm = _ssd_inputs(1, 256, 4, 16, 16)
-    init = torch.randn(1, 4, 16, 16, generator=torch.Generator().manual_seed(0))
-    y, st = ops.ssd_scan(*(t.to(cuda) for t in (x, dt, A, Bm, Cm)), chunk=64,
-                         init_state=init.to(cuda))
-    yr, sr = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64, init_state=init)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,P,N,chunk", [(256, 4, 16, 16, 64), (512, 24, 64, 128, 256)])
+def test_ssd_kernel_carries_init_state(cuda, S, H, P, N, chunk, dtype):
+    x, dt, A, Bm, Cm = _ssd_inputs(1, S, H, P, N)
+    init = torch.randn(1, H, P, N, generator=torch.Generator().manual_seed(0))
+    xd, Bd, Cd = (t.to(cuda, dtype) for t in (x, Bm, Cm))
+    y, st = ops.ssd_scan(xd, dt.to(cuda), A.to(cuda), Bd, Cd, chunk=chunk, init_state=init.to(cuda))
+    yr, sr = ops.ssd_scan(x.to(dtype).float(), dt, A, Bm.to(dtype).float(), Cm.to(dtype).float(),
+                          chunk=chunk, init_state=init)
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    torch.testing.assert_close(y.float().cpu(), yr, **tol)
+    torch.testing.assert_close(st.cpu(), sr, **tol)
+
+
+def test_ssd_kernel_groups(cuda):
+    """ngroups G=2 at mamba2-130m head dims: heads 0-11 read group 0, 12-23
+    group 1."""
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 512, 24, 64, 128, G=2, seed=3)
+    ops.reset_launches()
+    y, st = ops.ssd_scan(*(t.to(cuda) for t in (x, dt, A, Bm, Cm)), chunk=256)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    yr, sr = ref.ssd_scan_ref(x, dt, A, Bm, Cm, 256)
     torch.testing.assert_close(y.cpu(), yr, **TOL)
     torch.testing.assert_close(st.cpu(), sr, **TOL)
-
-
-def test_ssd_kernel_raises_for_groups(cuda):
-    args = [t.to(cuda) for t in _ssd_inputs(1, 64, 4, 8, 8, G=2)]
-    with pytest.raises(ValueError):
-        ops.ssd_scan(*args, chunk=32)
+    with pytest.raises(ValueError):  # 24 heads do not split into 5 groups
+        ops.ssd_scan(*(t.to(cuda) for t in _ssd_inputs(1, 64, 24, 8, 8, G=5)), chunk=32)
 
 
 # ------------------------------------------------------------------ attention
@@ -147,6 +164,9 @@ def _attn_inputs(shapes, dtype, seed, cuda):
     (1, 1000, 8, 4, 256, True, 300),    # gemma3-4b heads, window, ragged
     (2, 200, 4, 4, 80, True, None),
     (1, 130, 2, 1, 16, False, 40),      # bidirectional window
+    (1, 1024, 36, 36, 64, True, None),  # minicpm-2b prefill width
+    (1, 2048, 8, 4, 256, True, 1024),   # gemma3-4b width, window 1024 at S=2048
+    (1, 2048, 8, 4, 256, True, None),
 ])
 def test_flash_kernel_matches_plain(cuda, B, S, H, KH, hd, causal, window, dtype):
     q, k, v = _attn_inputs([(B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)], dtype, S + hd, cuda)
@@ -157,6 +177,56 @@ def test_flash_kernel_matches_plain(cuda, B, S, H, KH, hd, causal, window, dtype
     assert ops.LAUNCHES["flash_attention"] == 1
     assert out.dtype == dtype and out.shape == (B, S, H, hd)
     torch.testing.assert_close(out.float(), want.float(), **TOL_ATTN[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", ops.ATTN_HEAD_DIMS)
+@pytest.mark.parametrize("S,KH,causal,window", [
+    (130, 2, True, None),    # ragged, one partial q tile after two full ones
+    (1000, 1, True, 96),     # ragged, GQA 4:1, window
+    (257, 4, False, None),   # bidirectional
+])
+def test_flash_kernel_every_head_dim(cuda, hd, S, KH, causal, window, dtype):
+    H = 4
+    q, k, v = _attn_inputs([(1, S, H, hd), (1, S, KH, hd), (1, S, KH, hd)], dtype, S + hd, cuda)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want.float(), **TOL_ATTN[dtype])
+
+
+def test_flash_kernel_rejects_misaligned_views(cuda):
+    """The kernel copies 16 bytes at a time: a view one element into its
+    storage must raise, not read across the boundary."""
+    q, k, v = _attn_inputs([(1, 64, 2, 64)] * 3, torch.float32, 0, cuda)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous()
+    with pytest.raises(ValueError):
+        ops.flash_attention(shifted, k, v)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, shifted)
+
+
+def test_each_wrapper_call_counts_one_launch(cuda):
+    """ssd_scan (three CUDA launches) and decode_attention (two) each add
+    exactly 1 per wrapper call, as do the single-launch kernels."""
+    x, dt, A, Bm, Cm = (t.to(cuda) for t in _ssd_inputs(1, 512, 4, 16, 16))
+    q, k, v = _attn_inputs([(1, 64, 2, 32)] * 3, torch.float32, 1, cuda)
+    args = [a.to(cuda) for a in _burst(16, 2, 4, 0)]
+    calls = {
+        "ssd_scan": lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=128),
+        "flash_attention": lambda: ops.flash_attention(q, k, v),
+        "decode_attention": lambda: ops.decode_attention(q[:, 0], k, v, 40),
+        "sched_events": lambda: ops.sched_events(*args),
+        "sched_step": lambda: ops.sched_step(*args[1:2], *args[3:]),
+    }
+    for name, call in calls.items():
+        for n in (1, 2, 3):
+            ops.reset_launches()
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES == {**{kn: 0 for kn in ops.LAUNCHES}, name: n}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -46,7 +46,8 @@ def test_ssd_ref_matches_jax(B, S, H, P, N, chunk):
 
 
 def test_ssd_ref_groups_match_jax():
-    """ngroups > 1 (the plain version covers it; the kernel does not)."""
+    """ngroups > 1 through the wrapper on the CPU (the kernel's G=2 test is
+    in test_torch_gpu.py)."""
     args = _inputs(1, 128, 8, 16, 16, G=2, seed=3)
     yj, sj = jref.ssd_scan_ref(*[jnp.asarray(a) for a in args], 32)
     y, st = ops.ssd_scan(*_t(args), chunk=32)
