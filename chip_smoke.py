@@ -9,9 +9,13 @@ line):
 1. device  — the card's name and power limit (``nvidia-smi``); build every
              CUDA source under ``src/repro_torch/kernels/csrc`` (one ``nvcc``
              each, all started together) and print the build seconds.
-2. kernels — each kernel against its plain PyTorch version on the same
-             tensors on the card: ``sched_events`` and ``sched_step``
-             bitwise at R=4096, F=40, W=1600 and at W=100,000;
+2. kernels — the scheduling chain's latency probe (the least time of one
+             dependent ARRIVAL step and one FINISH/EVICT step on this card,
+             the sched kernels' bound); each kernel against its plain
+             PyTorch version on the same tensors on the card:
+             ``sched_events`` and ``sched_step`` bitwise at F=40, W=1600,
+             R=1024 (the path's chunk) and R=4096, with ns/event, and
+             ``sched_events`` at W=100,000 (the large-state path);
              ``ssd_scan`` at mamba2-130m width (H=24, P=64, N=128,
              chunk=256) in float32 to atol=1e-4, rtol=1e-3 and in bfloat16
              to atol=rtol=5e-2, and with ngroups G=2 in float32;
@@ -21,7 +25,8 @@ line):
              1024), and ``decode_attention`` at both widths over a 2,048-long
              cache (valid_len 1,024 and 2,047, with and without the window),
              in float32 to atol=rtol=2e-5 and in bfloat16 to 2e-2.  Median
-             times in CUDA events: the sched kernels around each call;
+             times in CUDA events: the sched kernels around 10 back-to-back
+             calls;
              ``ssd_scan``, the attention kernels, their plain versions and
              one ``scaled_dot_product_attention`` call (the library
              yardstick, timed here and never called by the port) from CUDA
@@ -29,7 +34,11 @@ line):
              that its reads miss the L2 cache.
 3. sched   — the main scheduling path: ``sched_many_fused`` (chunk 1024)
              and ``sched_many_adaptive`` on a 65,536-event seeded stream at
-             W=1600, F=40, both bitwise equal to ``sched_many`` on the CPU.
+             W=1600, F=40, both bitwise equal to ``sched_many`` on the CPU,
+             with the events each kernel carried (from the stream's kinds and
+             each run's chunks); then one fused run under
+             ``torch.profiler``: the device's busy share and the scheduling
+             kernels' share of it.
 4. serve   — the main serving path: a ``ServingEngine`` on the card with
              three full-width mamba2-130m endpoints (24 layers, d_model 768,
              vocab 50280; random weights from seeds 0-2), 2 workers, hiku;
@@ -60,6 +69,19 @@ JSON line ``{"kernels": [...]}``, and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs one card and the CUDA toolkit; exits 2 without CUDA or outside a
 checkout of the repository.
+
+    python3 chip_smoke.py --sched-only
+
+runs only the scheduling kernels' timings (no latency probe), phase 3 and its
+trace, and prints no result line.  To compare the scheduling kernels of two
+trees on one card, copy this script into a checkout of the other tree (a
+``git archive`` unpacked under ``build/``) and run it there and here, in
+turns, with ``--sched-only``.
+
+In the ``{"kernels": [...]}`` line the two scheduling rows also carry
+``burst`` (the events of the timed burst, the path's chunk of 1,024),
+``ns_per_event`` and ``ms_4096`` (the time of a 4,096-event burst): their
+``ms`` is one 1,024-event burst, averaged over 10 back-to-back calls.
 """
 
 from __future__ import annotations
@@ -78,6 +100,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
 DEVICE = "cuda"
+SCHED_CHUNK = 1024  # the burst the fused scheduling path launches
 FULL_WIDTH = (24, 768, 50280)  # mamba2-130m: layers, d_model, vocab
 DENSE_WIDTH = (40, 2304, 122753)  # minicpm-2b: layers, d_model, vocab
 ORDER = [0, 0, 1, 1, 2, 0, 1, 2]  # endpoint of each serve request
@@ -97,8 +120,12 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def time_cuda(torch, fn, reps: int, warmup: int = 1) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, in CUDA events."""
+def time_cuda(torch, fn, reps: int, warmup: int = 1, agg=statistics.median,
+              calls: int = 1) -> float:
+    """Median (or ``agg``) milliseconds of one call of ``fn`` over ``reps``
+    runs of ``calls`` back-to-back calls each, in CUDA events.  With several
+    calls the host's work for one call overlaps the device's work for the
+    one before."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -106,11 +133,12 @@ def time_cuda(torch, fn, reps: int, warmup: int = 1) -> float:
     for _ in range(reps):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(calls):
+            fn()
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
+        times.append(s.elapsed_time(e) / calls)
+    return agg(times)
 
 
 def time_graph(torch, fns, reps: int = 20) -> float:
@@ -200,6 +228,18 @@ def ssd_counts(B, S, H, P, N, Q, elem):
     return nbytes, ops
 
 
+def chain_bound(np, kinds, t_arr, t_step):
+    """The serial-chain bound (ms) of one burst: every ARRIVAL is one
+    dependent step of ``t_arr``; the FINISH/EVICT events between two ARRIVALs
+    do not depend on each other, so each maximal run of them that an ARRIVAL
+    follows adds one ``t_step``.  Returns (ms, ARRIVALs, runs)."""
+    arr = np.flatnonzero(kinds == 0)
+    upd = np.concatenate([[0], np.cumsum((kinds == 1) | (kinds == 2))])
+    prev = np.concatenate([[0], arr[:-1] + 1])
+    runs = int((upd[arr] > upd[prev]).sum())
+    return len(arr) * t_arr + runs * t_step, len(arr), runs
+
+
 def sched_counts(kinds, F, W):
     """Bytes (events read, idle/conns read and written, outputs written) and
     operations (two compares per worker per ARRIVAL of this run's data)."""
@@ -209,7 +249,7 @@ def sched_counts(kinds, F, W):
 
 
 # ------------------------------------------------------------------ phases
-def phase_device(torch, build):
+def phase_device(torch, build, names=None):
     q = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                        capture_output=True, text=True, timeout=60)
     if q.returncode != 0:
@@ -217,53 +257,104 @@ def phase_device(torch, build):
     card = q.stdout.strip().splitlines()[0]
     log(f"[device] {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
         f"torch={torch.__version__} cuda={torch.version.cuda}")
-    secs = build.build()
-    log(f"[device] kernels built in {secs:.2f} s ({', '.join(build.SOURCES)})")
+    names = names or build.SOURCES
+    secs = build.build(names)
+    log(f"[device] kernels built in {secs:.2f} s ({', '.join(names)})")
     return card
 
 
-def phase_kernels(torch, np, ops, ref, rows):
-    dev = torch.device(DEVICE)
-    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    for name, arrival_only in (("sched_events", False), ("sched_step", True)):
-        R, F, W = 4096, 40, 1600
-        kinds, funcs, workers, idle, conns = (t(a) for a in sched_burst(
-            np, R, F, W, seed=1, arrival_only=arrival_only))
-        if arrival_only:
-            kern = lambda: ops.sched_step(funcs, idle, conns)  # noqa: E731
-            plain = lambda: ref.sched_step_ref(funcs, idle, conns)  # noqa: E731
-        else:
-            kern = lambda: ops.sched_events(kinds, funcs, workers, idle, conns)  # noqa: E731
-            plain = lambda: ref.sched_events_ref(kinds, funcs, workers, idle, conns)  # noqa: E731
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = max(max_abs(a, b) for a, b in zip(got, want))
-        if err != 0:
-            fail(f"{name} differs from its plain version (max abs {err})")
-        ms = time_cuda(torch, kern, reps=20)
-        plain_ms = time_cuda(torch, plain, reps=2, warmup=0)
-        nbytes, nops = sched_counts(kinds.cpu().numpy(), F, W)
-        b_ms, b_by = bound(nbytes, nops)
-        rows[name] = dict(
-            name=name, route="cuda", source="src/repro_torch/kernels/csrc/sched.cu",
-            replaces="src/repro/kernels/sched_step.py:" + ("68" if arrival_only else "152"),
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None,
-        )
-        log(f"[kernels] {name} R={R} F={F} W={W}: bitwise equal; {ms:.4f} ms "
-            f"({ms * 1e6 / R:.1f} ns/event), plain {plain_ms:.1f} ms, bound {b_ms:.6f} ms ({b_by})")
+def chain_probe(torch, np, build):
+    """The least time (ms) of one dependent step of the scheduling chain on
+    this card, from ``sched_chain_probe_launch`` (``csrc/sched.cu``): an
+    ARRIVAL step (one warp: a shared-memory read at an address that depends
+    on the last step, ``__reduce_min_sync``, lane 0 publishes the result in
+    shared memory) and a FINISH/EVICT step (one thread: dependent
+    shared-memory load, add, store).  Each is the slope between chains of
+    10,000 and 110,000 steps, the least of 5 runs each, so the launch cost
+    drops out."""
+    lib = build.load("sched")
+    init = torch.from_numpy(np.random.default_rng(0).permutation(1024).astype(np.int32)).to(DEVICE)
+    out = torch.empty(1, dtype=torch.int32, device=DEVICE)
+    n1, n2 = 10_000, 110_000
+    step = []
+    for mode in (0, 1):
+        def run(n, mode=mode):
+            err = lib.sched_chain_probe_launch(init.data_ptr(), out.data_ptr(), n, mode,
+                                               torch.cuda.current_stream().cuda_stream)
+            if err:
+                fail(f"sched_chain_probe_launch failed with CUDA error {err}")
+        t1, t2 = (time_cuda(torch, lambda n=n: run(n), reps=5, agg=min) for n in (n1, n2))
+        step.append((t2 - t1) / (n2 - n1))
+    log(f"[kernels] sched chain probe: ARRIVAL step {step[0] * 1e6:.2f} ns, FINISH/EVICT step "
+        f"{step[1] * 1e6:.2f} ns (least of 5, slope over {n1:,}-{n2:,} steps)")
+    return tuple(step)
 
-    # the 100k-worker anchor: conns no longer fits in shared memory
-    R, F, W = 4096, 40, 100_000
+
+def sched_kernels(torch, np, ops, ref, probe=None):
+    """``sched_events`` and ``sched_step`` bitwise against their plain versions
+    at F=40, W=1600 for R=1024 (the main path's chunk) and R=4096, and
+    ``sched_events`` at W=100,000 (the large-state path); ns/event in CUDA
+    events around 10 back-to-back calls.  With ``probe`` = (t_arr, t_step)
+    ms the bound is the burst's serial chain (``chain_bound``).  Returns the
+    rows at R=1024, with the R=4096 time beside."""
+    t = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    rows = {}
+    F, W = 40, 1600
+    for name, arrival_only in (("sched_events", False), ("sched_step", True)):
+        for R in (SCHED_CHUNK, 4096):
+            kinds, funcs, workers, idle, conns = (t(a) for a in sched_burst(
+                np, R, F, W, seed=1, arrival_only=arrival_only))
+            if arrival_only:
+                kern = lambda: ops.sched_step(funcs, idle, conns)  # noqa: E731
+                plain = lambda: ref.sched_step_ref(funcs, idle, conns)  # noqa: E731
+            else:
+                kern = lambda: ops.sched_events(kinds, funcs, workers, idle, conns)  # noqa: E731
+                plain = lambda: ref.sched_events_ref(kinds, funcs, workers, idle, conns)  # noqa: E731
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = max(max_abs(a, b) for a, b in zip(got, want))
+            if err != 0:
+                fail(f"{name} R={R} differs from its plain version (max abs {err})")
+            ms = time_cuda(torch, kern, reps=5, calls=10)
+            k = kinds.cpu().numpy()
+            nbytes, nops = sched_counts(k, F, W)
+            line = (f"[kernels] {name} R={R} F={F} W={W}: bitwise equal; {ms:.4f} ms "
+                    f"({ms * 1e6 / R:.1f} ns/event)")
+            if probe is not None:
+                b_ms, n_arr, runs = chain_bound(np, k, *probe)
+                line += (f", latency bound {b_ms:.4f} ms ({b_ms * 1e6 / R:.1f} ns/event: "
+                         f"{n_arr} ARRIVAL, {runs} runs of the other {R - n_arr})")
+            line += (f"; bytes {nbytes / 1e6:.3f} MB ({bound(nbytes, 0)[0]:.6f} ms), operations "
+                     f"{nops / 1e6:.2f} M ({nops / PEAK_F32_OPS_PER_S * 1e3:.6f} ms)")
+            if R == SCHED_CHUNK:
+                plain_ms = time_cuda(torch, plain, reps=2, warmup=0)
+                line += f"; plain {plain_ms:.1f} ms"
+                rows[name] = dict(
+                    name=name, route="cuda", source="src/repro_torch/kernels/csrc/sched.cu",
+                    replaces="src/repro/kernels/sched_step.py:" + ("68" if arrival_only else "152"),
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms if probe is not None else None, bound_by="latency",
+                    library_ms=None, burst=R, ns_per_event=ms * 1e6 / R)
+            else:
+                rows[name]["ms_4096"] = ms
+            log(line)
+
+    # the 100k-worker anchor: the large-state path
+    R, W = 4096, 100_000
     args = [t(a) for a in sched_burst(np, R, F, W, seed=2)]
     got, want = ops.sched_events(*args), ref.sched_events_ref(*args)
     torch.cuda.synchronize()
     err = max(max_abs(a, b) for a, b in zip(got, want))
     if err != 0:
         fail(f"sched_events at W={W} differs from its plain version (max abs {err})")
-    ms = time_cuda(torch, lambda: ops.sched_events(*args), reps=5)
+    ms = time_cuda(torch, lambda: ops.sched_events(*args), reps=3, calls=3)
     log(f"[kernels] sched_events R={R} F={F} W={W}: bitwise equal; {ms:.3f} ms "
         f"({ms * 1e6 / R:.0f} ns/event)")
+    return rows
+
+
+def phase_kernels(torch, np, build, ops, ref, rows):
+    rows.update(sched_kernels(torch, np, ops, ref, chain_probe(torch, np, build)))
 
     # ssd_scan at mamba2-130m width
     H, P, N, Q = 24, 64, 128, 256
@@ -479,9 +570,31 @@ def pad_to(torch, ts, S, Q):
             F.pad(Bm, (0, 0, 0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, 0, 0, pad)))
 
 
-def phase_sched(torch, np, core):
+def kernel_events(kinds, segments):
+    """The events each scheduling kernel carries when the stream's
+    ``[lo, hi)`` segments are cut into ``chunk``-event bursts as
+    ``core/sched.py::_fused`` cuts them (an all-ARRIVAL burst goes to
+    ``sched_step``); ``segments`` is ``[(lo, hi, chunk), ...]``.  Returns
+    ({name: events}, {name: bursts})."""
+    events, bursts = {"sched_events": 0, "sched_step": 0}, {"sched_events": 0, "sched_step": 0}
+    for lo, hi, chunk in segments:
+        for a in range(lo, hi, chunk):
+            k = kinds[a: min(a + chunk, hi)]
+            name = "sched_step" if bool((k == 0).all()) else "sched_events"
+            events[name] += len(k)
+            bursts[name] += 1
+    return events, bursts
+
+
+def sched_inputs(torch, np):
     n, F, W = 65_536, 40, 1600
-    ev = torch.from_numpy(sched_stream(np, n, F, W, seed=3))
+    return n, F, W, torch.from_numpy(sched_stream(np, n, F, W, seed=3))
+
+
+def phase_sched(torch, np, core):
+    """The scheduling path; returns ({kernel: events it carried}, {kernel:
+    bursts}), the latter for a check against the launch counts."""
+    n, F, W, ev = sched_inputs(torch, np)
     t0 = time.perf_counter()
     s_ref, (w_ref, warm_ref) = core.sched_many(core.init_state(F, W, "cpu"), ev)
     cpu_s = time.perf_counter() - t0
@@ -491,27 +604,66 @@ def phase_sched(torch, np, core):
             if not torch.equal(a.cpu(), b):
                 fail(f"{name} differs from sched_many on the CPU")
 
-    core.sched_many_fused(core.init_state(F, W), ev[:1024], chunk=1024)  # warm-up
+    # per-window densities: bursts at windows 0 and 8, two quiet windows that
+    # step event by event
+    dens = [5000, 3000, 1500, 1200, 300, 0, 0, 300, 8000, 5000, 2000, 1000, 400, 300, 1500, 1500]
+    seg = n // 16
+    core.sched_many_fused(core.init_state(F, W), ev[:SCHED_CHUNK], chunk=SCHED_CHUNK)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    s, (ws, warm) = core.sched_many_fused(core.init_state(F, W), ev, chunk=1024)
+    s, (ws, warm) = core.sched_many_fused(core.init_state(F, W), ev, chunk=SCHED_CHUNK)
     torch.cuda.synchronize()
     fused_s = time.perf_counter() - t0
     same("sched_many_fused", s, ws, warm)
 
-    det = core.BurstDetector()
-    # per-window densities: bursts at windows 0 and 8, two quiet windows that
-    # step event by event
-    dens = [5000, 3000, 1500, 1200, 300, 0, 0, 300, 8000, 5000, 2000, 1000, 400, 300, 1500, 1500]
     t0 = time.perf_counter()
-    s, (ws, warm) = core.sched_many_adaptive(core.init_state(F, W), ev, det, densities=dens,
-                                             segment=n // 16)
+    s, (ws, warm) = core.sched_many_adaptive(core.init_state(F, W), ev, core.BurstDetector(),
+                                             densities=dens, segment=seg)
     torch.cuda.synchronize()
     adaptive_s = time.perf_counter() - t0
     same("sched_many_adaptive", s, ws, warm)
+
+    # the chunks of each run: the warm-up burst, the fused run, and the
+    # adaptive run's window chunks, which a detector of its own replays
+    det = core.BurstDetector()
+    plan = [(0, SCHED_CHUNK, SCHED_CHUNK), (0, n, SCHED_CHUNK)] + [
+        (i * seg, (i + 1) * seg, c) for i, c in enumerate(det.observe(d) for d in dens) if c > 1]
+    events, bursts = kernel_events(ev[:, 0].numpy(), plan)
     log(f"[sched] {n} events W={W} F={F}: fused {n / fused_s:,.0f} ev/s, adaptive "
         f"{n / adaptive_s:,.0f} ev/s, plain scan on the CPU {n / cpu_s:,.0f} ev/s; "
         "both bitwise equal to the CPU scan")
+    log(f"[sched] events carried: sched_events {events['sched_events']:,}, sched_step "
+        f"{events['sched_step']:,}")
+    return events, bursts
+
+
+def trace_sched(torch, np, core):
+    """One fused run of the scheduling stream under ``torch.profiler``: the
+    device's busy share of its wall time and the scheduling kernels' share of
+    the busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n, F, W, ev = sched_inputs(torch, np)
+    core.sched_many_fused(core.init_state(F, W), ev[:SCHED_CHUNK], chunk=SCHED_CHUNK)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        core.sched_many_fused(core.init_state(F, W), ev, chunk=SCHED_CHUNK)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    self_us = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(self_us(e) for e in dev) / 1e3
+    if busy_ms == 0:
+        log("[sched trace] device time: not measured (the profiler saw no kernel time)")
+        return
+    sched_ms = sum(self_us(e) for e in dev if "sched" in e.key) / 1e3
+    log(f"[sched trace] traced fused run {traced_ms:.1f} ms: device busy {busy_ms:.2f} ms "
+        f"({100 * busy_ms / traced_ms:.1f}%), of which scheduling kernels {sched_ms:.2f} ms "
+        f"({100 * sched_ms / busy_ms:.1f}% of busy), {sum(e.count for e in dev)} device entries")
+    for e in sorted(dev, key=self_us, reverse=True)[:6]:
+        log(f"[sched trace]   {self_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
 def serve(torch, np, eng, prefix, vocab, label):
@@ -649,7 +801,16 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sched-only", action="store_true",
+                    help="run only the scheduling kernels' timings and the scheduling path "
+                         "(with its trace), and print no result line: for comparing the "
+                         "kernels of two trees on one card, run from a copy of this script "
+                         "in each")
+    args = ap.parse_args(argv)
     try:
         import numpy as np
         import torch
@@ -657,8 +818,8 @@ def main() -> int:
         print(f"chip_smoke: {e}", file=sys.stderr)
         return 2
     if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: run from a checkout of the repository (src/repro_torch missing)",
-              file=sys.stderr)
+        print(f"chip_smoke: run from a checkout of the repository ({ROOT}/src/repro_torch "
+              "missing)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -669,11 +830,20 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.serving import Endpoint, Instance, ServingEngine
 
+    if args.sched_only:
+        card = phase_device(torch, build, ("sched",))
+        sched_kernels(torch, np, ops, ref)
+        ops.reset_launches()
+        phase_sched(torch, np, core)
+        log(f"[sched] launches {dict(ops.LAUNCHES)}")
+        trace_sched(torch, np, core)
+        print(card)
+        return 0
     default_device()  # full float32 matmuls on the card (TF32 off)
     t_start = time.perf_counter()
     card = phase_device(torch, build)
     rows = {}
-    phase_kernels(torch, np, ops, ref, rows)
+    phase_kernels(torch, np, build, ops, ref, rows)
     phase_attention(torch, ops, ref, rows)
     launches = {}
 
@@ -691,7 +861,11 @@ def main() -> int:
             launches[name] = got[name]
         return out
 
-    counted("sched", ("sched_events", "sched_step"), lambda: phase_sched(torch, np, core))
+    events, bursts = counted("sched", ("sched_events", "sched_step"),
+                             lambda: phase_sched(torch, np, core))
+    if any(launches[name] != n for name, n in bursts.items()):
+        fail(f"the scheduling path launched {launches} for the bursts {bursts} of its plan")
+    trace_sched(torch, np, core)
 
     mcfg = full_width(get_config, "mamba2_130m", FULL_WIDTH)
     m_eng = ServingEngine([Endpoint(f"mamba{i}", mcfg, seed=i) for i in range(3)],
@@ -725,13 +899,20 @@ def main() -> int:
     profile_warm_request(torch, m_eng, m_wid, "mamba0", m_prompt, "mamba2-130m")
     profile_warm_request(torch, d_eng, d_wid, "minicpm0", d_prompt, "minicpm-2b")
 
-    kernels = []
+    kernels, loss = [], {}
     for name in ("sched_events", "sched_step", "ssd_scan", "flash_attention", "decode_attention"):
         row = rows[name]
         row["launches"] = launches[name]
+        # time lost on the main path beyond the bound: per event for the
+        # scheduling kernels (timed at the path's chunk), per launch otherwise
+        loss[name] = (events[name] * (row["ms"] - row["bound_ms"]) / SCHED_CHUNK
+                      if name in events else launches[name] * (row["ms"] - row["bound_ms"]))
         kernels.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                             "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")})
+                                            "bound_by", "library_ms", "burst", "ns_per_event",
+                                            "ms_4096") if k in row})
+    log("[done] time over the bound on the main paths: " + ", ".join(
+        f"{name} {ms:.2f} ms" for name, ms in sorted(loss.items(), key=lambda kv: -kv[1])))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -161,11 +161,9 @@ def _fused(state: JIQState, events: torch.Tensor, kinds: torch.Tensor, chunk: in
     for lo in range(0, events.shape[0], chunk):
         ev = events[lo: lo + chunk]
         if bool((kinds[lo: lo + chunk] == ARRIVAL).all()):  # an arrival burst
-            a, warm, idle, conns = ops.sched_step(ev[:, 1].contiguous(), idle, conns)
-        else:
-            a, warm, idle, conns = ops.sched_events(
-                ev[:, 0].contiguous(), ev[:, 1].contiguous(), ev[:, 2].contiguous(), idle, conns
-            )
+            a, warm, idle, conns = ops.sched_step(ev[:, 1], idle, conns)
+        else:  # the columns as strided views: the kernel reads them in place
+            a, warm, idle, conns = ops.sched_events(ev[:, 0], ev[:, 1], ev[:, 2], idle, conns)
         ws.append(a)
         warms.append(warm)
     return JIQState(idle, conns), _cat(ws, warms, device)

@@ -98,8 +98,10 @@ def load(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "sched":
-        lib.sched_events_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.sched_events_launch.argtypes = [p, p, p, ctypes.c_longlong] + [p] * 6 + [i] * 4 + [p]
         lib.sched_events_launch.restype = i
+        lib.sched_chain_probe_launch.argtypes = [p, p, i, i, p]
+        lib.sched_chain_probe_launch.restype = i
     elif name == "ssd_scan":
         lib.ssd_scan_launch.argtypes = [p] * 11 + [i] * 8 + [p]
         lib.ssd_scan_launch.restype = i

@@ -71,12 +71,20 @@ def _sched_launch(kinds, funcs, workers, idle, conns, arrival_only: bool):
     F_, W = idle.shape
     if W < 1:
         raise ValueError("need at least one worker")
-    for nm, t in (("funcs", funcs), ("kinds", kinds), ("workers", workers)):
-        if t is not None:
-            _check(nm, t, torch.int32, (R,))
+    cols = {nm: t for nm, t in (("kinds", kinds), ("funcs", funcs), ("workers", workers))
+            if t is not None}
+    for nm, t in cols.items():  # any stride: the columns of one (R, 3) tensor are views
+        if t.dtype != torch.int32:
+            raise TypeError(f"{nm}: expected torch.int32, got {t.dtype}")
+        if tuple(t.shape) != (R,):
+            raise ValueError(f"{nm}: expected shape ({R},), got {tuple(t.shape)}")
+    stride = funcs.stride(0) if R > 1 else 1
+    if R > 1 and any(t.stride(0) != stride for t in cols.values()):
+        raise ValueError("kinds, funcs and workers must share one element stride, got "
+                         f"{[t.stride(0) for t in cols.values()]}")
     _check("idle", idle, torch.int32, (F_, W))
     _check("conns", conns, torch.int32, (W,))
-    idle_out, conns_out = idle.clone(), conns.clone()
+    idle_out, conns_out = torch.empty_like(idle), torch.empty_like(conns)
     assign = torch.empty((R,), dtype=torch.int32, device=idle.device)
     warm = torch.empty((R,), dtype=torch.int32, device=idle.device)
     lib = build.load("sched")
@@ -85,8 +93,8 @@ def _sched_launch(kinds, funcs, workers, idle, conns, arrival_only: bool):
             kinds.data_ptr() if kinds is not None else None,
             funcs.data_ptr(),
             workers.data_ptr() if workers is not None else None,
-            idle_out.data_ptr(), conns_out.data_ptr(), assign.data_ptr(), warm.data_ptr(),
-            R, F_, W, int(arrival_only), _stream(idle),
+            stride, idle.data_ptr(), conns.data_ptr(), idle_out.data_ptr(), conns_out.data_ptr(),
+            assign.data_ptr(), warm.data_ptr(), R, F_, W, int(arrival_only), _stream(idle),
         )
     _raise_on(err, "sched_events")
     return assign, warm, idle_out, conns_out
@@ -95,7 +103,9 @@ def _sched_launch(kinds, funcs, workers, idle, conns, arrival_only: bool):
 def sched_events(kinds, funcs, workers, idle, conns):
     """One mixed (ARRIVAL|FINISH|EVICT) burst.  Returns (assign (R,) int32,
     -1 for non-ARRIVAL; warm (R,) int32; idle'; conns').  Inputs untouched.
-    Precondition: ``idle`` and ``conns`` non-negative, conns below 2**30."""
+    Precondition: ``idle`` and ``conns`` non-negative, conns below 2**30.
+    The event columns may be strided views (the columns of one (R, 3)
+    tensor); on the card they must share one element stride."""
     if not _on_cuda(kinds, funcs, workers, idle, conns):
         return ref.sched_events_ref(kinds, funcs, workers, idle, conns)
     out = _sched_launch(kinds, funcs, workers, idle, conns, arrival_only=False)

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core import sched as T
 from repro_torch.kernels import ops, ref
+from test_torch_sched_cases import burst, sched_case
 
 pytestmark = pytest.mark.gpu
 
@@ -28,25 +29,41 @@ def cuda():
     return torch.device("cuda")
 
 
-def _burst(R, F, W, seed):
-    rng = np.random.default_rng(seed)
-    kinds = rng.integers(0, 3, R)
-    funcs = rng.integers(0, F, R)
-    workers = np.where(kinds == 0, -1, rng.integers(0, W, R))
-    idle = rng.integers(0, 3, (F, W))
-    conns = rng.integers(0, 5, W)
-    return [torch.from_numpy(np.asarray(a, np.int32)) for a in (kinds, funcs, workers, idle, conns)]
-
-
 def _same(got, want):
     for a, b in zip(got, want):
         assert torch.equal(a.cpu().long(), b.cpu().long())
 
 
-@pytest.mark.parametrize("R,F,W", [(32, 4, 8), (100, 10, 16), (57, 3, 5), (128, 40, 130),
-                                   (1, 1, 1), (4096, 40, 1600), (512, 4, 60000)])
-def test_sched_kernels_match_plain(cuda, R, F, W):
-    args = [a.to(cuda) for a in _burst(R, F, W, R + W)]
+@pytest.mark.parametrize("R,F,W,case", [
+    pytest.param(*shape, "random", id="-".join(map(str, shape)))
+    for shape in [(32, 4, 8), (100, 10, 16), (57, 3, 5), (128, 40, 130), (1, 1, 1),
+                  (4096, 40, 1600), (512, 4, 60000)]
+] + [
+    (1024, 40, 1600, "random"),    # the main path's burst, on-chip state
+    (1, 40, 1600, "random"),       # R = 1
+    (33, 40, 1600, "random"),      # R not a multiple of the 32-event tile
+    (300, 40, 1601, "random"),     # W not a multiple of 32
+    (300, 7, 33, "random"),
+    (300, 5, 31, "random"),        # W < 32
+    (300, 5, 128, "random"),       # one 128-worker row of four-worker groups
+    (300, 5, 129, "random"),       # and one worker more
+    (300, 8, 513, "random"),       # W rounded up to the next instantiation (CHUNK 32)
+    (300, 8, 1700, "random"),      # and to the widest (CHUNK 64)
+    (300, 4, 2048, "random"),      # the widest on-chip state
+    (300, 4, 2049, "random"),      # the narrowest large one, by width
+    (100, 116, 1600, "random"),    # the most functions that fit on chip at W=1600
+    (300, 120, 1600, "random"),    # too many functions for shared memory: large path
+    (200, 3, 40, "sat300"),
+    (200, 3, 40, "sat70000"),
+    (1024, 40, 1600, "empty"),
+    (1024, 40, 1600, "ties"),
+    (1024, 40, 1600, "pad"),
+    (1024, 40, 1600, "bigconns"),  # the block-wide path inside the on-chip kernel
+    (512, 4, 60000, "empty"),
+    (512, 4, 60000, "ties"),
+])
+def test_sched_kernels_match_plain(cuda, R, F, W, case):
+    args = [a.to(cuda) for a in sched_case(case, R, F, W, R + W)]
     ops.reset_launches()
     _same(ops.sched_events(*args), ref.sched_events_ref(*args))
     kinds, funcs, workers, idle, conns = args
@@ -54,8 +71,22 @@ def test_sched_kernels_match_plain(cuda, R, F, W):
     assert ops.LAUNCHES["sched_events"] == 1 and ops.LAUNCHES["sched_step"] == 1
 
 
+@pytest.mark.parametrize("W", [1600, 60000])
+def test_sched_kernels_take_strided_columns(cuda, W):
+    """The three columns of one (R, 3) event tensor, as strided views, give
+    what contiguous copies give; columns of unequal stride raise."""
+    kinds, funcs, workers, idle, conns = (a.to(cuda) for a in burst(700, 40, W, 3))
+    ev = torch.stack([kinds, funcs, workers], 1)
+    assert ev[:, 1].stride(0) == 3
+    _same(ops.sched_events(ev[:, 0], ev[:, 1], ev[:, 2], idle, conns),
+          ops.sched_events(kinds, funcs, workers, idle, conns))
+    _same(ops.sched_step(ev[:, 1], idle, conns), ops.sched_step(funcs, idle, conns))
+    with pytest.raises(ValueError):
+        ops.sched_events(ev[:, 0], funcs, ev[:, 2], idle, conns)
+
+
 def test_sched_kernel_checks_inputs(cuda):
-    kinds, funcs, workers, idle, conns = (a.to(cuda) for a in _burst(8, 2, 4, 0))
+    kinds, funcs, workers, idle, conns = (a.to(cuda) for a in burst(8, 2, 4, 0))
     with pytest.raises(TypeError):
         ops.sched_events(kinds, funcs, workers, idle.long(), conns)
     with pytest.raises(ValueError):
@@ -212,7 +243,7 @@ def test_each_wrapper_call_counts_one_launch(cuda):
     exactly 1 per wrapper call, as do the single-launch kernels."""
     x, dt, A, Bm, Cm = (t.to(cuda) for t in _ssd_inputs(1, 512, 4, 16, 16))
     q, k, v = _attn_inputs([(1, 64, 2, 32)] * 3, torch.float32, 1, cuda)
-    args = [a.to(cuda) for a in _burst(16, 2, 4, 0)]
+    args = [a.to(cuda) for a in burst(16, 2, 4, 0)]
     calls = {
         "ssd_scan": lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=128),
         "flash_attention": lambda: ops.flash_attention(q, k, v),

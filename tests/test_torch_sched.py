@@ -14,6 +14,7 @@ from repro.core.simulator import BurstDetector as JaxBurstDetector
 from repro.kernels import ref as jref
 from repro_torch.core import sched as T
 from repro_torch.kernels import ops, ref
+from test_torch_sched_cases import sched_case
 
 CPU = "cpu"
 
@@ -193,6 +194,42 @@ def test_sched_step_ref_matches_jax(R, F, W):
     ops.reset_launches()
     _assert_same(ops.sched_step(_t(funcs), _t(idle), _t(conns)), want)
     assert ops.LAUNCHES["sched_step"] == 0
+
+
+ADVERSARIAL = [("sat300", 200, 3, 40), ("sat70000", 200, 3, 40), ("empty", 300, 6, 40),
+               ("ties", 300, 6, 40), ("pad", 300, 6, 33), ("bigconns", 300, 6, 40),
+               ("random", 300, 5, 31)]
+
+
+@pytest.mark.parametrize("case,R,F,W", ADVERSARIAL)
+def test_sched_events_ref_adversarial_matches_jax(case, R, F, W):
+    """The bursts the kernel's tests aim at its edges (idle counts past a
+    byte, rows with nothing idle, all ties, padding kinds, conns past the
+    on-chip key field, W < 32), through the plain version and the CPU
+    wrapper, against JAX's scan."""
+    kinds, funcs, workers, idle, conns = (a.numpy() for a in sched_case(case, R, F, W, R + W))
+    want = _jax_scan(idle, conns, np.stack([kinds, funcs, workers], 1))
+    args = [_t(a) for a in (kinds, funcs, workers, idle, conns)]
+    _assert_same(ref.sched_events_ref(*args), want)
+    _assert_same(ops.sched_events(*args), want)
+
+
+@pytest.mark.parametrize("case,R,F,W", [c for c in ADVERSARIAL if c[0] != "sat70000"])
+def test_sched_step_ref_adversarial_matches_jax(case, R, F, W):
+    _, funcs, _, idle, conns = (a.numpy() for a in sched_case(case, R, F, W, R + W))
+    want = jref.sched_step_ref(jnp.asarray(funcs), jnp.asarray(idle), jnp.asarray(conns))
+    _assert_same(ref.sched_step_ref(_t(funcs), _t(idle), _t(conns)), want)
+
+
+def test_sched_wrappers_take_strided_columns():
+    """On the CPU too, the columns of one (R, 3) event tensor as strided
+    views give what contiguous copies give."""
+    kinds, funcs, workers, idle, conns = (_t(a) for a in _burst(200, 6, 40, 8))
+    ev = torch.stack([kinds, funcs, workers], 1)
+    assert ev[:, 0].stride(0) == 3
+    _assert_same(ops.sched_events(ev[:, 0], ev[:, 1], ev[:, 2], idle, conns),
+                 ops.sched_events(kinds, funcs, workers, idle, conns))
+    _assert_same(ops.sched_step(ev[:, 1], idle, conns), ops.sched_step(funcs, idle, conns))
 
 
 # ------------------------------------------------------- keyed ties
