@@ -23,15 +23,21 @@ line):
              (B=1, S=1024, H=KH=36, hd=64, causal) and gemma3-4b width
              (S=2048, H=8, KH=4, hd=256, causal, with and without window
              1024), and ``decode_attention`` at both widths over a 2,048-long
-             cache (valid_len 1,024 and 2,047, with and without the window),
-             in float32 to atol=rtol=2e-5 and in bfloat16 to 2e-2.  Median
+             cache (valid_len 1,024 and 2,047, with and without the window,
+             each as a Python int and as a 0-d int32 tensor on the card),
+             in float32 to atol=rtol=2e-5 and in bfloat16 to 2e-2; then one
+             ``decode_attention`` call with a tensor valid_len captured in a
+             CUDA graph at each width and replayed with valid_len 7, 2,047
+             and 1,500, each replay against the plain version.  Median
              times in CUDA events: the sched kernels around 10 back-to-back
              calls;
              ``ssd_scan``, the attention kernels, their plain versions and
              one ``scaled_dot_product_attention`` call (the library
              yardstick, timed here and never called by the port) from CUDA
              graphs of back-to-back calls, decode over 8 caches in turn so
-             that its reads miss the L2 cache.
+             that its reads miss the L2 cache (``decode_timing``, which
+             also prints the device time by kernel of one replay of that
+             graph, from ``torch.profiler``).
 3. sched   — the main scheduling path: ``sched_many_fused`` (chunk 1024)
              and ``sched_many_adaptive`` on a 65,536-event seeded stream at
              W=1600, F=40, both bitwise equal to ``sched_many`` on the CPU,
@@ -141,12 +147,9 @@ def time_cuda(torch, fn, reps: int, warmup: int = 1, agg=statistics.median,
     return agg(times)
 
 
-def time_graph(torch, fns, reps: int = 20) -> float:
-    """Median milliseconds of one call of ``fns`` (run in turn), from a CUDA
-    graph that holds them all, replayed ``reps`` times between CUDA events.
-    The host's launch overhead is not in it; each function may take its own
-    inputs so that together they exceed the 50 MB L2 cache where the caller
-    would find its inputs cold."""
+def capture(torch, fns):
+    """A CUDA graph that runs ``fns`` in turn, warmed up outside the capture
+    and replayed once."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up outside the capture
@@ -160,6 +163,16 @@ def time_graph(torch, fns, reps: int = 20) -> float:
             f()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def time_graph(torch, fns, reps: int = 20) -> float:
+    """Median milliseconds of one call of ``fns`` (run in turn), from a CUDA
+    graph that holds them all, replayed ``reps`` times between CUDA events.
+    The host's launch overhead is not in it; each function may take its own
+    inputs so that together they exceed the 50 MB L2 cache where the caller
+    would find its inputs cold."""
+    graph = capture(torch, fns)
     times = []
     for _ in range(reps):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -169,6 +182,33 @@ def time_graph(torch, fns, reps: int = 20) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e) / len(fns))
     return statistics.median(times)
+
+
+def graph_kernels(torch, fns):
+    """Device time by kernel of one replay of the graph of ``fns``, from
+    ``torch.profiler``: [(kernel, launches, ms per call of fns)], largest
+    first, with ("wall", 0, ms) first: the replay's first kernel start to its
+    last kernel end, per call (so the gaps between kernels show); [] if the
+    profiler saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    graph = capture(torch, fns)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return []
+    n = len(fns)
+    span = (max(e.time_range.end for e in evs) - min(e.time_range.start for e in evs)) / 1e3
+    by = {}
+    for e in evs:
+        k = by.setdefault(e.name, [0, 0.0])
+        k[0] += 1
+        k[1] += (e.time_range.end - e.time_range.start) / 1e3
+    rows = sorted(((name, c, ms / n) for name, (c, ms) in by.items()), key=lambda r: -r[2])
+    return [("wall", 0, span / n)] + rows
 
 
 def bound(nbytes: float, nops: float):
@@ -467,13 +507,33 @@ def phase_attention(torch, ops, ref, rows):
             for window in (None, 1024):
                 for dtype in (f32, bf16):
                     qd, kd, vd = (t.to(dtype) for t in (q, kc, vc))
-                    got = ops.decode_attention(qd, kd, vd, valid, window)
-                    err = check_close(torch, f"decode_attention {label} {dtype}", got,
-                                      ref.decode_attention_ref(qd, kd, vd, valid, window), dtype)
+                    want = ref.decode_attention_ref(qd, kd, vd, valid, window)
+                    tv = torch.tensor(valid, dtype=torch.int32, device=DEVICE)
+                    err = max(check_close(torch, f"decode_attention {label} {dtype}",
+                                          ops.decode_attention(qd, kd, vd, valid, window), want,
+                                          dtype),
+                              check_close(torch, f"decode_attention {label} {dtype} tensor "
+                                          "valid_len", ops.decode_attention(qd, kd, vd, tv, window),
+                                          want, dtype))
                     if dtype == f32:
                         errs["decode_attention"].append(err)
                     log(f"[kernels] decode_attention {label} cache {S} H={H} KH={KH} hd={hd} "
-                        f"valid_len={valid} window={window} {str(dtype)[6:]}: max abs err {err:.3e}")
+                        f"valid_len={valid} (int and tensor) window={window} {str(dtype)[6:]}: "
+                        f"max abs err {err:.3e}")
+        # one call captured with a tensor valid_len, replayed with new values
+        window = 1024 if label == "gemma3-4b" else None
+        tv = torch.tensor(1024, dtype=torch.int32, device=DEVICE)
+        got = []
+        graph = capture(torch, [lambda: got.append(ops.decode_attention(q, kc, vc, tv, window))])
+        out = got[-1]
+        for valid in (7, 2047, 1500):
+            tv.fill_(valid)
+            graph.replay()
+            err = check_close(torch, f"decode_attention {label} graph replay valid_len={valid}",
+                              out, ref.decode_attention_ref(q, kc, vc, valid, window), f32)
+            errs["decode_attention"].append(err)
+        log(f"[kernels] decode_attention {label} captured once with a tensor valid_len, "
+            f"replayed at 7, 2047, 1500 (window={window}): max abs err {err:.3e}")
 
     # times: CUDA graphs of back-to-back calls (time_graph); prefill's q, k, v
     # were just written by the layer and sit in L2, a decode step's cache was
@@ -507,6 +567,19 @@ def phase_attention(torch, ops, ref, rows):
                 replaces="src/repro/kernels/flash_attention.py:75",
                 max_abs_err=max(errs["flash_attention"]), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    decode_timing(torch, ops, ref, rows)
+    rows["decode_attention"]["max_abs_err"] = max(errs["decode_attention"])
+
+
+def decode_timing(torch, ops, ref, rows):
+    """``decode_attention`` at minicpm-2b and gemma3-4b width over a 2,048-long
+    cache: its time, its plain version's and one ``scaled_dot_product_attention``
+    call's, from CUDA graphs over 8 caches in turn (a decode step's cache was
+    last touched a whole model ago: > 50 MB, so L2 cold), and the device time
+    by kernel of one replay of the kernel's graph.  Takes ``ops`` and ``ref``
+    as arguments, so that it can time another tree's package."""
+    F = torch.nn.functional
+    MINI, GEMMA = (1, 36, 36, 64), (1, 8, 4, 256)
     for label, (B, H, KH, hd), valid, window in (("minicpm-2b", MINI, 1024, None),
                                                  ("gemma3-4b", GEMMA, 2047, 1024)):
         S, n = 2048, 8
@@ -534,8 +607,24 @@ def phase_attention(torch, ops, ref, rows):
                 name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:71",
-                max_abs_err=max(errs["decode_attention"]), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        # what the card does around such a call: a graph node of one tiny
+        # kernel (the floor of any launch), and a plain streaming kernel that
+        # reads the same live K and V once and writes one of them
+        tiny = torch.zeros(1, device=DEVICE)
+        floor_ms = time_graph(torch, [lambda: tiny.add_(1)] * n)
+        rows = [[t[:, lo:valid + 1] for t in kv] for kv in caches]
+        buf = torch.empty_like(rows[0][0])
+        stream_ms = time_graph(torch, [lambda kv=kv: torch.add(*kv, out=buf) for kv in rows])
+        log(f"[kernels] decode_attention {label} yardsticks, {n} calls in turn: one tiny kernel "
+            f"{floor_ms:.4f} ms; torch.add of the live K and V rows "
+            f"({3 * buf.numel() * buf.element_size() / 1e6:.2f} MB moved) {stream_ms:.4f} ms")
+        ks = graph_kernels(torch, [lambda kv=kv: ops.decode_attention(q, *kv, valid, window)
+                                   for kv in caches])
+        log(f"[kernels] decode_attention {label}, one replay of its {n}-call graph by kernel "
+            "(torch.profiler, ms per call): " + ("; ".join(
+                f"{name[:60]} x{c} {t:.5f}" if c else f"first start to last end {t:.5f}"
+                for name, c, t in ks) or "not measured (the profiler saw no kernel)"))
 
 
 def run_launcher():

@@ -1,4 +1,5 @@
-// One-token decode attention (flash-decoding) for Hopper (sm_90a).
+// One-token decode attention (flash-decoding) for Hopper (sm_90a), in one
+// launch.
 //
 // Replaces the Pallas TPU kernel of the JAX package's
 // kernels/decode_attention.py (decode_attention, body _dec_kernel).  For the
@@ -7,250 +8,413 @@
 //   out_h = sum_p softmax_p(q_h . k_p / sqrt(hd)) v_p   over the live p,
 // where p is live when p <= valid_len and, with a window, valid_len - p <
 // window.  Same function as kernels/ref.py::decode_attention_ref, with the
-// running (m, l, acc) in float32 and out = acc / max(l, 1e-30) in q's type.
+// running (m, l, acc) in float32 and out = acc / max(l, 1e-30) in q's type
+// (zeros when no position is live, as the Pallas kernel writes).
 //
 // What bounds it on this card: bytes.  Each live K/V row is read once and
-// used for a handful of operations (2 x G x hd per row for G query heads),
-// so at minicpm-2b width (KH=36, hd=64, ~1,031 live rows) the ~19 MB of live
-// cache take ~6 us at 3.35 TB/s and the arithmetic is negligible.
-// Design: the TPU kernel ran one program per (batch, kv head) and walked the
-// cache blocks in order; at batch 1 that is 36 CTAs at minicpm-2b and 4 at
-// gemma3-4b, too few for 132 SMs to pull the cache at full rate.  Here the
-// live range [lo, hi] is split into n_splits chunks (the wrapper picks them
-// from valid_len), and one CTA per (chunk, kv head, batch) streams its rows
-// through shared memory once for all G query heads of its kv head (the TPU
-// kernel packed G as the matmul's M dimension), keeping partial (m, l, acc)
-// for each head.  A second small kernel merges the partials.  Positions
-// outside [lo, hi] are never read.
+// used for 4 x G x hd operations, so at minicpm-2b width (KH=36, hd=64,
+// ~1,025 live rows, ~19 MB) the cache takes ~5.6 us at 3.35 TB/s.  One call
+// is one short wave, so what it pays besides the bytes is fixed per call:
+// the launch, each CTA's prologue and epilogue, and the merge of the splits.
+//
+// Design:
+// * Geometry from the shapes only (kernels/ops.py::decode_geometry: B, KH,
+//   G, hd, the element size and the SM count), never from valid_len: grid
+//   (splits, KH x head groups, B), one wave of up to 4 CTAs an SM.  Each CTA
+//   reads valid_len itself (from device memory when the caller passed a
+//   tensor, so a captured CUDA graph can be replayed with a new value),
+//   derives [lo, hi] and takes an equal share of it in whole 16-row granules
+//   (ops.py::decode_share is the same arithmetic); a CTA with an empty share
+//   writes an empty partial.
+// * No shared memory and no barrier on the per-row path.  A row of hd
+//   elements is read by LPR lanes with 16-byte loads (hd=64 float32: 16
+//   lanes, so one load instruction covers two rows).  Each warp owns a
+//   contiguous run of its CTA's rows and streams them through registers in
+//   batches of U row groups: as soon as a batch is unpacked its registers
+//   take the loads of the next batch, so one batch is in flight while the
+//   other is computed.  The U dot products of a batch reduce with shuffles
+//   inside each row's lanes, interleaved, and the online softmax rescales
+//   once a batch (one max, U + 1 exponentials).  q (GB heads), m, l and the
+//   lane's slice of acc stay in registers.  The sub-groups of a warp merge
+//   by shuffles, the warps of a CTA once through shared memory.  Deeper
+//   batches, and a cp.async ring in shared memory 6-16 row groups deep, were
+//   no faster on the card (PERF.md, section 6).
+// * Heads per pass GB keeps q and acc within ~32 registers a lane (G=1 and
+//   G=2 at the model widths take one pass; G=32 takes several, each a head
+//   group of its own in the grid, re-reading the rows).
+// * The splits merge in the same launch: each CTA writes its partial
+//   (m, l, acc) in float32 and thread 0 takes a ticket per (batch, kv head,
+//   head group) with an acquire-release atomic add; the CTA that draws the
+//   last ticket merges the partials (still in L2, read with ld.cg, 8 splits'
+//   loads in flight a thread) and writes out, then resets the ticket to 0
+//   for the next call or graph replay.
+// Positions outside [lo, hi] are never read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 32;  // query heads per kv head
+constexpr int kMaxG = 32;        // query heads per kv head
+constexpr int kMaxSplits = 1024;
+constexpr int kShareRows = 16;   // a CTA's share is a whole number of these
+constexpr int kMerge = 8;        // splits a merging thread loads at a time
 constexpr float kNegInf = -2.0e38f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__host__ __device__ constexpr int pow2ceil(int x) {
+  int p = 1;
+  while (p < x) p *= 2;
+  return p;
+}
+
+template <typename T, int HD>
+struct Cfg {
+  static constexpr int VEC = 16 / (int)sizeof(T);       // elements in one 16-byte load
+  static constexpr int CH = HD / VEC;                   // 16-byte chunks in a row
+  static constexpr int LPR = CH >= 32 ? 32 : pow2ceil(CH);  // lanes a row (hd=80: some idle)
+  static constexpr int NCH = (CH + LPR - 1) / LPR;      // chunks a lane per row
+  static constexpr int RPW = 32 / LPR;                  // rows a warp per load instruction
+  static constexpr int E = NCH * VEC;                   // elements a lane per row
+  static constexpr int GB = E >= 16 ? 1 : 16 / E;       // heads per pass (ops.decode_heads_per_pass)
+  static constexpr int U = 2;                           // row groups a batch
+  static constexpr int WARPS = HD * (int)sizeof(T) >= 1024 ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static_assert(GB * HD / 4 <= THREADS, "one merge column of 4 a thread");
+};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// four consecutive elements in one load: 16 bytes of float, 8 of bfloat16
-struct Four {
-  float v[4];
-};
-__device__ __forceinline__ Four load4(const float* p) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  return {{x.x, x.y, x.z, x.w}};
+// 16 loaded bytes as floats
+__device__ __forceinline__ void unpack(const uint4& x, float (&f)[4]) {
+  f[0] = __uint_as_float(x.x);
+  f[1] = __uint_as_float(x.y);
+  f[2] = __uint_as_float(x.z);
+  f[3] = __uint_as_float(x.w);
 }
-__device__ __forceinline__ Four load4(const __nv_bfloat16* p) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
-  return {{a.x, a.y, b.x, b.y}};
-}
-
-template <int HD> __host__ __device__ constexpr int kv_tile() { return HD >= 256 ? 32 : 64; }
-
-template <int HD>
-size_t smem_bytes(int G) {
-  constexpr int BK = kv_tile<HD>();
-  return sizeof(float) *
-         ((size_t)BK * (HD + 1) + (size_t)BK * HD + 2 * (size_t)G * HD + (size_t)G * BK + 3 * G);
-}
-
-// Partial attention of one chunk of positions for the G heads of one kv head.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-                      float* __restrict__ m_part, float* __restrict__ l_part,
-                      float* __restrict__ acc_part, int S, int KH, int G, int lo, int hi,
-                      int chunk, float scale) {
-  constexpr int BK = kv_tile<HD>();
-  constexpr int LDK = HD + 1;  // padded: thread j reads row j, rows in distinct banks
-  constexpr int NV = BK * HD / 4;                      // 4-element loads per tile and tensor
-  constexpr int PER = (NV + kThreads - 1) / kThreads;  // ... per thread, all in flight at once
-  extern __shared__ float smem[];
-  float* Ks = smem;           // (BK, LDK)
-  float* Vs = Ks + BK * LDK;  // (BK, HD)
-  float* Qs = Vs + BK * HD;   // (G, HD)
-  float* As = Qs + G * HD;    // (G, HD) running acc
-  float* Ss = As + G * HD;    // (G, BK) scores, then probabilities
-  float* Ms = Ss + G * BK;    // (G) running max
-  float* Ls = Ms + G;         // (G) running sum
-  float* Al = Ls + G;         // (G) rescale of this tile
-
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int n_splits = gridDim.x;
-  const int H = KH * G;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  for (int e = tid; e < G * HD; e += kThreads) {
-    Qs[e] = to_f(q[((size_t)b * H + kh * G) * HD + e]);
-    As[e] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    Ms[g] = kNegInf;
-    Ls[g] = 0.f;
-  }
-
-  const int p_begin = lo + split * chunk;
-  const int p_end = min(hi + 1, p_begin + chunk);
-  for (int p0 = p_begin; p0 < p_end; p0 += BK) {
-    const int n = min(BK, p_end - p0);
-    __syncthreads();  // the previous tile's readers are done (and Q is visible)
-    Four kr[PER], vr[PER];
+__device__ __forceinline__ void unpack(const uint4& x, float (&f)[8]) {
+  const unsigned w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-    for (int r = 0; r < PER; ++r) {  // issue every load of the tile before storing any
-      const int e = tid + r * kThreads, j = e / (HD / 4), d = (e % (HD / 4)) * 4;
-      if (e < NV && j < n) {
-        const size_t at = (((size_t)b * S + p0 + j) * KH + kh) * HD + d;
-        kr[r] = load4(kc + at);
-        vr[r] = load4(vc + at);
-      } else {
-        kr[r] = vr[r] = Four{{0.f, 0.f, 0.f, 0.f}};
+  for (int i = 0; i < 4; ++i) {  // bfloat16 pairs, low half first
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(Cfg<T, HD>::THREADS, 16 / Cfg<T, HD>::WARPS)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+              T* __restrict__ out, float* __restrict__ part, int* __restrict__ tickets,
+              const int* __restrict__ valid_dev, int valid_host, int S, int KH, int G,
+              int window, float scale_log2) {
+  using C = Cfg<T, HD>;
+  constexpr int VEC = C::VEC, CH = C::CH, LPR = C::LPR, NCH = C::NCH, RPW = C::RPW;
+  constexpr int GB = C::GB, U = C::U, WARPS = C::WARPS, THREADS = C::THREADS;
+  __shared__ float s_acc[WARPS][GB][HD];
+  __shared__ float s_m[WARPS][GB], s_l[WARPS][GB];
+  __shared__ float4 s_red[THREADS];
+  __shared__ float s_rm[THREADS], s_rl[THREADS];
+  __shared__ int s_last;
+
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int n_hg = gridDim.y / KH, kh = blockIdx.y / n_hg, hg = blockIdx.y % n_hg;
+  const int b = blockIdx.z;
+  const int unit = b * gridDim.y + blockIdx.y;  // (batch, kv head, head group)
+  const int ng = min(GB, G - hg * GB);
+  const int H = KH * G;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sub = lane / LPR, sl = lane % LPR;
+
+  // this CTA's share of the live range, then this warp's run of it
+  const long long valid = valid_dev ? (long long)*valid_dev : (long long)valid_host;
+  const long long lo = window > 0 ? max(0LL, valid - window + 1) : 0LL;
+  const long long hi = min(valid, (long long)S - 1);
+  int beg = 0, end = 0;
+  if (hi >= lo) {
+    const long long n = hi - lo + 1;
+    const long long per = ((n + kShareRows - 1) / kShareRows + splits - 1) / splits * kShareRows;
+    const long long bb = lo + split * per, ee = min(hi + 1, bb + per);
+    if (ee > bb) {
+      beg = (int)bb;
+      end = (int)ee;
+    }
+  }
+  const int per_w = (end - beg + WARPS - 1) / WARPS;
+  const int wbeg = beg + warp * per_w;
+  const int wend = min(end, wbeg + per_w);
+  const int n_it = wend > wbeg ? (wend - wbeg + RPW - 1) / RPW : 0;
+
+  float qr[GB][NCH][VEC], acc[GB][NCH][VEC], m[GB], l[GB];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int chunk = sl + c * LPR;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        acc[g][c][e] = 0.f;
+        qr[g][c][e] = (g < ng && chunk < CH)
+            ? to_f(q[((size_t)b * H + kh * G + hg * GB + g) * HD + chunk * VEC + e]) : 0.f;
       }
     }
+  }
+
+  const size_t row_stride = (size_t)KH * HD;
+  const T* kbase = kc + ((size_t)b * S * KH + kh) * HD;
+  const T* vbase = vc + ((size_t)b * S * KH + kh) * HD;
+  uint4 kb[U][NCH], vb[U][NCH];
 #pragma unroll
-    for (int r = 0; r < PER; ++r) {
-      const int e = tid + r * kThreads, j = e / (HD / 4), d = (e % (HD / 4)) * 4;
-      if (e < NV) {
+  for (int s = 0; s < U; ++s)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          Ks[j * LDK + d + i] = kr[r].v[i];
-          Vs[j * HD + d + i] = vr[r].v[i];
+    for (int c = 0; c < NCH; ++c) kb[s][c] = vb[s][c] = make_uint4(0u, 0u, 0u, 0u);
+
+#define REPRO_DECODE_LOAD(S_, IT_)                                                       \
+  do {                                                                                   \
+    const int row_ = wbeg + (IT_) * RPW + sub;                                           \
+    if ((IT_) < n_it && row_ < wend) {                                                   \
+      _Pragma("unroll") for (int c = 0; c < NCH; ++c) {                                  \
+        const int chunk = sl + c * LPR;                                                  \
+        if (chunk < CH) {                                                                \
+          const size_t at = (size_t)row_ * row_stride + chunk * VEC;                     \
+          kb[S_][c] = __ldg(reinterpret_cast<const uint4*>(kbase + at));                 \
+          vb[S_][c] = __ldg(reinterpret_cast<const uint4*>(vbase + at));                 \
+        }                                                                                \
+      }                                                                                  \
+    }                                                                                    \
+  } while (0)
+
+#pragma unroll
+  for (int s = 0; s < U; ++s) REPRO_DECODE_LOAD(s, s);
+
+  for (int base = 0; base < n_it; base += U) {
+    float kf[U][NCH][VEC], vf[U][NCH][VEC];
+    bool ok[U];
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      ok[s] = base + s < n_it && wbeg + (base + s) * RPW + sub < wend;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        unpack(kb[s][c], kf[s][c]);
+        unpack(vb[s][c], vf[s][c]);
+      }
+      REPRO_DECODE_LOAD(s, base + s + U);
+    }
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g < ng) {
+        float d[U];
+#pragma unroll
+        for (int s = 0; s < U; ++s) {
+          d[s] = 0.f;
+#pragma unroll
+          for (int c = 0; c < NCH; ++c)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) d[s] = fmaf(qr[g][c][e], kf[s][c][e], d[s]);
+        }
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1)
+#pragma unroll
+          for (int s = 0; s < U; ++s) d[s] += __shfl_xor_sync(0xffffffffu, d[s], o);
+        float mn = m[g];
+#pragma unroll
+        for (int s = 0; s < U; ++s) {
+          d[s] *= scale_log2;
+          if (ok[s]) mn = fmaxf(mn, d[s]);
+        }
+        const float al = exp2f(m[g] - mn);
+        l[g] *= al;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[g][c][e] *= al;
+#pragma unroll
+        for (int s = 0; s < U; ++s) {
+          if (ok[s]) {
+            const float p = exp2f(d[s] - mn);
+            l[g] += p;
+#pragma unroll
+            for (int c = 0; c < NCH; ++c)
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) acc[g][c][e] = fmaf(p, vf[s][c][e], acc[g][c][e]);
+          }
+        }
+        m[g] = mn;
+      }
+    }
+  }
+#undef REPRO_DECODE_LOAD
+
+  // merge the RPW row sub-groups of the warp (lanes sl, sl + LPR, ... hold
+  // the same columns)
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g < ng) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+        const float lo_ = __shfl_xor_sync(0xffffffffu, l[g], o);
+        const float mn = fmaxf(m[g], mo);
+        const float a = exp2f(m[g] - mn), bo = exp2f(mo - mn);
+        l[g] = l[g] * a + lo_ * bo;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[g][c][e] = acc[g][c][e] * a + __shfl_xor_sync(0xffffffffu, acc[g][c][e], o) * bo;
+        m[g] = mn;
+      }
+    }
+  }
+  if (sub == 0) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g < ng) {
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          const int chunk = sl + c * LPR;
+          if (chunk < CH) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) s_acc[warp][g][chunk * VEC + e] = acc[g][c][e];
+          }
+        }
+        if (lane == 0) {
+          s_m[warp][g] = m[g];
+          s_l[warp][g] = l[g];
         }
       }
     }
-    __syncthreads();
-    for (int e = tid; e < G * BK; e += kThreads) {
-      const int g = e / BK, j = e % BK;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) s += Qs[g * HD + d] * Ks[j * LDK + d];
-      Ss[e] = s * scale;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += kWarps) {  // one warp per head: the tile's stats
-      float mt = kNegInf;
-      for (int j = lane; j < n; j += 32) mt = fmaxf(mt, Ss[g * BK + j]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_old = Ms[g];
-      const float m_new = fmaxf(m_old, mt);
-      float ls = 0.f;
-      for (int j = lane; j < BK; j += 32) {
-        const float p = j < n ? expf(Ss[g * BK + j] - m_new) : 0.f;
-        Ss[g * BK + j] = p;
-        ls += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        Ls[g] = Ls[g] * alpha + ls;
-        Ms[g] = m_new;
-        Al[g] = alpha;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < G * HD; e += kThreads) {
-      const int g = e / HD, d = e % HD;
-      float a = As[e] * Al[g];
-      for (int j = 0; j < n; ++j) a += Ss[g * BK + j] * Vs[j * HD + d];
-      As[e] = a;
-    }
   }
   __syncthreads();
-  const size_t base = ((size_t)b * KH + kh) * n_splits + split;  // (b, kh, split) row of G heads
-  for (int e = tid; e < G * HD; e += kThreads) acc_part[base * G * HD + e] = As[e];
-  for (int g = tid; g < G; g += kThreads) {
-    m_part[base * G + g] = Ms[g];
-    l_part[base * G + g] = Ls[g];
-  }
-}
 
-// Merge the n_splits partials of each (batch, head): one CTA per 32 output
-// columns of a head, its warps taking the splits in turn, so that each thread
-// has several independent loads in flight.
-constexpr int kCombineWarps = 8;
-constexpr int kMaxSplits = 4096;
+  // this CTA's partial: acc (units, splits, GB, HD), then (m, l) (units,
+  // splits, 2, GB)
+  const int n_units = gridDim.z * gridDim.y;
+  float* acc_part = part;
+  float* ml_part = part + (size_t)n_units * splits * GB * HD;
+  const size_t pidx = (size_t)unit * splits + split;
+  for (int i = threadIdx.x; i < ng * HD; i += THREADS) {
+    const int g = i / HD, d = i % HD;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, s_m[w][g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float a = exp2f(s_m[w][g] - M);
+      L += s_l[w][g] * a;
+      A += s_acc[w][g][d] * a;
+    }
+    acc_part[pidx * GB * HD + i] = A;
+    if (d == 0) {
+      ml_part[pidx * 2 * GB + g] = M;
+      ml_part[pidx * 2 * GB + GB + g] = L;
+    }
+  }
+  __syncthreads();  // every store of the partial issued; thread 0 releases them
+  if (threadIdx.x == 0) {  // acquire-release: the last CTA sees every partial
+    int t;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(t) : "l"(&tickets[unit]) : "memory");
+    s_last = t == splits - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
 
-template <typename T>
-__global__ void __launch_bounds__(32 * kCombineWarps)
-decode_combine_kernel(const float* __restrict__ m_part, const float* __restrict__ l_part,
-                      const float* __restrict__ acc_part, T* __restrict__ out, int KH, int G,
-                      int hd, int n_splits) {
-  extern __shared__ float sm[];
-  float* ws = sm;                // (n_splits) partial maxima, then weights exp(m_i - M)
-  float* ls = ws + n_splits;     // (n_splits) partial sums
-  float* part = ls + n_splits;   // (kCombineWarps, 32) partial outputs
-  const int col_blocks = (hd + 31) / 32;
-  const int h = blockIdx.x / col_blocks, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int d = (blockIdx.x % col_blocks) * 32 + lane;
-  const int kh = h / G, g = h % G;
-  const size_t base = ((size_t)b * KH + kh) * n_splits;
-  for (int i = tid; i < n_splits; i += blockDim.x) {
-    ws[i] = m_part[(base + i) * G + g];
-    ls[i] = l_part[(base + i) * G + g];
+  // the last CTA of this unit merges the splits' partials: each thread
+  // takes one column of 4 floats over every phases-th split, loading kMerge
+  // splits' (m, l, acc) at a time (independent loads, one L2 round trip
+  // each batch) and merging them online; then the phases merge in shared
+  // memory
+  const float* accs = acc_part + (size_t)unit * splits * GB * HD;
+  const float* mls = ml_part + (size_t)unit * splits * 2 * GB;
+  const int nq = ng * HD / 4;  // columns of 4 floats
+  const int phases = THREADS / nq;
+  const int qd = threadIdx.x % nq, ph = threadIdx.x / nq, gq = qd * 4 / HD;
+  float M = kNegInf, L = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (ph < phases) {
+    for (int i0 = ph; i0 < splits; i0 += kMerge * phases) {
+      float mm[kMerge], ll[kMerge];
+      float4 x[kMerge];
+#pragma unroll
+      for (int j = 0; j < kMerge; ++j) {
+        const int i = i0 + j * phases;
+        if (i < splits) {
+          mm[j] = __ldcg(mls + i * 2 * GB + gq);
+          ll[j] = __ldcg(mls + i * 2 * GB + GB + gq);
+          x[j] = __ldcg(reinterpret_cast<const float4*>(accs + (size_t)i * GB * HD) + qd);
+        } else {
+          mm[j] = kNegInf;
+          ll[j] = 0.f;
+          x[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+      float mb = M;
+#pragma unroll
+      for (int j = 0; j < kMerge; ++j) mb = fmaxf(mb, mm[j]);
+      const float r = exp2f(M - mb);
+      L *= r;
+      a = make_float4(a.x * r, a.y * r, a.z * r, a.w * r);
+#pragma unroll
+      for (int j = 0; j < kMerge; ++j) {
+        const float w = exp2f(mm[j] - mb);
+        L = fmaf(ll[j], w, L);
+        a = make_float4(fmaf(x[j].x, w, a.x), fmaf(x[j].y, w, a.y), fmaf(x[j].z, w, a.z),
+                        fmaf(x[j].w, w, a.w));
+      }
+      M = mb;
+    }
   }
+  s_red[threadIdx.x] = a;
+  s_rm[threadIdx.x] = M;
+  s_rl[threadIdx.x] = L;
   __syncthreads();
-  float M = kNegInf;
-  for (int i = 0; i < n_splits; ++i) M = fmaxf(M, ws[i]);
-  __syncthreads();  // every thread has M before the weights overwrite the maxima
-  for (int i = tid; i < n_splits; i += blockDim.x) ws[i] = expf(ws[i] - M);
-  __syncthreads();
-  float a = 0.f;
-  if (d < hd) {
-#pragma unroll 4
-    for (int i = warp; i < n_splits; i += kCombineWarps)
-      a += acc_part[((base + i) * G + g) * hd + d] * ws[i];
+  if (threadIdx.x < nq) {
+    for (int p = 1; p < phases; ++p) M = fmaxf(M, s_rm[p * nq + qd]);
+    float Lt = 0.f;
+    a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p = 0; p < phases; ++p) {
+      const float w = exp2f(s_rm[p * nq + qd] - M);
+      const float4 y = s_red[p * nq + qd];
+      Lt = fmaf(s_rl[p * nq + qd], w, Lt);
+      a = make_float4(fmaf(y.x, w, a.x), fmaf(y.y, w, a.y), fmaf(y.z, w, a.z), fmaf(y.w, w, a.w));
+    }
+    const float inv = 1.f / fmaxf(Lt, 1e-30f);
+    T* o = out + ((size_t)b * H + kh * G + hg * GB) * HD + qd * 4;
+    store(o, a.x * inv);
+    store(o + 1, a.y * inv);
+    store(o + 2, a.z * inv);
+    store(o + 3, a.w * inv);
   }
-  part[warp * 32 + lane] = a;
-  __syncthreads();
-  if (warp == 0 && d < hd) {
-    float L = 0.f, s = 0.f;
-    for (int i = 0; i < n_splits; ++i) L += ls[i] * ws[i];
-    for (int w = 0; w < kCombineWarps; ++w) s += part[w * 32 + lane];
-    store(&out[((size_t)b * KH * G + h) * hd + d], s / fmaxf(L, 1e-30f));
-  }
+  if (threadIdx.x == 0) tickets[unit] = 0;  // ready for the next call
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* kc, const void* vc, void* out, float* m_part,
-                   float* l_part, float* acc_part, int B, int S, int H, int KH, int lo, int hi,
-                   int chunk, int n_splits, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* kc, const void* vc, void* out, float* part,
+                   int* tickets, const int* valid_dev, int valid_host, int B, int S, int H,
+                   int KH, int window, int gb, int splits, cudaStream_t stream) {
+  using C = Cfg<T, HD>;
   const int G = H / KH;
-  const size_t smem = smem_bytes<HD>(G);
-  static size_t opted_in = 48 * 1024;  // the largest size set so far for this instantiation
-  if (smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_partial_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    opted_in = smem;
-  }
-  decode_partial_kernel<T, HD><<<dim3(n_splits, KH, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), m_part,
-      l_part, acc_part, S, KH, G, lo, hi, chunk, 1.0f / sqrtf((float)HD));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t combine_smem = sizeof(float) * (2 * (size_t)n_splits + 32 * kCombineWarps);
-  decode_combine_kernel<T><<<dim3(H * ((HD + 31) / 32), B), 32 * kCombineWarps, combine_smem,
-                             stream>>>(m_part, l_part, acc_part, static_cast<T*>(out), KH, G,
-                                       HD, n_splits);
+  if (gb != C::GB) return cudaErrorInvalidValue;
+  const int n_hg = (G + C::GB - 1) / C::GB;
+  decode_kernel<T, HD><<<dim3(splits, KH * n_hg, B), C::THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
+      static_cast<T*>(out), part, tickets, valid_dev, valid_host, S, KH, G, window,
+      1.0f / sqrtf((float)HD) * kLog2e);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* kc, const void* vc, void* out, float* m_part,
-                     float* l_part, float* acc_part, int B, int S, int H, int KH, int hd, int lo,
-                     int hi, int chunk, int n_splits, cudaStream_t s) {
+cudaError_t dispatch(const void* q, const void* kc, const void* vc, void* out, float* part,
+                     int* tickets, const int* valid_dev, int valid_host, int B, int S, int H,
+                     int KH, int hd, int window, int gb, int splits, cudaStream_t s) {
 #define REPRO_DECODE_CASE(D) \
-  case D: return launch<T, D>(q, kc, vc, out, m_part, l_part, acc_part, B, S, H, KH, lo, hi, chunk, n_splits, s)
+  case D: return launch<T, D>(q, kc, vc, out, part, tickets, valid_dev, valid_host, B, S, H, KH, window, gb, splits, s)
   switch (hd) {
     REPRO_DECODE_CASE(16);
     REPRO_DECODE_CASE(32);
@@ -268,22 +432,27 @@ cudaError_t dispatch(const void* q, const void* kc, const void* vc, void* out, f
 extern "C" int decode_attention_max_group() { return kMaxG; }
 
 // q, out: (B, H, hd); k_cache, v_cache: (B, S, KH, hd), all contiguous, float32
-// or (when is_bf16) bfloat16; the caches aligned to 4 elements.  Live positions [lo, hi], 0 <= lo <= hi < S,
-// cut into n_splits <= 4096 chunks of `chunk` rows (n_splits * chunk >= hi - lo + 1).
-// Scratch, float32: m_part and l_part (B, KH, n_splits, G), acc_part
-// (B, KH, n_splits, G, hd).  G = H / KH at most decode_attention_max_group();
-// hd one of 16, 32, 64, 80, 128, 256.
+// or (when is_bf16) bfloat16; the caches 16-byte aligned.  valid_len is read
+// from valid_dev (one int32 in device memory) when that is not null, else
+// valid_host; window 0 means none.  gb heads per pass (must equal the
+// kernel's, ops.py::decode_heads_per_pass) and splits <= 1024 CTAs a
+// (batch, kv head, head group) unit, from ops.py::decode_geometry.  Scratch:
+// part, float32, units * splits * gb * (hd + 2); tickets, int32, one per unit
+// (units = B * KH * ceil(G / gb)), zero before the first call and left zero
+// by every call.  Calls that share tickets must not overlap in time.  G = H /
+// KH at most decode_attention_max_group(); hd one of 16, 32, 64, 80, 128, 256.
 extern "C" int decode_attention_launch(const void* q, const void* kc, const void* vc, void* out,
-                                       float* m_part, float* l_part, float* acc_part, int B,
-                                       int S, int H, int KH, int hd, int lo, int hi, int chunk,
-                                       int n_splits, int is_bf16, void* stream) {
-  if (B < 1 || KH < 1 || H % KH != 0 || H / KH > kMaxG || lo < 0 || hi < lo || hi >= S ||
-      chunk < 1 || n_splits < 1 || n_splits > kMaxSplits ||
-      (long long)n_splits * chunk < hi - lo + 1)
+                                       float* part, int* tickets, const int* valid_dev,
+                                       int valid_host, int B, int S, int H, int KH, int hd,
+                                       int window, int gb, int splits, int is_bf16,
+                                       void* stream) {
+  if (B < 1 || S < 1 || KH < 1 || H % KH != 0 || H / KH > kMaxG || window < 0 || gb < 1 ||
+      splits < 1 || splits > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(q, kc, vc, out, m_part, l_part, acc_part, B, S,
-                                                 H, KH, hd, lo, hi, chunk, n_splits, s)
-                       : dispatch<float>(q, kc, vc, out, m_part, l_part, acc_part, B, S, H, KH,
-                                         hd, lo, hi, chunk, n_splits, s));
+  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(q, kc, vc, out, part, tickets, valid_dev,
+                                                 valid_host, B, S, H, KH, hd, window, gb,
+                                                 splits, s)
+                       : dispatch<float>(q, kc, vc, out, part, tickets, valid_dev, valid_host,
+                                         B, S, H, KH, hd, window, gb, splits, s));
 }

@@ -25,11 +25,14 @@ LAUNCHES: Dict[str, int] = {"sched_events": 0, "sched_step": 0, "ssd_scan": 0,
 #: head dims the attention kernels are instantiated for (the repo's attention
 #: configs, plus 16 and 32 for the tiny serving and test configs)
 ATTN_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-#: CTAs the decode kernel aims for when it splits the live range (four per
-#: SM of an H100's 132), and the granule of cache rows a split takes
-DECODE_TARGET_CTAS = 528
-DECODE_SPLIT_ROWS = 16
-
+#: the decode kernel's geometry (``decode_geometry``): CTAs it aims for per
+#: SM, the granule of cache rows a CTA's share is made of, the float32
+#: partial columns (splits x heads x hd) that one CTA may merge before the
+#: rule stops adding splits beyond one CTA per SM, and the most splits a unit
+DECODE_CTAS_PER_SM = 4
+DECODE_SHARE_ROWS = 16
+DECODE_MERGE_FLOATS = 16384
+DECODE_MAX_SPLITS = 1024
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -218,62 +221,130 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None):
     return out
 
 
-def decode_splits(n_live: int, batch_kv: int) -> Tuple[int, int]:
-    """(n_splits, rows per split) for ``n_live`` live cache rows and
-    ``batch_kv`` = B * KH: about ``DECODE_TARGET_CTAS`` CTAs, each taking a
-    multiple of ``DECODE_SPLIT_ROWS`` rows."""
-    want = max(1, -(-DECODE_TARGET_CTAS // batch_kv))
-    g = DECODE_SPLIT_ROWS
-    chunk = -(-n_live // (want * g)) * g
-    return -(-n_live // chunk), chunk
+def decode_heads_per_pass(hd: int, elem: int) -> int:
+    """Query heads the decode kernel carries in one pass over the rows, so
+    that q and acc stay within ~32 registers a lane (``Cfg::GB`` in
+    ``csrc/decode_attention.cu``): a row is read 16 bytes a lane, by at most
+    32 lanes."""
+    vec = 16 // elem
+    chunks = hd // vec
+    lanes = 32 if chunks >= 32 else 1 << (chunks - 1).bit_length()
+    per_lane = -(-chunks // lanes) * vec
+    return 1 if per_lane >= 16 else 16 // per_lane
 
 
-def decode_attention(q, k_cache, v_cache, valid_len: int, window: Optional[int] = None):
+def decode_geometry(B: int, KH: int, G: int, hd: int, elem: int, n_sm: int) -> Tuple[int, int, int]:
+    """(heads per pass, head groups, splits) of the decode kernel: the grid is
+    (splits, KH x head groups, B), from the shapes and the SM count alone
+    (never ``valid_len``, so a captured call can be replayed with another).
+    Splits fill ``DECODE_CTAS_PER_SM`` CTAs per SM in one wave, but beyond one
+    CTA per SM only while the last CTA's merge reads at most
+    ``DECODE_MERGE_FLOATS`` partial columns."""
+    gb = decode_heads_per_pass(hd, elem)
+    n_hg = -(-G // gb)
+    units = B * KH * n_hg
+    want = DECODE_CTAS_PER_SM * n_sm // units
+    cap = max(n_sm // units, DECODE_MERGE_FLOATS // (gb * hd))
+    return gb, n_hg, max(1, min(want, cap, DECODE_MAX_SPLITS))
+
+
+def decode_share(valid_len: int, S: int, window: Optional[int], splits: int,
+                 split: int) -> Tuple[int, int]:
+    """Cache rows ``[begin, end)`` that CTA ``split`` of a unit reads: an
+    equal share of the live range ``[lo, hi]`` in whole
+    ``DECODE_SHARE_ROWS``-row granules; empty (``begin == end``) past its end
+    or when no position is live.  The kernel computes the same on the card."""
+    lo = max(0, valid_len - window + 1) if window else 0
+    hi = min(valid_len, S - 1)
+    if hi < lo:
+        return 0, 0
+    g = DECODE_SHARE_ROWS
+    per = -(-(-(-(hi - lo + 1) // g)) // splits) * g
+    begin = lo + split * per
+    end = min(hi + 1, begin + per)
+    return (begin, end) if end > begin else (0, 0)
+
+
+_n_sm: Dict[torch.device, int] = {}
+_tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def _decode_tickets(device: torch.device, units: int) -> torch.Tensor:
+    """The decode kernel's int32 tickets for ``device``, one per unit: zeroed
+    once here and left at zero by every call, so repeat calls and graph
+    replays need no memset.  Make the first call of a shape before capturing
+    it in a graph, so that this allocation is not captured."""
+    t = _tickets.get(device)
+    if t is None or t.numel() < units:
+        t = torch.zeros(max(units, 4096), dtype=torch.int32, device=device)
+        _tickets[device] = t
+    return t
+
+
+def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = None):
     """One new token per sequence against a cache.  q (B,H,hd); caches
     (B,S,KH,hd) in q's dtype (float32 or bfloat16).  Positions ``<=
     valid_len`` are live, and with a window only those with ``valid_len -
-    pos < window``.  ``valid_len`` is one Python int for the whole batch
-    (the kernel has no per-row lengths: ROADMAP Queue 1 item 6); on the
-    card a tensor raises.  Returns (B,H,hd) in q's dtype.
+    pos < window``.  ``valid_len`` is one length for the whole batch: a
+    Python int, or a 0-d integer tensor on q's device, which the kernel reads
+    on the card (no host sync; a captured call replays with the tensor's new
+    value).  A ``(B,)`` tensor raises (per-row lengths: ROADMAP Queue 1 item
+    6).  An int with no live position raises; a tensor with none gives zeros,
+    as the Pallas kernel does.  Returns (B,H,hd) in q's dtype.
 
-    On the card the live range is split over CTAs (``decode_splits``); the
-    partial (m, l, acc) go to float32 scratch allocated here and a second
-    launch merges them.  Both launches count as one."""
+    On the card this is one launch of ``decode_geometry``'s grid: each CTA
+    takes its share of the live range, and the last CTA of each (batch, kv
+    head, head group) merges the float32 partials (scratch allocated here)
+    by a ticket kept per device (``_decode_tickets``).  Calls on one device
+    share those tickets, so they must run on one stream."""
     if not _on_cuda(q, k_cache, v_cache):
         return ref.decode_attention_ref(q, k_cache, v_cache, valid_len, window)
-    if isinstance(valid_len, torch.Tensor):
-        raise TypeError("decode_attention kernel takes valid_len as one Python int "
-                        "(per-row lengths are ROADMAP Queue 1 item 6), got a tensor")
-    valid_len = operator.index(valid_len)
     B, S, KH, hd = k_cache.shape
     H = q.shape[1]
     _attn_checks(q, k_cache, v_cache, (B, H, hd), (B, S, KH, hd))
-    if any(t.data_ptr() % (4 * t.element_size()) for t in (k_cache, v_cache)):
-        raise ValueError("decode_attention kernel reads the caches 4 elements at a time: "
-                         "their storage must be aligned to 4 elements")
+    if any(t.data_ptr() % 16 for t in (k_cache, v_cache)):
+        raise ValueError("decode_attention kernel reads the caches 16 bytes at a time: "
+                         "their storage must be 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
+    if isinstance(valid_len, torch.Tensor):
+        if valid_len.ndim != 0:
+            raise TypeError("decode_attention kernel takes valid_len as a Python int or a 0-d "
+                            "tensor (per-row lengths are ROADMAP Queue 1 item 6), got shape "
+                            f"{tuple(valid_len.shape)}")
+        if valid_len.dtype.is_floating_point or valid_len.dtype.is_complex or \
+                valid_len.dtype == torch.bool:
+            raise TypeError(f"valid_len: expected an integer tensor, got {valid_len.dtype}")
+        if valid_len.device != q.device:
+            raise ValueError(f"valid_len on {valid_len.device}, q on {q.device}")
+        valid_dev, valid_host = valid_len.to(torch.int32), 0
+    else:
+        valid_host, valid_dev = operator.index(valid_len), None
+        lo = max(0, valid_host - window + 1) if window is not None else 0
+        if min(valid_host, S - 1) < lo:
+            raise ValueError(f"no live cache position: valid_len {valid_host}, window {window}, "
+                             f"cache length {S}")
+        if valid_host >= 2**31:
+            raise ValueError(f"valid_len {valid_host} does not fit the kernel's int32")
     lib = build.load("decode_attention")
     G = H // KH
     if G > lib.decode_attention_max_group():
         raise ValueError(f"decode kernel takes at most {lib.decode_attention_max_group()} "
                          f"query heads per kv head, got {G}")
-    lo = max(0, valid_len - window + 1) if window is not None else 0
-    hi = min(valid_len, S - 1)
-    if hi < lo:
-        raise ValueError(f"no live cache position: valid_len {valid_len}, window {window}, "
-                         f"cache length {S}")
-    n_splits, chunk = decode_splits(hi - lo + 1, B * KH)
+    n_sm = _n_sm.get(q.device)
+    if n_sm is None:
+        n_sm = _n_sm[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
+    gb, n_hg, splits = decode_geometry(B, KH, G, hd, q.element_size(), n_sm)
+    units = B * KH * n_hg
     out = torch.empty_like(q)
-    m_part = torch.empty((B, KH, n_splits, G), dtype=torch.float32, device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((B, KH, n_splits, G, hd), dtype=torch.float32, device=q.device)
+    part = torch.empty(units * splits * gb * (hd + 2), dtype=torch.float32, device=q.device)
+    tickets = _decode_tickets(q.device, units)
     with torch.cuda.device(q.device):
         err = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-            m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-            B, S, H, KH, hd, lo, hi, chunk, n_splits, int(q.dtype == torch.bfloat16),
-            _stream(q),
+            part.data_ptr(), tickets.data_ptr(),
+            valid_dev.data_ptr() if valid_dev is not None else None, valid_host,
+            B, S, H, KH, hd, window or 0, gb, splits, int(q.dtype == torch.bfloat16), _stream(q),
         )
     _raise_on(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1

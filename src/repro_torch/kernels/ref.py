@@ -89,21 +89,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                         valid_len: int, window: Optional[int] = None) -> torch.Tensor:
+                         valid_len, window: Optional[int] = None) -> torch.Tensor:
     """One new token per sequence against a cache.  q (B,H,hd); caches
-    (B,S,KH,hd); positions ``<= valid_len`` are live, and with a window only
-    those with ``valid_len - pos < window``.  Masked logits -2e38, softmax in
-    float32, probabilities cast to ``q.dtype``.  Returns (B,H,hd)."""
+    (B,S,KH,hd); ``valid_len`` a Python int or a 0-d integer tensor; positions
+    ``<= valid_len`` are live, and with a window only those with ``valid_len
+    - pos < window``.  Masked logits -2e38, softmax in float32, probabilities
+    cast to ``q.dtype``; with no live position the probabilities are 0, so
+    the output is zeros, as the Pallas kernel's (l = 0).  Returns (B,H,hd)."""
     B, S, KH, hd = k_cache.shape
     H = q.shape[1]
     G = H // KH
     qg = q.reshape(B, KH, G, hd)
     logits = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.to(q.dtype).float()) * _scale(hd)
     pos = torch.arange(S, device=q.device)
+    if isinstance(valid_len, torch.Tensor):
+        valid_len = valid_len.to(q.device)
     ok = pos <= valid_len
     if window is not None:
         ok &= (valid_len - pos) < window
     logits = logits.masked_fill(~ok, _NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = torch.softmax(logits, dim=-1).masked_fill(~ok, 0.0).to(q.dtype)
     out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache.to(q.dtype))
     return out.reshape(B, H, hd)

@@ -95,14 +95,68 @@ def test_ops_on_cpu_match_pallas_interpret():
     assert ops.LAUNCHES["flash_attention"] == 0 and ops.LAUNCHES["decode_attention"] == 0
 
 
-@pytest.mark.parametrize("n_live,batch_kv", [(1025, 36), (1024, 4), (1, 36), (33, 2), (2048, 8)])
-def test_decode_splits_cover_the_live_range(n_live, batch_kv):
-    """The decode kernel's split of the live rows: every row in exactly one
-    split, no split empty, about ``DECODE_TARGET_CTAS`` CTAs at most."""
-    n_splits, chunk = ops.decode_splits(n_live, batch_kv)
-    assert chunk % ops.DECODE_SPLIT_ROWS == 0
-    assert (n_splits - 1) * chunk < n_live <= n_splits * chunk
-    assert n_splits * batch_kv < ops.DECODE_TARGET_CTAS + batch_kv
+@pytest.mark.parametrize("B,S,H,KH,hd,valid,window", DECODE_SHAPES)
+def test_decode_tensor_valid_len_matches_pallas(B, S, H, KH, hd, valid, window):
+    """``valid_len`` as a 0-d int32 tensor, the form the Pallas kernel takes:
+    the port's wrapper (on the CPU, the plain path) and its plain version
+    against the Pallas kernel in interpret mode."""
+    (jq, jk, jv), (q, k, v) = _pair(_inputs([(B, H, hd), (B, S, KH, hd), (B, S, KH, hd)], S + valid), "float32")
+    want = jax_ops.decode_attention(jq, jk, jv, jnp.int32(valid), window=window, block_k=128,
+                                    interpret=True)
+    t = torch.tensor(valid, dtype=torch.int32)
+    _close(ops.decode_attention(q, k, v, t, window), want, TOL["float32"])
+    _close(ref.decode_attention_ref(q, k, v, t, window), want, TOL["float32"])
+
+
+def test_decode_ref_no_live_position_gives_zeros():
+    """With no live position the Pallas kernel's l is 0 and it writes zeros;
+    the plain version does the same, for an int and a tensor."""
+    (jq, jk, jv), (q, k, v) = _pair(_inputs([(1, 4, 64), (1, 64, 2, 64), (1, 64, 2, 64)], 9), "float32")
+    want = jax_ops.decode_attention(jq, jk, jv, jnp.int32(-1), block_k=64, interpret=True)
+    np.testing.assert_array_equal(np.asarray(want), 0.0)
+    for valid in (-1, torch.tensor(-1, dtype=torch.int32)):
+        assert not ref.decode_attention_ref(q, k, v, valid).any()
+    assert not ref.decode_attention_ref(q, k, v, 63 + 10, window=5).any()
+
+
+N_SM = 132  # an H100 SXM
+
+
+@pytest.mark.parametrize("B,KH,G,hd,elem,S,window", [
+    (1, 36, 1, 64, 4, 2048, None),    # minicpm-2b
+    (1, 4, 2, 256, 4, 2048, 1024),    # gemma3-4b, window 1024
+    (1, 4, 2, 256, 2, 2048, None),    # gemma3-4b in bfloat16
+    (2, 2, 4, 64, 4, 512, None),      # the tiny shapes of DECODE_SHAPES
+    (1, 4, 1, 128, 4, 256, None),
+    (2, 2, 8, 64, 4, 512, 128),
+    (1, 1, 8, 64, 2, 128, None),
+    (1, 2, 32, 128, 4, 300, 37),      # G=32: several head groups
+    (64, 8, 4, 128, 4, 96, None),     # more units than SMs: one CTA each
+])
+def test_decode_geometry_covers_the_live_range(B, KH, G, hd, elem, S, window):
+    """The decode kernel's geometry depends on the shapes only; for every
+    valid_len in [0, S-1] (and past it) the CTAs' shares hold every live row
+    exactly once and no other row; one wave of at most DECODE_CTAS_PER_SM
+    CTAs per SM, and at least one per SM up to rounding."""
+    gb, n_hg, splits = ops.decode_geometry(B, KH, G, hd, elem, N_SM)
+    assert gb == ops.decode_heads_per_pass(hd, elem) and n_hg * gb >= G > (n_hg - 1) * gb
+    units = B * KH * n_hg
+    assert 1 <= splits <= ops.DECODE_MAX_SPLITS
+    assert units * splits <= ops.DECODE_CTAS_PER_SM * N_SM or splits == 1
+    assert splits >= min(N_SM // units, ops.DECODE_MAX_SPLITS) and units * splits >= N_SM // 2
+    if (B, KH, G, hd, elem) == (1, 36, 1, 64, 4):
+        assert splits == 14  # 504 CTAs
+    if (B, KH, G, hd, elem) == (1, 4, 2, 256, 4):
+        assert (gb, splits) == (2, 33)  # 132 CTAs
+    for valid in list(range(S)) + [S, S + 5]:
+        lo = max(0, valid - window + 1) if window else 0
+        hi = min(valid, S - 1)
+        rows = []
+        for split in range(splits):
+            b, e = ops.decode_share(valid, S, window, splits, split)
+            assert e == b or (b - lo) % ops.DECODE_SHARE_ROWS == 0
+            rows.extend(range(b, e))
+        assert rows == list(range(lo, hi + 1)), valid
 
 
 # ------------------------------------------------------ attention functions

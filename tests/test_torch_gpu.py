@@ -239,8 +239,8 @@ def test_flash_kernel_rejects_misaligned_views(cuda):
 
 
 def test_each_wrapper_call_counts_one_launch(cuda):
-    """ssd_scan (three CUDA launches) and decode_attention (two) each add
-    exactly 1 per wrapper call, as do the single-launch kernels."""
+    """ssd_scan (three CUDA launches) adds exactly 1 per wrapper call, as do
+    the single-launch kernels (decode_attention among them)."""
     x, dt, A, Bm, Cm = (t.to(cuda) for t in _ssd_inputs(1, 512, 4, 16, 16))
     q, k, v = _attn_inputs([(1, 64, 2, 32)] * 3, torch.float32, 1, cuda)
     args = [a.to(cuda) for a in burst(16, 2, 4, 0)]
@@ -271,6 +271,11 @@ def test_each_wrapper_call_counts_one_launch(cuda):
     (1, 2048, 8, 4, 256, 0, 1024),
     (2, 300, 4, 2, 80, 150, None),
     (1, 64, 4, 2, 128, 63, 1),          # a window of one position
+    (1, 2048, 36, 36, 64, 1119, None),  # minicpm-2b: 14 shares of 80 rows, each full
+    (1, 2048, 36, 36, 64, 1120, None),  # and one row past the last boundary
+    (1, 256, 4, 4, 64, 255, None),      # valid_len at S-1
+    (1, 256, 4, 2, 64, 300, None),      # past S-1: every row live
+    (1, 256, 8, 4, 256, 400, 200),      # past S-1 with a window
 ])
 def test_decode_kernel_matches_plain(cuda, B, S, H, KH, hd, valid, window, dtype):
     q, kc, vc = _attn_inputs([(B, H, hd), (B, S, KH, hd), (B, S, KH, hd)], dtype, S + valid, cuda)
@@ -295,10 +300,85 @@ def test_decode_kernel_never_reads_past_valid_len(cuda):
     torch.testing.assert_close(out, want, **TOL_ATTN[torch.float32])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KH,hd,valid,window", [
+    (1, 2048, 36, 36, 64, 1024, None),  # minicpm-2b width
+    (1, 2048, 8, 4, 256, 2047, 1024),   # gemma3-4b width
+    (2, 300, 64, 2, 128, 299, None),    # G=32
+    (1, 130, 4, 2, 16, 500, 400),       # past S-1 with a window
+])
+def test_decode_kernel_takes_tensor_valid_len(cuda, B, S, H, KH, hd, valid, window, dtype):
+    """A 0-d tensor valid_len (int32 or int64) on the card gives what the int
+    gives, and the plain version."""
+    q, kc, vc = _attn_inputs([(B, H, hd), (B, S, KH, hd), (B, S, KH, hd)], dtype, S + hd, cuda)
+    want = ref.decode_attention_ref(q, kc, vc, valid, window=window)
+    by_int = ops.decode_attention(q, kc, vc, valid, window=window)
+    for t in (torch.tensor(valid, dtype=torch.int32, device=cuda),
+              torch.tensor(valid, dtype=torch.int64, device=cuda)):
+        ops.reset_launches()
+        out = ops.decode_attention(q, kc, vc, t, window=window)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["decode_attention"] == 1
+        torch.testing.assert_close(out.float(), want.float(), **TOL_ATTN[dtype])
+        torch.testing.assert_close(out, by_int, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("B,S,H,KH,hd,window", [
+    (1, 2048, 36, 36, 64, None),
+    (1, 2048, 8, 4, 256, 1024),
+])
+def test_decode_kernel_graph_replays_new_valid_len(cuda, B, S, H, KH, hd, window):
+    """One call captured in a CUDA graph with a tensor valid_len, replayed
+    after setting the tensor to three other values: each output matches the
+    plain version at that value."""
+    q, kc, vc = _attn_inputs([(B, H, hd), (B, S, KH, hd), (B, S, KH, hd)], torch.float32, 5, cuda)
+    valid = torch.tensor(100, dtype=torch.int32, device=cuda)
+    ops.decode_attention(q, kc, vc, valid, window)  # first call outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, kc, vc, valid, window)
+    for v in (7, S - 1, 1500):
+        valid.fill_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref.decode_attention_ref(q, kc, vc, v, window),
+                                   **TOL_ATTN[torch.float32])
+
+
+def test_decode_kernel_repeat_calls_agree(cuda):
+    """The last CTA of each unit resets its ticket: a second and a third
+    call give what the first gave, and leave the tickets at zero."""
+    q, kc, vc = _attn_inputs([(1, 8, 256), (1, 2048, 4, 256), (1, 2048, 4, 256)], torch.float32, 6, cuda)
+    first = ops.decode_attention(q, kc, vc, 1500, 1024)
+    for _ in range(2):
+        torch.testing.assert_close(ops.decode_attention(q, kc, vc, 1500, 1024), first, atol=0, rtol=0)
+    torch.cuda.synchronize()
+    assert not ops._tickets[q.device].any()
+    torch.testing.assert_close(first, ref.decode_attention_ref(q, kc, vc, 1500, 1024),
+                               **TOL_ATTN[torch.float32])
+
+
+@pytest.mark.parametrize("valid,window", [(-1, None), (-5, 3), (300, 40)])
+def test_decode_kernel_no_live_position_gives_zeros(cuda, valid, window):
+    """With a tensor valid_len and no live position the kernel writes zeros,
+    as the Pallas kernel does (l = 0); the cache is never read (NaN)."""
+    q, kc, vc = _attn_inputs([(1, 4, 64), (1, 256, 2, 64), (1, 256, 2, 64)], torch.float32, 7, cuda)
+    kc.fill_(float("nan"))
+    vc.fill_(float("nan"))
+    out = ops.decode_attention(q, kc, vc, torch.tensor(valid, device=cuda), window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+
+
 def test_attention_kernels_check_inputs(cuda):
     q, kc, vc = _attn_inputs([(2, 4, 64), (2, 32, 2, 64), (2, 32, 2, 64)], torch.float32, 0, cuda)
     with pytest.raises(TypeError):  # per-row lengths: ROADMAP Queue 1 item 6
         ops.decode_attention(q, kc, vc, torch.tensor([3, 5], device=cuda))
+    with pytest.raises(TypeError):
+        ops.decode_attention(q, kc, vc, torch.tensor(3.0, device=cuda))
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, kc, vc, torch.tensor(3))  # on the CPU
     q96, k96, v96 = _attn_inputs([(2, 4, 96), (2, 32, 2, 96), (2, 32, 2, 96)], torch.float32, 0, cuda)
     with pytest.raises(ValueError):
         ops.decode_attention(q96, k96, v96, 3)
@@ -311,7 +391,7 @@ def test_attention_kernels_check_inputs(cuda):
     with pytest.raises(ValueError):  # no live position
         ops.decode_attention(q, kc, vc, 40, window=4)
     shifted = torch.empty(kc.numel() + 1, device=cuda)[1:].view(kc.shape)
-    with pytest.raises(ValueError):  # the kernel loads 4 elements at a time
+    with pytest.raises(ValueError):  # the kernel loads 16 bytes at a time
         ops.decode_attention(q, shifted, vc, 3)
 
 
