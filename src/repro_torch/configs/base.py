@@ -2,8 +2,9 @@
 
 ``ModelConfig`` covers every family the reference supports, so that a config
 reads the same in both packages and ``reduced()`` / ``n_params()`` give the
-same numbers.  The ``ssm`` family (mamba2-130m) and the ``dense`` family
-(minicpm-2b, gemma3-4b, command-r-35b) have a model in this package so far;
+same numbers.  The ``ssm`` family (mamba2-130m), the ``dense`` family
+(minicpm-2b, gemma3-4b, command-r-35b, command-r-plus-104b) and the ``vlm``
+backbone (llava-next-mistral-7b) have a model in this package so far;
 ``get_config`` names the ROADMAP item for the others.
 """
 
@@ -221,8 +222,8 @@ def get_config(name: str) -> ModelConfig:
         except ModuleNotFoundError:
             if key in ARCH_IDS:
                 raise NotImplementedError(
-                    f"{key} is not ported yet: MLA, MoE, hybrid, vision and "
-                    "encoder-decoder models are ROADMAP Queue 1 items 5 and 7"
+                    f"{key} is not ported yet: MLA, MoE, hybrid and encoder-decoder "
+                    "models are ROADMAP Queue 1 item 7"
                 ) from None
             raise KeyError(f"unknown config {name!r}") from None
     return _REGISTRY[key]

@@ -111,7 +111,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 8 + [p]
         lib.flash_attention_launch.restype = i
     elif name == "decode_attention":
-        lib.decode_attention_launch.argtypes = [p] * 7 + [i] * 10 + [p]
+        lib.decode_attention_launch.argtypes = [p] * 7 + [i] * 12 + [p]
         lib.decode_attention_launch.restype = i
         lib.decode_attention_max_group.argtypes = []
         lib.decode_attention_max_group.restype = i

@@ -7,28 +7,36 @@
 // h / (H / KH):
 //   out_h = sum_p softmax_p(q_h . k_p / sqrt(hd)) v_p   over the live p,
 // where p is live when p <= valid_len and, with a window, valid_len - p <
-// window.  Same function as kernels/ref.py::decode_attention_ref, with the
-// running (m, l, acc) in float32 and out = acc / max(l, 1e-30) in q's type
-// (zeros when no position is live, as the Pallas kernel writes).
+// window.  valid_len is one length for the batch or one per batch row
+// (continuous batching: each slot at its own age).  Same function as
+// kernels/ref.py::decode_attention_ref, with the running (m, l, acc) in
+// float32 and out = acc / max(l, 1e-30) in q's type (zeros for a row with no
+// live position, as the Pallas kernel writes).  q is float32 or bfloat16;
+// the cache is float32, bfloat16 or float8_e4m3fn, read in its own type and
+// converted to float32 in registers (fp8 through cuda_fp8.h, which converts
+// exactly), as _dec_kernel upcasts each tile.
 //
-// What bounds it on this card: bytes.  Each live K/V row is read once and
-// used for 4 x G x hd operations, so at minicpm-2b width (KH=36, hd=64,
-// ~1,025 live rows, ~19 MB) the cache takes ~5.6 us at 3.35 TB/s.  One call
-// is one short wave, so what it pays besides the bytes is fixed per call:
-// the launch, each CTA's prologue and epilogue, and the merge of the splits.
+// What bounds it on this card: bytes, at the cache's element size.  Each
+// live K/V row is read once and used for 4 x G x hd operations, so at
+// minicpm-2b width (KH=36, hd=64, ~1,025 live rows, ~19 MB in float32) the
+// cache takes ~5.6 us at 3.35 TB/s; an fp8 cache moves a quarter of those
+// bytes.  One call is one short wave, so what it pays besides the bytes is
+// fixed per call: the launch, each CTA's prologue and epilogue, and the
+// merge of the splits.
 //
 // Design:
 // * Geometry from the shapes only (kernels/ops.py::decode_geometry: B, KH,
-//   G, hd, the element size and the SM count), never from valid_len: grid
-//   (splits, KH x head groups, B), one wave of up to 4 CTAs an SM.  Each CTA
-//   reads valid_len itself (from device memory when the caller passed a
-//   tensor, so a captured CUDA graph can be replayed with a new value),
-//   derives [lo, hi] and takes an equal share of it in whole 16-row granules
-//   (ops.py::decode_share is the same arithmetic); a CTA with an empty share
-//   writes an empty partial.
+//   G, hd, the cache's element size and the SM count), never from
+//   valid_len: grid (splits, KH x head groups, B), one wave of up to 4 CTAs
+//   an SM.  Each CTA reads its batch row's valid_len itself (from device
+//   memory when the caller passed a tensor, so a captured CUDA graph can be
+//   replayed with new values), derives [lo, hi] and takes an equal share of
+//   it in whole 16-row granules (ops.py::decode_share is the same
+//   arithmetic); a CTA with an empty share writes an empty partial.
 // * No shared memory and no barrier on the per-row path.  A row of hd
 //   elements is read by LPR lanes with 16-byte loads (hd=64 float32: 16
-//   lanes, so one load instruction covers two rows).  Each warp owns a
+//   lanes, so one load instruction covers two rows; an fp8 row carries 16
+//   values a load).  Each warp owns a
 //   contiguous run of its CTA's rows and streams them through registers in
 //   batches of U row groups: as soon as a batch is unpacked its registers
 //   take the loads of the next batch, so one batch is in flight while the
@@ -51,6 +59,8 @@
 // Positions outside [lo, hi] are never read.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -68,6 +78,7 @@ __host__ __device__ constexpr int pow2ceil(int x) {
   return p;
 }
 
+// the cache's geometry: T is the cache's element type
 template <typename T, int HD>
 struct Cfg {
   static constexpr int VEC = 16 / (int)sizeof(T);       // elements in one 16-byte load
@@ -88,14 +99,18 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// 16 loaded bytes as floats
-__device__ __forceinline__ void unpack(const uint4& x, float (&f)[4]) {
+// 16 loaded bytes of cache elements of type T as floats
+template <typename T>
+__device__ void unpack(const uint4& x, float (&f)[16 / sizeof(T)]);
+template <>
+__device__ __forceinline__ void unpack<float>(const uint4& x, float (&f)[4]) {
   f[0] = __uint_as_float(x.x);
   f[1] = __uint_as_float(x.y);
   f[2] = __uint_as_float(x.z);
   f[3] = __uint_as_float(x.w);
 }
-__device__ __forceinline__ void unpack(const uint4& x, float (&f)[8]) {
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& x, float (&f)[8]) {
   const unsigned w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {  // bfloat16 pairs, low half first
@@ -103,14 +118,30 @@ __device__ __forceinline__ void unpack(const uint4& x, float (&f)[8]) {
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+template <>
+__device__ __forceinline__ void unpack<__nv_fp8_e4m3>(const uint4& x, float (&f)[16]) {
+  const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {  // e4m3 pairs, low byte first; exact through half
+      const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>((w[i] >> (16 * j)) & 0xffffu), __NV_E4M3));
+      const float2 v = __half22float2(h);
+      f[4 * i + 2 * j] = v.x;
+      f[4 * i + 2 * j + 1] = v.y;
+    }
+  }
+}
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(Cfg<T, HD>::THREADS, 16 / Cfg<T, HD>::WARPS)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-              T* __restrict__ out, float* __restrict__ part, int* __restrict__ tickets,
-              const int* __restrict__ valid_dev, int valid_host, int S, int KH, int G,
-              int window, float scale_log2) {
-  using C = Cfg<T, HD>;
+// TQ: q's and out's type; TC: the cache's
+template <typename TQ, typename TC, int HD>
+__global__ void __launch_bounds__(Cfg<TC, HD>::THREADS, 16 / Cfg<TC, HD>::WARPS)
+decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc, const TC* __restrict__ vc,
+              TQ* __restrict__ out, float* __restrict__ part, int* __restrict__ tickets,
+              const int* __restrict__ valid_dev, int valid_stride, int valid_host, int S,
+              int KH, int G, int window, float scale_log2) {
+  using C = Cfg<TC, HD>;
   constexpr int VEC = C::VEC, CH = C::CH, LPR = C::LPR, NCH = C::NCH, RPW = C::RPW;
   constexpr int GB = C::GB, U = C::U, WARPS = C::WARPS, THREADS = C::THREADS;
   __shared__ float s_acc[WARPS][GB][HD];
@@ -128,8 +159,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane / LPR, sl = lane % LPR;
 
-  // this CTA's share of the live range, then this warp's run of it
-  const long long valid = valid_dev ? (long long)*valid_dev : (long long)valid_host;
+  // this CTA's share of its row's live range, then this warp's run of it
+  const long long valid =
+      valid_dev ? (long long)valid_dev[(size_t)b * valid_stride] : (long long)valid_host;
   const long long lo = window > 0 ? max(0LL, valid - window + 1) : 0LL;
   const long long hi = min(valid, (long long)S - 1);
   int beg = 0, end = 0;
@@ -165,8 +197,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   }
 
   const size_t row_stride = (size_t)KH * HD;
-  const T* kbase = kc + ((size_t)b * S * KH + kh) * HD;
-  const T* vbase = vc + ((size_t)b * S * KH + kh) * HD;
+  const TC* kbase = kc + ((size_t)b * S * KH + kh) * HD;
+  const TC* vbase = vc + ((size_t)b * S * KH + kh) * HD;
   uint4 kb[U][NCH], vb[U][NCH];
 #pragma unroll
   for (int s = 0; s < U; ++s)
@@ -199,8 +231,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
       ok[s] = base + s < n_it && wbeg + (base + s) * RPW + sub < wend;
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
-        unpack(kb[s][c], kf[s][c]);
-        unpack(vb[s][c], vf[s][c]);
+        unpack<TC>(kb[s][c], kf[s][c]);
+        unpack<TC>(vb[s][c], vf[s][c]);
       }
       REPRO_DECODE_LOAD(s, base + s + U);
     }
@@ -385,7 +417,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
       a = make_float4(fmaf(y.x, w, a.x), fmaf(y.y, w, a.y), fmaf(y.z, w, a.z), fmaf(y.w, w, a.w));
     }
     const float inv = 1.f / fmaxf(Lt, 1e-30f);
-    T* o = out + ((size_t)b * H + kh * G + hg * GB) * HD + qd * 4;
+    TQ* o = out + ((size_t)b * H + kh * G + hg * GB) * HD + qd * 4;
     store(o, a.x * inv);
     store(o + 1, a.y * inv);
     store(o + 2, a.z * inv);
@@ -394,27 +426,30 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   if (threadIdx.x == 0) tickets[unit] = 0;  // ready for the next call
 }
 
-template <typename T, int HD>
+template <typename TQ, typename TC, int HD>
 cudaError_t launch(const void* q, const void* kc, const void* vc, void* out, float* part,
-                   int* tickets, const int* valid_dev, int valid_host, int B, int S, int H,
-                   int KH, int window, int gb, int splits, cudaStream_t stream) {
-  using C = Cfg<T, HD>;
+                   int* tickets, const int* valid_dev, int valid_stride, int valid_host, int B,
+                   int S, int H, int KH, int window, int gb, int splits, cudaStream_t stream) {
+  using C = Cfg<TC, HD>;
   const int G = H / KH;
   if (gb != C::GB) return cudaErrorInvalidValue;
   const int n_hg = (G + C::GB - 1) / C::GB;
-  decode_kernel<T, HD><<<dim3(splits, KH * n_hg, B), C::THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
-      static_cast<T*>(out), part, tickets, valid_dev, valid_host, S, KH, G, window,
-      1.0f / sqrtf((float)HD) * kLog2e);
+  decode_kernel<TQ, TC, HD><<<dim3(splits, KH * n_hg, B), C::THREADS, 0, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TC*>(kc), static_cast<const TC*>(vc),
+      static_cast<TQ*>(out), part, tickets, valid_dev, valid_stride, valid_host, S, KH, G,
+      window, 1.0f / sqrtf((float)HD) * kLog2e);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TQ, typename TC>
 cudaError_t dispatch(const void* q, const void* kc, const void* vc, void* out, float* part,
-                     int* tickets, const int* valid_dev, int valid_host, int B, int S, int H,
-                     int KH, int hd, int window, int gb, int splits, cudaStream_t s) {
-#define REPRO_DECODE_CASE(D) \
-  case D: return launch<T, D>(q, kc, vc, out, part, tickets, valid_dev, valid_host, B, S, H, KH, window, gb, splits, s)
+                     int* tickets, const int* valid_dev, int valid_stride, int valid_host, int B,
+                     int S, int H, int KH, int hd, int window, int gb, int splits,
+                     cudaStream_t s) {
+#define REPRO_DECODE_CASE(D)                                                                 \
+  case D:                                                                                    \
+    return launch<TQ, TC, D>(q, kc, vc, out, part, tickets, valid_dev, valid_stride,        \
+                             valid_host, B, S, H, KH, window, gb, splits, s)
   switch (hd) {
     REPRO_DECODE_CASE(16);
     REPRO_DECODE_CASE(32);
@@ -427,32 +462,57 @@ cudaError_t dispatch(const void* q, const void* kc, const void* vc, void* out, f
 #undef REPRO_DECODE_CASE
 }
 
+template <typename TQ>
+cudaError_t dispatch_cache(int cache_code, const void* q, const void* kc, const void* vc,
+                           void* out, float* part, int* tickets, const int* valid_dev,
+                           int valid_stride, int valid_host, int B, int S, int H, int KH, int hd,
+                           int window, int gb, int splits, cudaStream_t s) {
+  switch (cache_code) {
+    case 0: return dispatch<TQ, float>(q, kc, vc, out, part, tickets, valid_dev, valid_stride,
+                                       valid_host, B, S, H, KH, hd, window, gb, splits, s);
+    case 1: return dispatch<TQ, __nv_bfloat16>(q, kc, vc, out, part, tickets, valid_dev,
+                                               valid_stride, valid_host, B, S, H, KH, hd,
+                                               window, gb, splits, s);
+    case 2: return dispatch<TQ, __nv_fp8_e4m3>(q, kc, vc, out, part, tickets, valid_dev,
+                                               valid_stride, valid_host, B, S, H, KH, hd,
+                                               window, gb, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int decode_attention_max_group() { return kMaxG; }
 
-// q, out: (B, H, hd); k_cache, v_cache: (B, S, KH, hd), all contiguous, float32
-// or (when is_bf16) bfloat16; the caches 16-byte aligned.  valid_len is read
-// from valid_dev (one int32 in device memory) when that is not null, else
-// valid_host; window 0 means none.  gb heads per pass (must equal the
-// kernel's, ops.py::decode_heads_per_pass) and splits <= 1024 CTAs a
-// (batch, kv head, head group) unit, from ops.py::decode_geometry.  Scratch:
-// part, float32, units * splits * gb * (hd + 2); tickets, int32, one per unit
-// (units = B * KH * ceil(G / gb)), zero before the first call and left zero
-// by every call.  Calls that share tickets must not overlap in time.  G = H /
-// KH at most decode_attention_max_group(); hd one of 16, 32, 64, 80, 128, 256.
+// q, out: (B, H, hd), float32 (q_code 0) or bfloat16 (1); k_cache, v_cache:
+// (B, S, KH, hd), float32 (cache_code 0), bfloat16 (1) or float8_e4m3fn (2);
+// all contiguous, the caches 16-byte aligned.  valid_len is read from
+// valid_dev (int32 in device memory; row b reads valid_dev[b * valid_stride],
+// so stride 0 gives one length for the batch and stride 1 one a row) when
+// that is not null, else valid_host; window 0 means none.  gb heads per pass
+// (must equal the kernel's, ops.py::decode_heads_per_pass at the cache's
+// element size) and splits <= 1024 CTAs a (batch, kv head, head group) unit,
+// from ops.py::decode_geometry.  Scratch: part, float32, units * splits * gb
+// * (hd + 2); tickets, int32, one per unit (units = B * KH * ceil(G / gb)),
+// zero before the first call and left zero by every call.  Calls that share
+// tickets must not overlap in time.  G = H / KH at most
+// decode_attention_max_group(); hd one of 16, 32, 64, 80, 128, 256.
 extern "C" int decode_attention_launch(const void* q, const void* kc, const void* vc, void* out,
                                        float* part, int* tickets, const int* valid_dev,
-                                       int valid_host, int B, int S, int H, int KH, int hd,
-                                       int window, int gb, int splits, int is_bf16,
-                                       void* stream) {
+                                       int valid_stride, int valid_host, int B, int S, int H,
+                                       int KH, int hd, int window, int gb, int splits,
+                                       int q_code, int cache_code, void* stream) {
   if (B < 1 || S < 1 || KH < 1 || H % KH != 0 || H / KH > kMaxG || window < 0 || gb < 1 ||
-      splits < 1 || splits > kMaxSplits)
+      splits < 1 || splits > kMaxSplits || valid_stride < 0 || valid_stride > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(q, kc, vc, out, part, tickets, valid_dev,
-                                                 valid_host, B, S, H, KH, hd, window, gb,
-                                                 splits, s)
-                       : dispatch<float>(q, kc, vc, out, part, tickets, valid_dev, valid_host,
-                                         B, S, H, KH, hd, window, gb, splits, s));
+  switch (q_code) {
+    case 0: return (int)dispatch_cache<float>(cache_code, q, kc, vc, out, part, tickets,
+                                              valid_dev, valid_stride, valid_host, B, S, H, KH,
+                                              hd, window, gb, splits, s);
+    case 1: return (int)dispatch_cache<__nv_bfloat16>(cache_code, q, kc, vc, out, part, tickets,
+                                                      valid_dev, valid_stride, valid_host, B, S,
+                                                      H, KH, hd, window, gb, splits, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -5,13 +5,21 @@ A tensor on the card goes to the kernel (built at first use by
 plain version in ``kernels/ref.py``.  There is no other fallback.  Each
 wrapper checks device, dtype, shape and contiguity, allocates the outputs,
 launches on PyTorch's current stream, raises if the launch returned a CUDA
-error, and adds one to ``LAUNCHES[name]``, only where it launches.
+error, and adds one to ``LAUNCHES[name]``, only where it launches.  A call
+recorded into a CUDA graph counts too; its replays do not pass through the
+wrapper (``serving/captured.py`` counts them).
+
+The model kernels take their inputs in any of ``FLOAT_DTYPES``, as the
+Pallas kernels cast each tile to float32: the combinations a kernel is
+instantiated for run as they are, any other is cast to float32 first and
+the output cast back to q's (or x's) dtype, which is the Pallas kernels'
+arithmetic exactly.
 """
 
 from __future__ import annotations
 
 import operator
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +41,14 @@ DECODE_CTAS_PER_SM = 4
 DECODE_SHARE_ROWS = 16
 DECODE_MERGE_FLOATS = 16384
 DECODE_MAX_SPLITS = 1024
+
+#: input dtypes the model kernels' wrappers take
+FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float8_e4m3fn,
+                torch.float8_e5m2)
+#: q (and x) dtypes the attention and scan kernels are instantiated for, and
+#: the decode kernel's cache dtypes; the codes the C interface takes
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -58,6 +74,12 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_floats(**tensors: Optional[torch.Tensor]) -> None:
+    for name, t in tensors.items():
+        if t is not None and t.dtype not in FLOAT_DTYPES:
+            raise TypeError(f"{name}: expected one of {FLOAT_DTYPES}, got {t.dtype}")
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -128,15 +150,25 @@ def sched_step(funcs, idle, conns):
 
 
 def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tensor] = None):
-    """Mamba2 SSD chunked scan.  x (B,S,H,P) float32 or bfloat16; dt (B,S,H)
-    float32 post-softplus; A (H,) float32; Bm, Cm (B,S,G,N) in x's dtype,
-    G dividing H (head h reads group h // (H/G)); init_state (B,H,P,N)
-    float32 or None (zeros).  Returns (y (B,S,H,P) in x's dtype, final state
-    (B,H,P,N) float32).  ``S`` is padded to a multiple of ``chunk``.
+    """Mamba2 SSD chunked scan.  x (B,S,H,P); dt (B,S,H) post-softplus; A
+    (H,); Bm, Cm (B,S,G,N), G dividing H (head h reads group h // (H/G));
+    init_state (B,H,P,N) or None (zeros); each in any of ``FLOAT_DTYPES``.
+    The kernel is instantiated for x, Bm and Cm in float32 or bfloat16 alike
+    with dt, A and init_state in float32; any other mix is cast to float32
+    first and y cast back to x's dtype.  Returns (y (B,S,H,P) in x's dtype,
+    final state (B,H,P,N) float32).  ``S`` is padded to a multiple of
+    ``chunk``.
 
     On the card the kernel runs in three launches (chunk scores and chunk
     states, state passing, chunk outputs) on float32 scratch allocated here;
     they count as one."""
+    _check_floats(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, init_state=init_state)
+    f32 = torch.float32
+    if not (x.dtype in _Q_CODES and Bm.dtype == Cm.dtype == x.dtype and dt.dtype == A.dtype == f32
+            and (init_state is None or init_state.dtype == f32)):
+        y, st = ssd_scan(x.float(), dt.float(), A.float(), Bm.float(), Cm.float(), chunk,
+                         init_state.float() if init_state is not None else None)
+        return y.to(x.dtype), st
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     on_cuda = _on_cuda(*(t for t in (x, dt, A, Bm, Cm, init_state) if t is not None))
@@ -148,8 +180,6 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tens
         return (y[:, :S] if pad else y), st
     if G < 1 or H % G:
         raise ValueError(f"n_heads {H} is not a multiple of ngroups {G}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x: expected float32 or bfloat16, got {x.dtype}")
     Sp = S + pad
     _check("x", x, x.dtype, (Bsz, Sp, H, P))
     _check("dt", dt, torch.float32, (Bsz, Sp, H))
@@ -172,7 +202,7 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tens
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             init_state.data_ptr() if init_state is not None else None,
             y.data_ptr(), st.data_ptr(), scores.data_ptr(), cumsum.data_ptr(), states.data_ptr(),
-            Bsz, Sp, H, G, P, N, chunk, int(x.dtype == torch.bfloat16), _stream(x),
+            Bsz, Sp, H, G, P, N, chunk, _Q_CODES[x.dtype], _stream(x),
         )
     _raise_on(err, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
@@ -180,11 +210,11 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tens
 
 
 def _attn_checks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_shape, kv_shape) -> None:
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    """Shapes, contiguity and head counts; the dtypes were settled by the
+    caller (q in ``_Q_CODES``, k and v alike)."""
     _check("q", q, q.dtype, q_shape)
-    _check("k", k, q.dtype, kv_shape)
-    _check("v", v, q.dtype, kv_shape)
+    _check("k", k, k.dtype, kv_shape)
+    _check("v", v, k.dtype, kv_shape)
     H, KH, hd = q_shape[-2], kv_shape[-2], q_shape[-1]
     if KH < 1 or H % KH:
         raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {KH}")
@@ -194,12 +224,16 @@ def _attn_checks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_shape, kv_
 
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None):
     """Attention over a whole sequence (prefill).  q (B,S,H,hd); k, v
-    (B,S,KH,hd), float32 or bfloat16 alike; query head h reads kv head
-    h // (H/KH).  Key j is live for query i when ``j <= i`` (causal) and
-    ``i - j < window`` (window set): the kernel takes positions from row and
-    column indices, so callers' positions must be ``arange(S)``.  Any S.
-    On the card q, k and v must be 16-byte aligned.  Returns (B,S,H,hd) in
-    q's dtype."""
+    (B,S,KH,hd), each in any of ``FLOAT_DTYPES``: float32 or bfloat16 alike
+    run as they are, any other mix is cast to float32 first and the output
+    cast back to q's dtype.  Query head h reads kv head h // (H/KH).  Key j
+    is live for query i when ``j <= i`` (causal) and ``i - j < window``
+    (window set): the kernel takes positions from row and column indices, so
+    callers' positions must be ``arange(S)``.  Any S.  On the card q, k and
+    v must be 16-byte aligned.  Returns (B,S,H,hd) in q's dtype."""
+    _check_floats(q=q, k=k, v=v)
+    if not (q.dtype in _Q_CODES and k.dtype == v.dtype == q.dtype):
+        return flash_attention(q.float(), k.float(), v.float(), causal, window).to(q.dtype)
     if not _on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal, window)
     B, S, H, hd = q.shape
@@ -214,7 +248,7 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None):
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], hd,
-            int(causal), window or 0, int(q.dtype == torch.bfloat16), _stream(q),
+            int(causal), window or 0, _Q_CODES[q.dtype], _stream(q),
         )
     _raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
@@ -224,8 +258,8 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None):
 def decode_heads_per_pass(hd: int, elem: int) -> int:
     """Query heads the decode kernel carries in one pass over the rows, so
     that q and acc stay within ~32 registers a lane (``Cfg::GB`` in
-    ``csrc/decode_attention.cu``): a row is read 16 bytes a lane, by at most
-    32 lanes."""
+    ``csrc/decode_attention.cu``): a cache row is read 16 bytes a lane, by at
+    most 32 lanes; ``elem`` is the cache's element size (4, 2 or 1)."""
     vec = 16 // elem
     chunks = hd // vec
     lanes = 32 if chunks >= 32 else 1 << (chunks - 1).bit_length()
@@ -235,7 +269,8 @@ def decode_heads_per_pass(hd: int, elem: int) -> int:
 
 def decode_geometry(B: int, KH: int, G: int, hd: int, elem: int, n_sm: int) -> Tuple[int, int, int]:
     """(heads per pass, head groups, splits) of the decode kernel: the grid is
-    (splits, KH x head groups, B), from the shapes and the SM count alone
+    (splits, KH x head groups, B), from the shapes, the cache's element size
+    ``elem`` and the SM count alone
     (never ``valid_len``, so a captured call can be replayed with another).
     Splits fill ``DECODE_CTAS_PER_SM`` CTAs per SM in one wave, but beyond one
     CTA per SM only while the last CTA's merge reads at most
@@ -267,15 +302,20 @@ def decode_share(valid_len: int, S: int, window: Optional[int], splits: int,
 
 _n_sm: Dict[torch.device, int] = {}
 _tickets: Dict[torch.device, torch.Tensor] = {}
+_held_tickets: List[torch.Tensor] = []
 
 
 def _decode_tickets(device: torch.device, units: int) -> torch.Tensor:
     """The decode kernel's int32 tickets for ``device``, one per unit: zeroed
     once here and left at zero by every call, so repeat calls and graph
     replays need no memset.  Make the first call of a shape before capturing
-    it in a graph, so that this allocation is not captured."""
+    it in a graph, so that this allocation is not captured.  A larger shape
+    gets a larger buffer; the one it replaces is kept alive, never freed,
+    because a graph captured with it still writes there on every replay."""
     t = _tickets.get(device)
     if t is None or t.numel() < units:
+        if t is not None:
+            _held_tickets.append(t)
         t = torch.zeros(max(units, 4096), dtype=torch.int32, device=device)
         _tickets[device] = t
     return t
@@ -283,20 +323,30 @@ def _decode_tickets(device: torch.device, units: int) -> torch.Tensor:
 
 def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = None):
     """One new token per sequence against a cache.  q (B,H,hd); caches
-    (B,S,KH,hd) in q's dtype (float32 or bfloat16).  Positions ``<=
-    valid_len`` are live, and with a window only those with ``valid_len -
-    pos < window``.  ``valid_len`` is one length for the whole batch: a
-    Python int, or a 0-d integer tensor on q's device, which the kernel reads
-    on the card (no host sync; a captured call replays with the tensor's new
-    value).  A ``(B,)`` tensor raises (per-row lengths: ROADMAP Queue 1 item
-    6).  An int with no live position raises; a tensor with none gives zeros,
-    as the Pallas kernel does.  Returns (B,H,hd) in q's dtype.
+    (B,S,KH,hd).  The kernel is instantiated for q in float32 or bfloat16
+    and both caches in float32, bfloat16 or float8_e4m3fn: it reads the
+    cache in its own dtype and converts each value to float32 in registers,
+    as the Pallas kernel upcasts each tile.  Any other mix of
+    ``FLOAT_DTYPES`` is cast to float32 first and the output cast back.
+    Positions ``<= valid_len`` are live, and with a window only those with
+    ``valid_len - pos < window``.  ``valid_len`` is a Python int, or an
+    integer tensor on q's device, 0-d (one length for the batch) or ``(B,)``
+    (each row its own), which the kernel reads on the card (no host sync; a
+    captured call replays with the tensor's new values).  An int with no
+    live position raises; a tensor row with none gives zeros, as the Pallas
+    kernel does.  Returns (B,H,hd) in q's dtype.
 
-    On the card this is one launch of ``decode_geometry``'s grid: each CTA
-    takes its share of the live range, and the last CTA of each (batch, kv
-    head, head group) merges the float32 partials (scratch allocated here)
-    by a ticket kept per device (``_decode_tickets``).  Calls on one device
-    share those tickets, so they must run on one stream."""
+    On the card this is one launch of ``decode_geometry``'s grid, from the
+    shapes and the cache's element size: each CTA takes its share of its
+    row's live range, and the last CTA of each (batch, kv head, head group)
+    merges the float32 partials (scratch allocated here) by a ticket kept
+    per device (``_decode_tickets``).  Calls on one device share those
+    tickets, so they must run on one stream."""
+    _check_floats(q=q, k_cache=k_cache, v_cache=v_cache)
+    if not (q.dtype in _Q_CODES and k_cache.dtype == v_cache.dtype
+            and k_cache.dtype in _CACHE_CODES):
+        return decode_attention(q.float(), k_cache.float(), v_cache.float(), valid_len,
+                                window).to(q.dtype)
     if not _on_cuda(q, k_cache, v_cache):
         return ref.decode_attention_ref(q, k_cache, v_cache, valid_len, window)
     B, S, KH, hd = k_cache.shape
@@ -308,16 +358,15 @@ def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = Non
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     if isinstance(valid_len, torch.Tensor):
-        if valid_len.ndim != 0:
-            raise TypeError("decode_attention kernel takes valid_len as a Python int or a 0-d "
-                            "tensor (per-row lengths are ROADMAP Queue 1 item 6), got shape "
-                            f"{tuple(valid_len.shape)}")
+        if tuple(valid_len.shape) not in ((), (B,)):
+            raise ValueError(f"valid_len: expected a 0-d or a ({B},) tensor, got shape "
+                             f"{tuple(valid_len.shape)}")
         if valid_len.dtype.is_floating_point or valid_len.dtype.is_complex or \
                 valid_len.dtype == torch.bool:
             raise TypeError(f"valid_len: expected an integer tensor, got {valid_len.dtype}")
         if valid_len.device != q.device:
             raise ValueError(f"valid_len on {valid_len.device}, q on {q.device}")
-        valid_dev, valid_host = valid_len.to(torch.int32), 0
+        valid_dev, valid_host = valid_len.to(torch.int32).contiguous(), 0
     else:
         valid_host, valid_dev = operator.index(valid_len), None
         lo = max(0, valid_host - window + 1) if window is not None else 0
@@ -334,7 +383,7 @@ def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = Non
     n_sm = _n_sm.get(q.device)
     if n_sm is None:
         n_sm = _n_sm[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
-    gb, n_hg, splits = decode_geometry(B, KH, G, hd, q.element_size(), n_sm)
+    gb, n_hg, splits = decode_geometry(B, KH, G, hd, k_cache.element_size(), n_sm)
     units = B * KH * n_hg
     out = torch.empty_like(q)
     part = torch.empty(units * splits * gb * (hd + 2), dtype=torch.float32, device=q.device)
@@ -343,8 +392,10 @@ def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = Non
         err = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
             part.data_ptr(), tickets.data_ptr(),
-            valid_dev.data_ptr() if valid_dev is not None else None, valid_host,
-            B, S, H, KH, hd, window or 0, gb, splits, int(q.dtype == torch.bfloat16), _stream(q),
+            valid_dev.data_ptr() if valid_dev is not None else None,
+            valid_dev.ndim if valid_dev is not None else 0, valid_host,
+            B, S, H, KH, hd, window or 0, gb, splits, _Q_CODES[q.dtype],
+            _CACHE_CODES[k_cache.dtype], _stream(q),
         )
     _raise_on(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1

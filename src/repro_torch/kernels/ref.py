@@ -91,23 +91,29 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                          valid_len, window: Optional[int] = None) -> torch.Tensor:
     """One new token per sequence against a cache.  q (B,H,hd); caches
-    (B,S,KH,hd); ``valid_len`` a Python int or a 0-d integer tensor; positions
-    ``<= valid_len`` are live, and with a window only those with ``valid_len
-    - pos < window``.  Masked logits -2e38, softmax in float32, probabilities
-    cast to ``q.dtype``; with no live position the probabilities are 0, so
-    the output is zeros, as the Pallas kernel's (l = 0).  Returns (B,H,hd)."""
+    (B,S,KH,hd); ``valid_len`` a Python int or a 0-d integer tensor (one
+    length for the batch), or a ``(B,)`` integer tensor (each row its own);
+    positions ``<= valid_len`` are live, and with a window only those with
+    ``valid_len - pos < window``.  Masked logits -2e38, softmax in float32;
+    a cache in q's dtype is used as it is and the probabilities are cast to
+    ``q.dtype``, a cache in another dtype is upcast straight to float32 (as
+    the Pallas kernel upcasts each tile) and the product runs in float32.  A
+    row with no live position has probabilities 0, so its output is zeros,
+    as the Pallas kernel's (l = 0).  Returns (B,H,hd) in q's dtype."""
     B, S, KH, hd = k_cache.shape
     H = q.shape[1]
     G = H // KH
+    work = q.dtype if k_cache.dtype == v_cache.dtype == q.dtype else torch.float32
     qg = q.reshape(B, KH, G, hd)
-    logits = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.to(q.dtype).float()) * _scale(hd)
+    logits = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float()) * _scale(hd)
     pos = torch.arange(S, device=q.device)
-    if isinstance(valid_len, torch.Tensor):
-        valid_len = valid_len.to(q.device)
-    ok = pos <= valid_len
+    valid = (valid_len.to(q.device).reshape(-1, 1) if isinstance(valid_len, torch.Tensor)
+             else int(valid_len))  # an int stays on the host: no copy to the card
+    ok = pos <= valid
     if window is not None:
-        ok &= (valid_len - pos) < window
+        ok &= (valid - pos) < window
+    ok = ok.reshape(-1, 1, 1, S)  # (1 or B, 1, 1, S)
     logits = logits.masked_fill(~ok, _NEG_INF)
-    probs = torch.softmax(logits, dim=-1).masked_fill(~ok, 0.0).to(q.dtype)
-    out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache.to(q.dtype))
-    return out.reshape(B, H, hd)
+    probs = torch.softmax(logits, dim=-1).masked_fill(~ok, 0.0).to(work)
+    out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache.to(work))
+    return out.reshape(B, H, hd).to(q.dtype)

@@ -6,12 +6,12 @@ per-layer sliding window (counterpart of the JAX package's
 ``attn_decode`` calls ``kernels.ops.decode_attention``: on the card those are
 the CUDA kernels, on the CPU their plain versions.  ``sdpa`` is the JAX
 package's einsum with an additive mask.  On the CPU it also covers what the
-kernels do not: a logit softcap, cross-attention memory and a per-row
-``(B,)`` ``cache_index``.  On the card each of these raises.
+kernels do not: a logit softcap and cross-attention memory.  On the card
+each of these raises.
 
 The kernels build their masks from row and column indices, the JAX functions
 from ``positions[0]``; the two agree because the model's positions are
-``arange(S)`` in prefill and the single ``cache_index`` in decode.
+``arange(S)`` in prefill, and in decode each row's own ``cache_index``.
 """
 
 from __future__ import annotations
@@ -101,7 +101,10 @@ def _qkv(p, x: torch.Tensor, src: torch.Tensor):
 
 
 def _out_proj(p, out: torch.Tensor) -> torch.Tensor:
-    y = torch.einsum("bshe,hed->bsd", out, p["wo"])
+    """``einsum("bshe,hed->bsd")`` as one matmul over (h, e) flattened: the
+    einsum copies ``wo`` into (e, h, d) order first, a whole weight a call."""
+    H, hd, d = p["wo"].shape
+    y = out.reshape(*out.shape[:2], H * hd) @ p["wo"].reshape(H * hd, d)
     return y + p["bo"] if "bo" in p else y
 
 
@@ -143,7 +146,7 @@ def attn_decode(
     x: torch.Tensor,  # (B, 1, d)
     cache: KV,        # k/v: (B, S_cache, KH, hd)
     cfg,
-    cache_index,      # Python int for the whole batch, or (B,) per-slot positions (CPU only)
+    cache_index,      # Python int, 0-d integer tensor, or (B,) per-row positions
     window: Optional[int] = None,
     theta: Optional[float] = None,
 ) -> Tuple[torch.Tensor, KV]:
@@ -151,33 +154,34 @@ def attn_decode(
     ``min(cache_index, S-1)`` (the JAX version returns new arrays; writing in
     place spares a copy of the cache per layer and step) and attends to the
     positions ``<= cache_index`` (unclamped, as in the JAX package), within
-    the window.  Returns (y (B,1,d), cache)."""
+    the window.  ``cache_index`` may be one position for the whole batch (a
+    Python int or a 0-d tensor) or a ``(B,)`` tensor, each row at its own
+    position.  A tensor position stays on the device: the step makes no host
+    sync, so it can be captured in a CUDA graph and replayed with new
+    positions.  On the card the kernel reads the cache in its own dtype; on
+    the CPU the cache is cast to q's dtype first, as the JAX function does.
+    Returns (y (B,1,d), cache)."""
     B = x.shape[0]
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     k_cache, v_cache = cache
     S = k_cache.shape[1]
-    per_slot = isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1
-    if per_slot:
-        _unsupported_on_card(x, "a per-row (B,) cache_index (ROADMAP Queue 1 item 6)")
-        idx_vec = cache_index.to(device=x.device, dtype=torch.long)
+    if isinstance(cache_index, torch.Tensor):
+        cache_index = cache_index.to(x.device)
+        idx_vec = cache_index.to(torch.long).reshape(-1).expand(B)
     else:
-        idx = int(cache_index)
-        idx_vec = torch.full((B,), idx, dtype=torch.long, device=x.device)
+        idx_vec = torch.full((B,), int(cache_index), dtype=torch.long, device=x.device)
     q, k_new, v_new = _qkv(p, x, x)
     if cfg.rope:
         th = theta if theta is not None else cfg.rope_theta
         q = apply_rope(q, idx_vec[:, None], th)
         k_new = apply_rope(k_new, idx_vec[:, None], th)
-    if per_slot:
-        rows, wr = torch.arange(B, device=x.device), idx_vec.clamp(max=S - 1)
-    else:
-        rows, wr = slice(None), min(idx, S - 1)
+    rows, wr = torch.arange(B, device=x.device), idx_vec.clamp(max=S - 1)
     k_cache[rows, wr] = k_new[:, 0].to(k_cache.dtype)
     v_cache[rows, wr] = v_new[:, 0].to(v_cache.dtype)
     w = window if window is not None else GLOBAL_WINDOW
-    kc, vc = k_cache.to(q.dtype), v_cache.to(q.dtype)
-    if not per_slot and not cfg.attn_logit_softcap:
-        out = ops.decode_attention(q.reshape(B, H, hd).contiguous(), kc, vc, idx,
+    kc, vc = (k_cache, v_cache) if x.is_cuda else (k_cache.to(q.dtype), v_cache.to(q.dtype))
+    if not cfg.attn_logit_softcap:
+        out = ops.decode_attention(q.reshape(B, H, hd).contiguous(), kc, vc, cache_index,
                                    _kernel_window(w))
     else:
         _unsupported_on_card(x, "softcap")

@@ -6,7 +6,7 @@ layouts as the JAX package's value trees (see ``models/convert.py``)."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -106,11 +106,22 @@ def apply_mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # -------------------------------------------------------------------- RoPE
+_FREQS: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     """(head_dim/2,) inverse frequencies, computed in float32 as the JAX
-    package does (``theta`` arrives there as a float32 per-layer value)."""
-    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device) ** exponents)
+    package does (``theta`` arrives there as a float32 per-layer value).
+    Computed once per (head_dim, theta, device) and kept: building them
+    copies ``theta`` from the host, which a stream that is capturing a CUDA
+    graph may not do."""
+    key = (head_dim, float(theta), torch.device(device or "cpu"))
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+        freqs = 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device) ** exponents)
+        _FREQS[key] = freqs
+    return freqs
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

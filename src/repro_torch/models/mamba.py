@@ -160,8 +160,9 @@ def mamba_decode(p, x: torch.Tensor, cfg, state: MambaState) -> Tuple[torch.Tens
     xs, Bm, Cm = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
     xs = xs.reshape(B_, H, P)
     rep = H // G
-    BH = Bm.reshape(B_, G, N).repeat_interleave(rep, dim=1)  # (B,H,N)
-    CH = Cm.reshape(B_, G, N).repeat_interleave(rep, dim=1)
+    # head h reads group h // rep (a view and a copy: nothing the host must compute)
+    BH = Bm.reshape(B_, G, 1, N).expand(B_, G, rep, N).reshape(B_, H, N)  # (B,H,N)
+    CH = Cm.reshape(B_, G, 1, N).expand(B_, G, rep, N).reshape(B_, H, N)
     dt = F.softplus(dt.float() + p["dt_bias"])  # (B,H)
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt * A)

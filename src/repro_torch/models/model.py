@@ -1,10 +1,13 @@
 """Model assembly for the ported families (counterpart of the JAX package's
 ``models/model.py``).
 
-So far the ``ssm`` family (mamba2-130m) and the ``dense`` family (minicpm-2b,
-gemma3-4b, command-r-35b): ``init``, ``forward``, ``prefill``, ``decode_step``
-and ``init_cache`` with the JAX package's signatures and parameter/cache
-layouts, so the two can be held against each other on the same weights.
+So far the ``ssm`` family (mamba2-130m), the ``dense`` family (minicpm-2b,
+gemma3-4b, command-r-35b, command-r-plus-104b) and the ``vlm`` family's dense
+backbone (llava-next-mistral-7b, whose forward splices precomputed patch
+embeddings over the first token embeddings): ``init``, ``forward``,
+``prefill``, ``decode_step`` and ``init_cache`` with the JAX package's
+signatures and parameter/cache layouts, so the two can be held against each
+other on the same weights.
 Parameters are a nested dict of tensors whose per-layer entries are stacked
 along a leading layer axis, as in the JAX value tree; the layers run in a
 Python loop over that axis.
@@ -21,7 +24,7 @@ from .layers import apply_norm, embed_tokens, init_embedding, init_norm, unembed
 from .mamba import MambaState, init_mamba, init_mamba_state, mamba_decode, mamba_forward
 from .transformer import _index, init_block, layer_meta, run_stack
 
-FAMILIES = ("ssm", "dense")
+FAMILIES = ("ssm", "dense", "vlm")  # vlm: a dense backbone
 
 
 def build_model(cfg, param_dtype=torch.float32, device=None) -> "Model":
@@ -32,8 +35,8 @@ class Model:
     def __init__(self, cfg, param_dtype=torch.float32, device=None):
         if cfg.family not in FAMILIES or cfg.moe is not None or cfg.mla is not None:
             raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) is not ported yet: MLA, MoE, hybrid, vision and "
-                "encoder-decoder models are ROADMAP Queue 1 items 5 and 7"
+                f"{cfg.name} ({cfg.family}) is not ported yet: MLA, MoE, hybrid and "
+                "encoder-decoder models are ROADMAP Queue 1 item 7"
             )
         self.cfg = cfg
         self.dtype = param_dtype
@@ -47,7 +50,7 @@ class Model:
         ones where the JAX package has them.  The dense stack is drawn
         layer-stacked at once (``stack``, leading axis of ``n_layers``)."""
         cfg, dev = self.cfg, self.device
-        if cfg.family == "dense":
+        if cfg.family != "ssm":
             return {
                 "embed": init_embedding(cfg, generator, dev, self.dtype),
                 "final_norm": init_norm(cfg, dev),
@@ -65,10 +68,15 @@ class Model:
 
     # ============================================================= forward
     def forward(self, params, batch: Dict[str, torch.Tensor], mode: str = "train"):
-        """Full-sequence forward.  Returns (logits, aux, caches_or_None)."""
+        """Full-sequence forward.  Returns (logits, aux, caches_or_None).  A
+        vlm batch may carry ``patches`` (B, n_img, d): they replace the first
+        ``n_img`` token embeddings."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = embed_tokens(params["embed"], tokens, cfg, self.dtype)
+        if cfg.family == "vlm" and "patches" in batch:
+            n_img = batch["patches"].shape[1]
+            x = torch.cat([batch["patches"].to(x.dtype), x[:, n_img:]], dim=1)
         if cfg.family == "ssm":
             x, caches = self._run_ssm(params, x, mode)
         else:
@@ -112,10 +120,12 @@ class Model:
         return caches, logits[:, -1]
 
     def decode_step(self, params, tokens, cache, cache_index):
-        """tokens: (B, 1) — one token for the whole batch.  ``cache_index``:
-        the dense family's write position, a Python int (or a (B,) tensor of
-        per-slot positions, on the CPU only); the K/V cache is written in
-        place.  The SSM state needs no position."""
+        """tokens: (B, 1) — one token per row.  ``cache_index``: the
+        attention families' write position, a Python int or a 0-d integer
+        tensor for the whole batch, or a (B,) tensor of per-slot positions;
+        a tensor stays on the device (no host sync), so the step can be
+        captured in a CUDA graph.  The K/V cache is written in place.  The
+        SSM state needs no position."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg, self.dtype)
         if cfg.family == "ssm":
@@ -127,9 +137,9 @@ class Model:
 
     def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16):
         """Zero decode state, one entry per layer stacked along axis 0: the
-        dense family's (k, v) pair of (L, B, seq, KH, hd)."""
+        attention families' (k, v) pair of (L, B, seq, KH, hd)."""
         cfg = self.cfg
-        if cfg.family == "dense":
+        if cfg.family != "ssm":
             shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim_)
             return {"stack": (torch.zeros(shape, dtype=dtype, device=self.device),
                               torch.zeros(shape, dtype=dtype, device=self.device))}

@@ -3,11 +3,12 @@
 
 A worker owns a memory pool and a table of idle *instances*: one endpoint's
 parameters materialised on the worker's device.  Cold start = parameter
-materialisation + one warm-up ``generate`` at the request's shape (the
-counterpart of the JAX package's XLA compile: it loads the kernels and warms
-PyTorch's allocator); warm start = reuse of a resident idle instance.  The
-evictor implements keep-alive timeouts and LRU force-eviction under memory
-pressure, emitting the scheduler notifications of Section IV-A.
+materialisation + on the card the capture of the decode step at the
+request's batch size (one eager call, then a CUDA graph: the counterpart of
+the JAX package's XLA compile of ``decode_step``); warm start = reuse of a
+resident idle instance.  Prefill runs eagerly.  The evictor implements
+keep-alive timeouts and LRU force-eviction under memory pressure, emitting
+the scheduler notifications of Section IV-A.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from .. import default_device
 from ..models import build_model
+from .captured import CapturedStep, copy_into, tree_leaves
 
 
 @dataclasses.dataclass
@@ -41,15 +43,49 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class _DecodeLoop:
+    """``generate``'s decode loop on the card for one batch size: static
+    token, position and cache buffers and the step captured on them, which
+    decodes one token, writes its argmax back as the next input token and
+    advances the position."""
+
+    def __init__(self, model, params, batch: int, max_len: int, device: torch.device):
+        self.tokens = torch.zeros((batch, 1), dtype=torch.long, device=device)
+        self.index = torch.zeros((), dtype=torch.int32, device=device)
+        self.cache = model.init_cache(batch, max_len, dtype=torch.float32)
+
+        def step():
+            logits, new = model.decode_step(params, self.tokens, self.cache, self.index)
+            copy_into(self.cache, new)  # the SSM state comes back as new tensors
+            self.tokens.copy_(logits.argmax(-1, keepdim=True))
+            self.index.add_(1)
+
+        self.step = CapturedStep(step, device)
+
+    def run(self, first: torch.Tensor, idx: int, steps: int) -> List[torch.Tensor]:
+        """Tokens ``first`` and then ``steps`` more, decoded from a zero cache
+        at positions ``idx, idx + 1, ...``: one replay each."""
+        for t in tree_leaves(self.cache):
+            t.zero_()
+        self.tokens.copy_(first[:, None])
+        self.index.fill_(idx)
+        out = [first]
+        for _ in range(steps):
+            self.step.replay()
+            out.append(self.tokens[:, 0].clone())
+        return out
+
+
 class Instance:
-    """One warm sandbox: an endpoint's parameters on a device.
+    """One warm sandbox: an endpoint's parameters on a device, and on the
+    card its captured decode loops, one per batch size (``prepare``).
 
     Parameters are drawn from a ``torch.Generator`` on the device seeded with
     ``endpoint.seed``; pass ``params`` to use given ones instead (a test
     hands in the JAX package's, converted by ``models.params_from_numpy``).
     """
 
-    __slots__ = ("endpoint", "device", "model", "params", "last_used")
+    __slots__ = ("endpoint", "device", "model", "params", "last_used", "_loops")
 
     def __init__(self, endpoint: Endpoint, device=None, params: Optional[Dict] = None):
         self.endpoint = endpoint
@@ -59,28 +95,45 @@ class Instance:
             gen = torch.Generator(device=self.device).manual_seed(endpoint.seed)
             params = self.model.init(gen)
         self.params = params
+        self._loops: Dict[int, _DecodeLoop] = {}
         _sync(self.device)
         self.last_used = time.monotonic()
+
+    @torch.no_grad()
+    def prepare(self, batch: int) -> None:
+        """On the card, allocate the decode loop's buffers for ``batch`` rows
+        and capture its step (cold start does this at the request's batch
+        size; ``generate`` does it for a size it has not seen).  Nothing on
+        the CPU, where ``generate`` runs eagerly."""
+        if self.device.type == "cuda" and batch not in self._loops:
+            self._loops[batch] = _DecodeLoop(self.model, self.params, batch,
+                                             self.endpoint.max_cache_len, self.device)
+            _sync(self.device)
 
     @torch.no_grad()
     def generate(self, tokens: torch.Tensor, gen_len: int = 4) -> torch.Tensor:
         """Prefill + a few greedy decode steps (the 'function execution').
 
-        As in the JAX package, decoding starts from a fresh zero cache: the
-        cache that prefill builds is discarded, so the tokens after the first
+        As in the JAX package, decoding starts from a zero cache: the cache
+        that prefill builds is discarded, so the tokens after the first
         depend only on the previous token (ROADMAP Queue 3).  Kept so that
-        the two packages generate the same tokens.
+        the two packages generate the same tokens.  On the card each decode
+        step is one replay of the captured step; on the CPU it runs eagerly.
         """
         model, ep = self.model, self.endpoint
         tokens = tokens.to(self.device)
         B, S = tokens.shape
-        cache = model.init_cache(B, ep.max_cache_len, dtype=torch.float32)
         _, last_logits = model.prefill(self.params, {"tokens": tokens})
         out = [last_logits.argmax(-1)]
         idx = min(S, ep.max_cache_len - gen_len - 1)
-        for i in range(gen_len - 1):
-            logits, cache = model.decode_step(self.params, out[-1][:, None], cache, idx + i)
-            out.append(logits.argmax(-1))
+        if self.device.type == "cuda":
+            self.prepare(B)
+            out = self._loops[B].run(out[0], idx, gen_len - 1)
+        else:
+            cache = model.init_cache(B, ep.max_cache_len, dtype=torch.float32)
+            for i in range(gen_len - 1):
+                logits, cache = model.decode_step(self.params, out[-1][:, None], cache, idx + i)
+                out.append(logits.argmax(-1))
         result = torch.stack(out, 1)
         _sync(self.device)
         return result
@@ -152,7 +205,7 @@ class WorkerHost:
             while self.used_bytes + need > self.pool and self._evict_lru():
                 pass
             inst = Instance(ep, self.device)  # materialise ...
-            inst.generate(tokens, gen_len)    # ... + warm up == cold start
+            inst.prepare(tokens.shape[0])     # ... + capture decode == cold start
             self.used_bytes += need
         else:
             inst = self.idle[ep.name].pop()

@@ -235,3 +235,142 @@ def test_softcap_runs_the_plain_path_on_cpu():
 def test_mla_is_not_ported():
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         attn.init_mla(get_config("minicpm_2b"), None, "cpu")
+
+
+# ------------------------------------------- per-row lengths, cache dtypes
+CACHE_DTYPES = ["float32", "bfloat16", "float8_e4m3fn"]
+
+
+@pytest.mark.parametrize("B,S,H,KH,hd,window,lengths", [
+    (3, 128, 8, 2, 64, None, [0, 77, 127]),
+    (4, 256, 4, 4, 128, 64, [5, 200, 255, 300]),   # one row past S-1
+    (2, 128, 8, 1, 64, None, [-1, 40]),            # a row with no live position
+])
+def test_decode_per_row_lengths_match_pallas(B, S, H, KH, hd, window, lengths):
+    """A (B,) int32 ``valid_len``: each row of the plain version (and of the
+    wrapper on the CPU) against the Pallas kernel in interpret mode run on
+    that row alone with its own length; a row with none live gives zeros."""
+    (jq, jk, jv), (q, k, v) = _pair(_inputs([(B, H, hd), (B, S, KH, hd), (B, S, KH, hd)], B + S), "float32")
+    t = torch.tensor(lengths, dtype=torch.int32)
+    got_ref = ref.decode_attention_ref(q, k, v, t, window)
+    got_ops = ops.decode_attention(q, k, v, t, window)
+    for b, n in enumerate(lengths):
+        want = jax_ops.decode_attention(jq[b:b + 1], jk[b:b + 1], jv[b:b + 1], jnp.int32(n),
+                                        window=window, block_k=64, interpret=True)
+        _close(got_ref[b:b + 1], want, TOL["float32"])
+        _close(got_ops[b:b + 1], want, TOL["float32"])
+        if n < 0:
+            assert not got_ref[b].any()
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cache_dtype", CACHE_DTYPES)
+def test_decode_mixed_dtypes_match_pallas(q_dtype, cache_dtype):
+    """q and the cache in the dtypes the decode kernel is instantiated for,
+    with per-row lengths: the plain version upcasts the cache straight to
+    float32, as the Pallas kernel does per tile (run here in interpret mode
+    on the same rounded inputs, row by row).  Tolerance: q's dtype's."""
+    B, S, H, KH, hd, window, lengths = 2, 128, 8, 2, 64, None, [31, 127]
+    a = _inputs([(B, H, hd), (B, S, KH, hd), (B, S, KH, hd)], 11)
+    jq, tq = jnp.asarray(a[0], getattr(jnp, q_dtype)), torch.tensor(a[0]).to(getattr(torch, q_dtype))
+    jk, jv = (jnp.asarray(x, getattr(jnp, cache_dtype)) for x in a[1:])
+    tk, tv = (torch.tensor(x).to(getattr(torch, cache_dtype)) for x in a[1:])
+    got = ref.decode_attention_ref(tq, tk, tv, torch.tensor(lengths, dtype=torch.int32), window)
+    assert got.dtype == tq.dtype
+    np.testing.assert_array_equal(tk.float().numpy(), np.asarray(jk, np.float32))
+    for b, n in enumerate(lengths):
+        want = jax_ops.decode_attention(jq[b:b + 1], jk[b:b + 1], jv[b:b + 1], jnp.int32(n),
+                                        window=window, block_k=64, interpret=True)
+        _close(got[b:b + 1], want, TOL[q_dtype])
+    torch.testing.assert_close(ops.decode_attention(tq, tk, tv, torch.tensor(lengths, dtype=torch.int32)),
+                               got, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("cache_dtype", CACHE_DTYPES)
+@pytest.mark.parametrize("window", [16, None])
+def test_attn_decode_per_row_cache_dtypes_match_jax(cache_dtype, window):
+    """``attn_decode`` with a (B,) int32 ``cache_index`` into a cache of each
+    dtype: output and written cache against the JAX function, to atol=1e-4,
+    rtol=1e-3 (a bfloat16 or fp8 cache compared exactly: the float32 K/V
+    that differ in the last bit round alike)."""
+    jcfg, tcfg = _cfg(jax_get_config), _cfg(get_config)
+    p = _params(jcfg, seed=3)
+    B, S, KH, hd = 3, 32, jcfg.n_kv_heads, jcfg.head_dim_
+    x, kc, vc = _inputs([(B, 1, jcfg.d_model), (B, S, KH, hd), (B, S, KH, hd)], 6)
+    idx = np.array([0, 19, 40], np.int32)
+    jd, td = getattr(jnp, cache_dtype), getattr(torch, cache_dtype)
+    jy, (jk, jv) = jax_attn.attn_decode({k: jnp.asarray(a) for k, a in p.items()}, jnp.asarray(x),
+                                        (jnp.asarray(kc, jd), jnp.asarray(vc, jd)), jcfg,
+                                        jnp.asarray(idx), window)
+    ty, (tk, tv) = attn.attn_decode({k: torch.tensor(a) for k, a in p.items()}, torch.tensor(x),
+                                    (torch.tensor(kc).to(td), torch.tensor(vc).to(td)), tcfg,
+                                    torch.from_numpy(idx), window)
+    _close(ty, jy, TOL_MODEL)
+    for got, want in ((tk, jk), (tv, jv)):
+        assert got.dtype == td
+        _close(got, want, TOL_MODEL if cache_dtype == "float32" else dict(atol=0, rtol=0))
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16", "float8_e4m3fn"])
+def test_flash_mixed_dtypes_match_pallas(dtype):
+    """q in float32 with k and v in another dtype: the wrapper casts all to
+    float32 (the Pallas kernel casts each tile) and returns q's dtype."""
+    B, S, H, KH, hd, causal, window = FLASH_SHAPES[2]
+    a = _inputs([(B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)], 12)
+    jq, tq = jnp.asarray(a[0]), torch.tensor(a[0])
+    jk, jv = (jnp.asarray(x, getattr(jnp, dtype)) for x in a[1:])
+    tk, tv = (torch.tensor(x).to(getattr(torch, dtype)) for x in a[1:])
+    want = jax_ops.flash_attention(jq, jk, jv, causal=causal, window=window, block_q=64,
+                                   block_k=64, interpret=True)
+    got = ops.flash_attention(tq, tk, tv, causal, window)
+    assert got.dtype == torch.float32
+    _close(got, want, TOL["float32"])
+
+
+def test_ssd_scan_mixed_dtypes_match_float32():
+    """x in bfloat16 with B, C in float32 and dt in bfloat16: the wrapper
+    casts every input to float32 (as the Pallas kernel does per tile) and
+    returns y in x's dtype and the state in float32."""
+    rng = np.random.default_rng(13)
+    Bsz, S, H, P, G, N = 1, 64, 4, 8, 1, 8
+    x = torch.tensor(rng.standard_normal((Bsz, S, H, P)), dtype=torch.bfloat16)
+    dt = torch.tensor(np.log1p(np.exp(rng.standard_normal((Bsz, S, H)))), dtype=torch.bfloat16)
+    A = -torch.tensor(np.exp(rng.standard_normal(H) * 0.3), dtype=torch.float32)
+    Bm, Cm = (torch.tensor(rng.standard_normal((Bsz, S, G, N)) * 0.3, dtype=torch.float32)
+              for _ in range(2))
+    y, st = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=32)
+    y32, st32 = ops.ssd_scan(x.float(), dt.float(), A, Bm, Cm, chunk=32)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    torch.testing.assert_close(y, y32.to(torch.bfloat16), atol=0, rtol=0)
+    torch.testing.assert_close(st, st32, atol=0, rtol=0)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x.double(), dt, A, Bm, Cm, chunk=32)
+
+
+def test_vlm_forward_with_patches_matches_jax():
+    """Reduced llava-next-mistral-7b: ``forward`` with precomputed patch
+    embeddings spliced over the first tokens, against the JAX
+    ``Model.forward`` on the same weights and patches (atol=1e-4,
+    rtol=1e-3); the patches move the logits of every position."""
+    from repro.models import build_model as jax_build_model
+    from repro_torch.models import Model, params_from_numpy
+    from repro_torch.models.frontends import synth_patches
+
+    jcfg = jax_get_config("llava_next_mistral_7b").reduced()
+    tcfg = get_config("llava_next_mistral_7b").reduced()
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    jm = jax_build_model(jcfg, remat=False)
+    jp, _ = unzip(jm.init(jax.random.key(1)))
+    model = Model(tcfg, device="cpu")
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(14)
+    tokens = rng.integers(0, tcfg.vocab, (2, 20)).astype(np.int32)
+    patches = (rng.standard_normal((2, tcfg.n_frontend_tokens, tcfg.d_model)) * 0.02).astype(np.float32)
+    jl, _, _ = jm.forward(jp, {"tokens": jnp.asarray(tokens), "patches": jnp.asarray(patches)})
+    tl, _, _ = model.forward(params, {"tokens": torch.from_numpy(tokens),
+                                      "patches": torch.from_numpy(patches)})
+    _close(tl, jl, TOL_MODEL)
+    plain, _, _ = model.forward(params, {"tokens": torch.from_numpy(tokens)})
+    assert (plain - tl).abs().amax(dim=-1).min() > 0
+    g = synth_patches(torch.Generator().manual_seed(0), 2, tcfg.n_frontend_tokens, tcfg.d_model)
+    assert g.shape == (2, 8, tcfg.d_model) and abs(float(g.std()) - 0.02) < 0.005

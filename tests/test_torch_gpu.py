@@ -373,8 +373,12 @@ def test_decode_kernel_no_live_position_gives_zeros(cuda, valid, window):
 
 def test_attention_kernels_check_inputs(cuda):
     q, kc, vc = _attn_inputs([(2, 4, 64), (2, 32, 2, 64), (2, 32, 2, 64)], torch.float32, 0, cuda)
-    with pytest.raises(TypeError):  # per-row lengths: ROADMAP Queue 1 item 6
-        ops.decode_attention(q, kc, vc, torch.tensor([3, 5], device=cuda))
+    lengths = torch.tensor([3, 5], device=cuda)  # per-row lengths are taken (ROADMAP Queue 1 item 6)
+    torch.testing.assert_close(ops.decode_attention(q, kc, vc, lengths),
+                               ref.decode_attention_ref(q, kc, vc, lengths),
+                               **TOL_ATTN[torch.float32])
+    with pytest.raises(ValueError):  # neither 0-d nor (B,)
+        ops.decode_attention(q, kc, vc, torch.tensor([3, 5, 7], device=cuda))
     with pytest.raises(TypeError):
         ops.decode_attention(q, kc, vc, torch.tensor(3.0, device=cuda))
     with pytest.raises(ValueError):
@@ -425,8 +429,14 @@ def test_dense_model_on_card_matches_cpu(cuda):
         torch.testing.assert_close(lc.cpu(), lp, **TOL)
         tok = lp.argmax(-1, keepdim=True).to(torch.int32)
     assert ops.LAUNCHES["decode_attention"] == 3 * cfg.n_layers
-    with pytest.raises(NotImplementedError):  # per-row cache_index: ROADMAP Queue 1 item 6
-        card.decode_step(params_card, tok.to(cuda), kv_c, torch.tensor([43, 44], device=cuda))
+    # a per-row (B,) cache_index (ROADMAP Queue 1 item 6) goes through the kernel too
+    idx = torch.tensor([43, 41], dtype=torch.int32)
+    lc, kv_c = card.decode_step(params_card, tok.to(cuda), kv_c, idx.to(cuda))
+    lp, kv = cpu.decode_step(params, tok, kv, idx)
+    torch.testing.assert_close(lc.cpu(), lp, **TOL)
+    for a, b in zip(kv_c["stack"], kv["stack"]):
+        torch.testing.assert_close(a.cpu(), b, **TOL)
+    assert ops.LAUNCHES["decode_attention"] == 4 * cfg.n_layers
     with pytest.raises(NotImplementedError):  # no softcap in the kernels
         Model(dataclasses.replace(cfg, attn_logit_softcap=50.0), device=cuda).prefill(
             params_card, {"tokens": tokens.to(cuda)})
@@ -436,3 +446,217 @@ def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ------------------------------------ per-row lengths, cache dtypes, graphs
+CACHE_DTYPES = [torch.float32, torch.bfloat16, torch.float8_e4m3fn]
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_dtype", CACHE_DTYPES)
+@pytest.mark.parametrize("B,S,H,KH,hd,window,lengths", [
+    (4, 512, 8, 2, 64, None, [511, 0, 300, -1]),          # -1: no live position
+    (8, 1024, 32, 8, 128, None, [15, 511, 1023, 700, 64, 1, 333, 1500]),  # llava width
+    (3, 2048, 36, 36, 64, None, [1024, 2047, 7]),        # minicpm-2b width
+    (2, 2048, 8, 4, 256, 1024, [2047, 100]),             # gemma3-4b width, window
+    (3, 300, 4, 2, 80, 40, [150, 10, 299]),
+    (2, 128, 64, 2, 16, None, [127, 50]),                # G=32, hd=16
+    (5, 64, 4, 4, 32, 3, [63, 0, 2, 40, -4]),
+])
+def test_decode_kernel_per_row_and_cache_dtypes(cuda, B, S, H, KH, hd, window, lengths,
+                                                 cache_dtype, q_dtype):
+    """(B,) int32 lengths x cache dtype x q dtype against the plain version
+    (which upcasts a cache of another dtype to float32 as the kernel does):
+    to q's dtype's tolerance; a row with no live position is zeros."""
+    q, kc, vc = _attn_inputs([(B, H, hd), (B, S, KH, hd), (B, S, KH, hd)], torch.float32,
+                             B + S + hd, cuda)
+    q, kc, vc = q.to(q_dtype), kc.to(cache_dtype), vc.to(cache_dtype)
+    valid = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    ops.reset_launches()
+    out = ops.decode_attention(q, kc, vc, valid, window)
+    want = ref.decode_attention_ref(q, kc, vc, valid, window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == 1
+    assert out.dtype == q_dtype and out.shape == (B, H, hd)
+    torch.testing.assert_close(out.float(), want.float(), **TOL_ATTN[q_dtype])
+    for b, n in enumerate(lengths):
+        lo = max(0, n - window + 1) if window else 0
+        if min(n, S - 1) < lo:
+            assert not out[b].any()
+
+
+@pytest.mark.parametrize("cache_dtype", CACHE_DTYPES)
+def test_decode_kernel_per_row_graph_replays(cuda, cache_dtype):
+    """One call with (B,) lengths captured in a CUDA graph and replayed with
+    new lengths in the same tensor; the rows past each length are NaN and
+    must not be read."""
+    B, S, H, KH, hd = 8, 1024, 32, 8, 128
+    q, kc, vc = _attn_inputs([(B, H, hd), (B, S, KH, hd), (B, S, KH, hd)], torch.float32, 21, cuda)
+    q, kc, vc = q.to(torch.bfloat16), kc.to(cache_dtype), vc.to(cache_dtype)
+    valid = torch.zeros(B, dtype=torch.int32, device=cuda)
+    ops.decode_attention(q, kc, vc, valid)  # the first call outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, kc, vc, valid)
+    rng = np.random.default_rng(0)
+    k0, v0 = kc.clone(), vc.clone()
+    for _ in range(3):
+        lengths = rng.integers(0, 900, B)
+        want = ref.decode_attention_ref(q, k0, v0, torch.from_numpy(lengths).to(cuda))
+        kc.copy_(k0)
+        vc.copy_(v0)
+        for b, n in enumerate(lengths):
+            kc[b, n + 1:] = float("nan")
+            vc[b, n + 1:] = float("nan")
+        valid.copy_(torch.from_numpy(lengths))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want.float(), **TOL_ATTN[torch.bfloat16])
+
+
+def test_decode_graph_survives_a_larger_shape(cuda):
+    """A graph captured at a small shape keeps its ticket buffer when a
+    larger shape later makes the wrapper allocate a larger one (the old one
+    is held, not freed and reused): replays after that, with the freed
+    memory churned, still give the plain version's output."""
+    q, kc, vc = _attn_inputs([(2, 8, 64), (2, 512, 4, 64), (2, 512, 4, 64)], torch.float32, 22, cuda)
+    valid = torch.tensor(100, dtype=torch.int32, device=cuda)
+    ops.decode_attention(q, kc, vc, valid)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, kc, vc, valid)
+    old = ops._tickets[q.device]
+    big_b = old.numel() // 32 + 1  # KH=32, one head group: units = B * 32 > the old buffer
+    q2, k2, v2 = _attn_inputs([(big_b, 32, 64), (big_b, 32, 32, 64), (big_b, 32, 32, 64)],
+                              torch.float32, 23, cuda)
+    torch.testing.assert_close(ops.decode_attention(q2, k2, v2, 20),
+                               ref.decode_attention_ref(q2, k2, v2, 20), **TOL_ATTN[torch.float32])
+    assert ops._tickets[q.device] is not old and any(t is old for t in ops._held_tickets)
+    del q2, k2, v2
+    torch.cuda.empty_cache()
+    junk = [torch.full((1 << 20,), 7, dtype=torch.int32, device=cuda) for _ in range(8)]
+    for n in (511, 3, 300):
+        valid.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref.decode_attention_ref(q, kc, vc, n),
+                                   **TOL_ATTN[torch.float32])
+    assert not old.any() and all(int(j[0]) == 7 for j in junk)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float16, torch.float8_e4m3fn])
+def test_flash_kernel_mixed_dtypes(cuda, kv_dtype):
+    """q in float32 with k and v in another dtype: the wrapper casts to
+    float32, launches the float32 kernel once, returns float32."""
+    q, k, v = _attn_inputs([(1, 1000, 8, 64), (1, 1000, 4, 64), (1, 1000, 4, 64)], torch.float32,
+                           24, cuda)
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, True, 300)
+    want = ref.flash_attention_ref(q, k.float(), v.float(), True, 300)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1 and out.dtype == torch.float32
+    torch.testing.assert_close(out, want, **TOL_ATTN[torch.float32])
+
+
+def test_ssd_kernel_mixed_dtypes(cuda):
+    """x in bfloat16, dt in bfloat16, B and C in float32: cast to float32,
+    one launch; y in bfloat16, the state in float32."""
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 512, 24, 64, 128, seed=4)
+    xd, dtd = x.to(cuda, torch.bfloat16), dt.to(cuda, torch.bfloat16)
+    ops.reset_launches()
+    y, st = ops.ssd_scan(xd, dtd, A.to(cuda), Bm.to(cuda), Cm.to(cuda), chunk=256)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == 1 and y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    yr, sr = ref.ssd_scan_ref(xd.float().cpu(), dtd.float().cpu(), A, Bm, Cm, 256)
+    torch.testing.assert_close(y.float().cpu(), yr, **TOL_BF16)
+    torch.testing.assert_close(st.cpu(), sr, **TOL)
+
+
+def _tiny_endpoint(name):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Endpoint
+
+    cfg = get_config(name).reduced()
+    if name == "mamba2_130m":
+        cfg = dataclasses.replace(cfg, n_layers=2, d_model=32, vocab=64,
+                                  ssm=dataclasses.replace(cfg.ssm, d_state=8, headdim=8))
+    return Endpoint(name, cfg, seed=3, max_cache_len=64)
+
+
+def _eager_generate(inst, tokens, gen_len):
+    """``Instance.generate``'s loop, run eagerly on the card."""
+    model, ep = inst.model, inst.endpoint
+    cache = model.init_cache(tokens.shape[0], ep.max_cache_len, dtype=torch.float32)
+    _, lg = model.prefill(inst.params, {"tokens": tokens})
+    out = [lg.argmax(-1)]
+    idx = min(tokens.shape[1], ep.max_cache_len - gen_len - 1)
+    for i in range(gen_len - 1):
+        lg, cache = model.decode_step(inst.params, out[-1][:, None], cache, idx + i)
+        out.append(lg.argmax(-1))
+    return torch.stack(out, 1)
+
+
+@pytest.mark.parametrize("name", ["mamba2_130m", "minicpm_2b"])
+def test_generate_replays_the_captured_step(cuda, name):
+    """``Instance.generate`` on the card replays one captured decode step a
+    token: its tokens equal the eager loop's, twice over (the static cache
+    is zeroed between requests), for two batch sizes; each replay counts
+    the step's launches."""
+    from repro_torch.serving import Instance, captured
+
+    inst = Instance(_tiny_endpoint(name), device=cuda)
+    rng = np.random.default_rng(1)
+    for B, S, gen_len in ((1, 20, 6), (2, 9, 4), (1, 40, 5)):
+        tokens = torch.from_numpy(rng.integers(0, inst.model.cfg.vocab, (B, S)).astype(np.int32))
+        tokens = tokens.to(cuda)
+        want = _eager_generate(inst, tokens, gen_len)
+        inst.prepare(B)  # cold start's capture: one eager step, then the graph
+        ops.reset_launches()
+        captured.reset_replays()
+        got = inst.generate(tokens, gen_len)
+        assert torch.equal(got, want)
+        assert captured.REPLAYED["steps"] == gen_len - 1
+        per_step = inst.model.cfg.n_layers if name == "minicpm_2b" else 0
+        assert captured.REPLAYED["decode_attention"] == per_step * (gen_len - 1)
+        assert ops.LAUNCHES["decode_attention"] == 0
+    assert sorted(inst._loops) == [1, 2]
+
+
+def test_batcher_on_card_matches_cpu(cuda):
+    """Reduced llava-next-mistral-7b (float32 weights and cache): the
+    batcher on the card, one graph replay a step, gives the CPU batcher's
+    tokens for the same requests, and its last logits agree to 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousBatcher, GenRequest, captured
+
+    cfg = dataclasses.replace(get_config("llava_next_mistral_7b").reduced(), n_layers=2)
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(5))
+    card = Model(cfg, device=cuda)
+    params_card = {k: _tree_to(v, cuda) for k, v in params.items()}
+    rng = np.random.default_rng(2)
+    reqs = [(f"r{i}", [int(t) for t in rng.integers(0, cfg.vocab, rng.integers(1, 12))],
+             int(rng.integers(1, 9))) for i in range(7)]
+    outs, logits = [], []
+    for model, p in ((cpu, params), (card, params_card)):
+        b = ContinuousBatcher(model, p, n_slots=3, max_len=24)
+        for rid, prompt, n in reqs:
+            b.submit(GenRequest(rid, prompt, max_new_tokens=n))
+        captured.reset_replays()
+        ops.reset_launches()
+        outs.append(b.run_to_completion())
+        logits.append(b.logits.float().cpu())
+        if model is card:
+            assert captured.REPLAYED["steps"] == b.steps
+            assert captured.REPLAYED["decode_attention"] == cfg.n_layers * b.steps
+            assert ops.LAUNCHES["decode_attention"] == 0
+    assert outs[0] == outs[1]
+    torch.testing.assert_close(logits[1], logits[0], **TOL)
