@@ -18,7 +18,8 @@ line):
              ``sched_events`` at W=100,000 (the large-state path);
              ``ssd_scan`` at mamba2-130m width (H=24, P=64, N=128,
              chunk=256) in float32 to atol=1e-4, rtol=1e-3 and in bfloat16
-             to atol=rtol=5e-2, and with ngroups G=2 in float32;
+             to atol=rtol=5e-2, and with ngroups G=2 in float32, and at
+             zamba2-2.7b width (H=80, P=64, N=64) in float32;
              ``flash_attention`` at minicpm-2b prefill
              (B=1, S=1024, H=KH=36, hd=64, causal) and gemma3-4b width
              (S=2048, H=8, KH=4, hd=256, causal, with and without window
@@ -41,6 +42,13 @@ line):
              also prints the device time by kernel of one replay of that
              graph, from ``torch.profiler``; ``decode_batch_timing`` at the
              batch shapes, SDPA there on a bfloat16 copy of the cache).
+             The shapes of the hybrid and moe paths, each against its plain
+             version and timed the same way: ``flash_attention`` at
+             zamba2-2.7b prefill (S=1024, H=KH=32, hd=80, float32) and
+             mixtral-8x22b prefill (S=512, H=48, KH=8, hd=128, window 4096,
+             bfloat16), ``decode_attention`` at zamba2-2.7b width (float32,
+             2,048-long cache) and mixtral-8x22b batch width (B=8, H=48,
+             KH=8, hd=128, bfloat16, window 4096).
 3. sched   — the main scheduling path: ``sched_many_fused`` (chunk 1024)
              and ``sched_many_adaptive`` on a 65,536-event seeded stream at
              W=1600, F=40, both bitwise equal to ``sched_many`` on the CPU,
@@ -77,7 +85,18 @@ line):
              time by kernel of one traced warm prefill and of one traced
              warm request, and the device's busy share, from
              ``torch.profiler`` ("not measured" if it sees none).
-8. batch   — the continuous-batching path, after the engines above are
+8. hybrid  — after the engines above are freed, a ``ServingEngine`` with
+             three full-width zamba2-2.7b endpoints (54 Mamba2 layers,
+             d_model 2560, 80 SSM heads of 64, d_state 64; 2 shared
+             attention blocks of 32 heads x 80 applied 9 times; vocab
+             32,000; 2.24 B parameters in float32 from seeds 0-2,
+             max_cache_len 2048, a 32 GiB pool per worker), 2 workers, hiku,
+             the same 8 requests.  Checks cold-then-warm, exactly 54
+             ``ssd_scan`` and 9 ``flash_attention`` launches per prefill, 9
+             ``decode_attention`` per cold start's eager call and per
+             replay, 7 replays a request, one 128-token request against the
+             plain path on the CPU; then profiles a warm request as in 7.
+9. batch   — the continuous-batching path, after the engines above are
              freed: full-width llava-next-mistral-7b (32 layers, d_model
              4096, 32 heads / 8 kv heads of 128, d_ff 14,336, vocab 32,000;
              7.24 B parameters in bfloat16 from seed 0) behind a
@@ -92,9 +111,21 @@ line):
              tokens against the same request's beside 15 others; prints
              steps/s, tokens/s, ms a step, the device's idle share over 16
              traced steps and the peak device memory.
+10. moe    — after the llava model is freed: mixtral-8x22b at full width,
+             8 of its 56 layers (d_model 6144, 48 / 8 heads of 128, window
+             4096, 8 experts top-2 of d_ff 16,384, vocab 32,768; 20.44 B
+             parameters in bfloat16 from seed 0, router float32) behind the
+             same batcher with a bfloat16 cache and the same 16 requests,
+             with phase 9's checks (8 ``decode_attention`` a replay; the
+             plain path at step 200 takes the kernel path's routing, since
+             a top-2 choice flips on a last-bit difference); then a
+             512-token prefill at B=1 (capacity 160 an expert), twice:
+             exactly 8 ``flash_attention`` launches each, the last logits
+             against the plain path (same routing) to a relative L2 of 2e-2,
+             the assignments dropped per layer.
 
 The launch counters are set to 0 just before each main path (phases 3, 4,
-5 and 8) and read just after: the wrappers' own launches plus, for each
+5, 8, 9 and 10) and read just after: the wrappers' own launches plus, for each
 replay of a captured step, the launches recorded when it was captured
 (``serving/captured.py``); launches made in phase 2 do not count.  Before the last line it prints one
 JSON line ``{"kernels": [...]}``, and the last line is
@@ -110,7 +141,11 @@ trees on one card, copy this script into a checkout of the other tree (a
 ``git archive`` unpacked under ``build/``) and run it there and here, in
 turns, with ``--sched-only``.
 
-In the ``{"kernels": [...]}`` line the two scheduling rows also carry
+In the ``{"kernels": [...]}`` line the ``ssd_scan``, ``flash_attention``
+and ``decode_attention`` rows carry ``shapes``: the same numbers at the
+hybrid and moe paths' shapes, each with the launches of its own path
+(``decode_attention``'s ``batch`` holds the llava-width rows).  The two
+scheduling rows also carry
 ``burst`` (the events of the timed burst, the path's chunk of 1,024),
 ``ns_per_event`` and ``ms_4096`` (the time of a 4,096-event burst): their
 ``ms`` is one 1,024-event burst, averaged over 10 back-to-back calls.
@@ -131,12 +166,17 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12  # tensor cores, dense
 
 DEVICE = "cuda"
 SCHED_CHUNK = 1024  # the burst the fused scheduling path launches
 FULL_WIDTH = (24, 768, 50280)  # mamba2-130m: layers, d_model, vocab
 DENSE_WIDTH = (40, 2304, 122753)  # minicpm-2b: layers, d_model, vocab
 LLAVA_WIDTH = (32, 4096, 32000)  # llava-next-mistral-7b's backbone: layers, d_model, vocab
+ZAMBA_WIDTH = (54, 2560, 32000)  # zamba2-2.7b: Mamba2 layers, d_model, vocab
+MIXTRAL_WIDTH = (56, 6144, 32768)  # mixtral-8x22b: layers, d_model, vocab
+MOE_LAYERS = 8  # of mixtral's 56: 20.44 B parameters in bfloat16 fit one card
+MOE_PROMPT = 512  # the moe path's prefill: T=512, capacity 160 a expert (tokens drop)
 BATCH_SLOTS, BATCH_MAX_LEN = 8, 1024  # the batch phase's cache: slots, positions a slot
 ORDER = [0, 0, 1, 1, 2, 0, 1, 2]  # endpoint of each serve request
 
@@ -240,9 +280,15 @@ def graph_kernels(torch, fns):
     return [("wall", 0, span / n)] + rows
 
 
-def bound(nbytes: float, nops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_OPS_PER_S * 1e3
+def bound(nbytes: float, nops: float, peak_ops: float = PEAK_F32_OPS_PER_S):
+    """The least ms for ``nbytes`` moved and ``nops`` done at the card's peak
+    rates (operations at ``peak_ops``: the peak for the inputs' type)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, nops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def peak_ops(torch, dtype) -> float:
+    return PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else PEAK_F32_OPS_PER_S
 
 
 def max_abs(a, b) -> float:
@@ -472,6 +518,28 @@ def phase_kernels(torch, np, build, ops, ref, rows):
     log(f"[kernels] ssd_scan B=1 S=1024 H={H} P={P} N={N} Q={Q}: {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nops / 1e9:.3f} GFLOP, "
         f"{nbytes / 1e6:.2f} MB)")
+    rows["ssd_scan"]["shapes"] = {"zamba2": ssd_row(torch, ops, ref, 80, 64, 64, Q, "zamba2-2.7b")}
+
+
+def ssd_row(torch, ops, ref, H, P, N, Q, label):
+    """``ssd_scan`` at B=1, S=1024 and another model's width, float32: against
+    its plain version (atol=1e-4, rtol=1e-3), then times from CUDA graphs as
+    the main row's.  Returns the row for the kernels line."""
+    x, dt, A, Bm, Cm = ssd_inputs(torch, 1, 1024, H, P, N, seed=H + N)
+    y, st = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+    yr, sr = ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q)
+    if not (torch.allclose(y, yr, **TOL_F32) and torch.allclose(st, sr, **TOL_F32)):
+        fail(f"ssd_scan {label}: max abs err {max(max_abs(y, yr), max_abs(st, sr)):.3e}")
+    err = max(max_abs(y, yr), max_abs(st, sr))
+    ms = time_graph(torch, [lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)] * 10)
+    plain_ms = time_graph(torch, [lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q)] * 3)
+    nbytes, nops = ssd_counts(1, 1024, H, P, N, Q, 4)
+    b_ms, b_by = bound(nbytes, nops)
+    log(f"[kernels] ssd_scan {label} B=1 S=1024 H={H} P={P} N={N} Q={Q} f32: max abs err "
+        f"{err:.3e} (atol 1e-4, rtol 1e-3); {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 def attn_inputs(torch, shapes, seed):
@@ -514,8 +582,7 @@ def check_close(torch, name, got, want, dtype):
 
 def phase_attention(torch, np, ops, ref, rows):
     """Both attention kernels against their plain versions at minicpm-2b and
-    gemma3-4b width, then times at the shapes of the main path."""
-    F = torch.nn.functional
+    gemma3-4b width, then times at the shapes of the main paths."""
     f32, bf16 = torch.float32, torch.bfloat16
     MINI = (1, 36, 36, 64)   # B, H, KH, hd
     GEMMA = (1, 8, 4, 256)
@@ -571,38 +638,56 @@ def phase_attention(torch, np, ops, ref, rows):
     # times: CUDA graphs of back-to-back calls (time_graph); prefill's q, k, v
     # were just written by the layer and sit in L2, a decode step's cache was
     # last touched a whole model ago, so decode cycles through 8 caches (> L2)
-    for label, (B, H, KH, hd), S, window in (("minicpm-2b", MINI, 1024, None),
-                                             ("gemma3-4b", GEMMA, 2048, 1024)):
-        q, k, v = attn_inputs(torch, [(B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)], 7)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if window is None:
-            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
-        else:
-            i = torch.arange(S, device=DEVICE)
-            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        want = ref.flash_attention_ref(q, k, v, True, window)
-        lib_err = max_abs(lib().transpose(1, 2), want)
-        ms = time_graph(torch, [lambda: ops.flash_attention(q, k, v, True, window)] * 10)
-        plain_ms = time_graph(torch, [lambda: ref.flash_attention_ref(q, k, v, True, window)] * 3)
-        lib_ms = time_graph(torch, [lib] * 10)
-        nbytes, nops = flash_counts(B, S, H, KH, hd, True, window, 4)
-        b_ms, b_by = bound(nbytes, nops)
-        log(f"[kernels] flash_attention {label} B={B} S={S} H={H} KH={KH} hd={hd} causal "
-            f"window={window} f32: {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
-            f"(max abs diff {lib_err:.2e}), bound {b_ms:.4f} ms ({b_by}: "
-            f"{nops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
-        if label == "minicpm-2b":
-            rows["flash_attention"] = dict(
-                name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:75",
-                max_abs_err=max(errs["flash_attention"]), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    main = flash_row(torch, ops, ref, "minicpm-2b", (1, 1024, 36, 36, 64), None, f32)
+    flash_row(torch, ops, ref, "gemma3-4b", (1, 2048, 8, 4, 256), 1024, f32)
+    rows["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:75",
+        **{**main, "max_abs_err": max(errs["flash_attention"])},
+        shapes={"zamba2": flash_row(torch, ops, ref, "zamba2-2.7b", (1, 1024, 32, 32, 80), None,
+                                    f32),
+                "mixtral": flash_row(torch, ops, ref, "mixtral-8x22b", (1, MOE_PROMPT, 48, 8, 128),
+                                     4096, torch.bfloat16)})
     decode_timing(torch, ops, ref, rows)
     rows["decode_attention"]["max_abs_err"] = max(errs["decode_attention"])
     decode_batch_timing(torch, np, ops, ref, rows)
+
+
+def flash_row(torch, ops, ref, label, shape, window, dtype):
+    """``flash_attention`` causal at ``shape`` (B, S, H, KH, hd) in ``dtype``:
+    against its plain version (the dtype's tolerance), then its time, the
+    plain version's and one ``scaled_dot_product_attention`` call's (the
+    library yardstick, never called by the port) from CUDA graphs of
+    back-to-back calls; the bound at the peak for the inputs' type.  Returns
+    the row for the kernels line."""
+    F = torch.nn.functional
+    B, S, H, KH, hd = shape
+    q, k, v = (t.to(dtype) for t in attn_inputs(
+        torch, [(B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)], 7))
+    want = ref.flash_attention_ref(q, k, v, True, window)
+    err = check_close(torch, f"flash_attention {label}", ops.flash_attention(q, k, v, True, window),
+                      want, dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = dict(enable_gqa=True) if H != KH else {}
+    if window is None or window >= S:
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)  # noqa: E731
+    else:
+        i = torch.arange(S, device=DEVICE)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa)  # noqa: E731
+    lib_err = max_abs(lib().transpose(1, 2), want)
+    ms = time_graph(torch, [lambda: ops.flash_attention(q, k, v, True, window)] * 10)
+    plain_ms = time_graph(torch, [lambda: ref.flash_attention_ref(q, k, v, True, window)] * 3)
+    lib_ms = time_graph(torch, [lib] * 10)
+    nbytes, nops = flash_counts(B, S, H, KH, hd, True, window, q.element_size())
+    b_ms, b_by = bound(nbytes, nops, peak_ops(torch, dtype))
+    log(f"[kernels] flash_attention {label} B={B} S={S} H={H} KH={KH} hd={hd} causal "
+        f"window={window} {str(dtype)[6:]}: max abs err {err:.3e}; {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}), bound "
+        f"{b_ms:.4f} ms ({b_by}: {nops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def decode_timing(torch, ops, ref, rows):
@@ -664,48 +749,69 @@ def decode_timing(torch, ops, ref, rows):
 def decode_batch_timing(torch, np, ops, ref, rows):
     """``decode_attention`` at the batch phase's shapes (llava width: B=8,
     H=32, KH=8, hd=128, 1,024-position cache, q in bfloat16, seeded (B,)
-    lengths) with a bfloat16 and an fp8 cache: against the plain version
-    (bf16 tolerance), then its time, the plain version's and one
-    ``scaled_dot_product_attention`` call's on a bfloat16 copy of the cache
-    with the per-row mask (the library yardstick; it takes no fp8), from
-    CUDA graphs over 8 caches in turn (L2 cold); bound from the bytes at the
-    cache's element size.  Returns {label: row} for the kernels line."""
-    F = torch.nn.functional
-    B, H, KH, hd, S, n = BATCH_SLOTS, 32, 8, 128, BATCH_MAX_LEN, 8
+    lengths) with a bfloat16 and an fp8 cache (``rows["decode_attention_batch"]``),
+    and at the new paths' shapes (``rows["decode_attention_shapes"]``):
+    zamba2-2.7b width (B=1, H=KH=32, hd=80, float32, 2,048-position cache,
+    valid_len 1,024) and mixtral-8x22b batch width (the llava lengths, H=48,
+    KH=8, hd=128, q and cache in bfloat16, window 4096)."""
     # seeded per-row lengths: what 8 slots hold in the middle of the batch run
-    lengths = np.random.default_rng(7).integers(16, 577, B).astype(np.int32)
-    valid = torch.from_numpy(lengths).to(DEVICE)
-    q, = attn_inputs(torch, [(B, H, hd)], 30)
-    q = q.to(torch.bfloat16)
-    mask = (torch.arange(S, device=DEVICE)[None, :] <= valid[:, None])[:, None, None, :]
-    out = {}
-    for label, dtype in (("bf16", torch.bfloat16), ("fp8", torch.float8_e4m3fn)):
-        caches = [[t.to(dtype) for t in attn_inputs(torch, [(B, S, KH, hd)] * 2, 31 + c)]
-                  for c in range(n)]
-        got = ops.decode_attention(q, *caches[0], valid)
-        want = ref.decode_attention_ref(q, *caches[0], valid)
-        err = check_close(torch, f"decode_attention llava width {label} cache", got, want,
-                          torch.bfloat16)
-        lib_kv = [[t.to(torch.bfloat16).transpose(1, 2) for t in kv] for kv in caches]
-        qt = q[:, :, None, :]
-        lib_err = max_abs(F.scaled_dot_product_attention(qt, *lib_kv[0], attn_mask=mask,
-                                                         enable_gqa=True)[:, :, 0], want)
-        ms = time_graph(torch, [lambda kv=kv: ops.decode_attention(q, *kv, valid) for kv in caches])
-        plain_ms = time_graph(torch, [lambda kv=kv: ref.decode_attention_ref(q, *kv, valid)
-                                      for kv in caches])
-        lib_ms = time_graph(torch, [lambda kv=kv: F.scaled_dot_product_attention(
-            qt, *kv, attn_mask=mask, enable_gqa=True) for kv in lib_kv])
-        nbytes, nops = decode_counts(S, H, KH, hd, lengths.tolist(), None, 2,
-                                     caches[0][0].element_size())
-        b_ms, b_by = bound(nbytes, nops)
-        log(f"[kernels] decode_attention llava width B={B} cache {S} H={H} KH={KH} hd={hd} "
-            f"per-row lengths {lengths.tolist()}, q bf16, {label} cache, {n} caches in turn: "
-            f"max abs err {err:.3e} (atol 2e-2, rtol 2e-2); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa on a bf16 copy {lib_ms:.4f} ms (max abs diff {lib_err:.2e}), bound "
-            f"{b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {nops / 1e6:.2f} MFLOP)")
-        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                          library_ms=lib_ms)
-    rows["decode_attention_batch"] = out
+    lengths = np.random.default_rng(7).integers(16, 577, BATCH_SLOTS).tolist()
+    llava = (BATCH_SLOTS, BATCH_MAX_LEN, 32, 8, 128)
+    rows["decode_attention_batch"] = {
+        label: decode_row(torch, ops, ref, f"llava width {label} cache", llava, lengths, None,
+                          torch.bfloat16, dtype, 30)
+        for label, dtype in (("bf16", torch.bfloat16), ("fp8", torch.float8_e4m3fn))}
+    rows["decode_attention_shapes"] = {
+        "zamba2": decode_row(torch, ops, ref, "zamba2-2.7b width", (1, 2048, 32, 32, 80), [1024],
+                             None, torch.float32, torch.float32, 50),
+        "mixtral": decode_row(torch, ops, ref, "mixtral-8x22b batch width",
+                              (BATCH_SLOTS, BATCH_MAX_LEN, 48, 8, 128), lengths, 4096,
+                              torch.bfloat16, torch.bfloat16, 40)}
+
+
+def decode_row(torch, ops, ref, label, shape, lengths, window, q_dtype, cache_dtype, seed, n=8):
+    """``decode_attention`` at ``shape`` (B, S, H, KH, hd) with (B,) lengths
+    ``lengths`` on the card: against its plain version (q's tolerance), then
+    its time, the plain version's and one ``scaled_dot_product_attention``
+    call's with the per-row mask on a copy of the cache in q's dtype (the
+    library yardstick; it takes no fp8), from CUDA graphs over ``n`` caches in
+    turn (L2 cold); bound from the bytes of the live rows at the cache's
+    element size.  Returns the row for the kernels line."""
+    F = torch.nn.functional
+    B, S, H, KH, hd = shape
+    valid = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+    q, = attn_inputs(torch, [(B, H, hd)], seed)
+    q = q.to(q_dtype)
+    caches = [[t.to(cache_dtype) for t in attn_inputs(torch, [(B, S, KH, hd)] * 2, seed + 1 + c)]
+              for c in range(n)]
+    want = ref.decode_attention_ref(q, *caches[0], valid, window)
+    err = check_close(torch, f"decode_attention {label}",
+                      ops.decode_attention(q, *caches[0], valid, window), want, q_dtype)
+    pos = torch.arange(S, device=DEVICE)
+    live = pos[None, :] <= valid[:, None]
+    if window:
+        live &= valid[:, None] - pos[None, :] < window
+    mask = live[:, None, None, :]
+    lib_kv = [[t.to(q_dtype).transpose(1, 2) for t in kv] for kv in caches]
+    qt = q[:, :, None, :]
+    lib_err = max_abs(F.scaled_dot_product_attention(qt, *lib_kv[0], attn_mask=mask,
+                                                     enable_gqa=True)[:, :, 0], want)
+    ms = time_graph(torch, [lambda kv=kv: ops.decode_attention(q, *kv, valid, window)
+                            for kv in caches])
+    plain_ms = time_graph(torch, [lambda kv=kv: ref.decode_attention_ref(q, *kv, valid, window)
+                                  for kv in caches])
+    lib_ms = time_graph(torch, [lambda kv=kv: F.scaled_dot_product_attention(
+        qt, *kv, attn_mask=mask, enable_gqa=True) for kv in lib_kv])
+    nbytes, nops = decode_counts(S, H, KH, hd, lengths, window, q.element_size(),
+                                 caches[0][0].element_size())
+    b_ms, b_by = bound(nbytes, nops, peak_ops(torch, q_dtype))
+    log(f"[kernels] decode_attention {label} B={B} cache {S} H={H} KH={KH} hd={hd} lengths "
+        f"{lengths} window={window}, q {str(q_dtype)[6:]}, cache {str(cache_dtype)[6:]}, {n} "
+        f"caches in turn: max abs err {err:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"on a copy in q's dtype {lib_ms:.4f} ms (max abs diff {lib_err:.2e}), bound "
+        f"{b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {nops / 1e6:.2f} MFLOP)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def run_launcher():
@@ -975,30 +1081,30 @@ def batch_requests(np, vocab, n=16, seed=6):
              int(rng.integers(8, 65))) for i in range(n)]
 
 
-def plain_in_f32(ref):
-    """``decode_attention``'s plain version in the Pallas kernel's arithmetic
-    (and the CUDA kernel's): q upcast to float32, every product in float32,
-    one rounding to q's dtype at the end.  ``ref.decode_attention_ref`` on a
-    bfloat16 q and cache rounds the probabilities to bfloat16 before the
-    product with V, as ``repro.kernels.ref`` and the models' ``sdpa`` do."""
-    def f(q, k, v, valid_len, window=None):
-        return ref.decode_attention_ref(q.float(), k, v, valid_len, window).to(q.dtype)
+def plain_in_f32(plain):
+    """An attention kernel's plain version (``ref.decode_attention_ref`` or
+    ``ref.flash_attention_ref``) in the Pallas kernel's arithmetic (and the
+    CUDA kernel's): q upcast to float32, every product in float32, one
+    rounding to q's dtype at the end.  The plain versions on a bfloat16 q
+    round the probabilities to bfloat16 before the product with V, as
+    ``repro.kernels.ref`` and the models' ``sdpa`` do."""
+    def f(q, *args):
+        return plain(q.float(), *args).to(q.dtype)
     return f
 
 
-def swapped(ops, fn):
-    """A context in which the model's decode steps call ``fn`` in place of
-    ``ops.decode_attention``."""
+def swapped(ops, fn, name="decode_attention"):
+    """A context in which the model calls ``fn`` in place of ``ops.<name>``."""
     import contextlib
 
     @contextlib.contextmanager
     def cm():
-        kernel = ops.decode_attention
-        ops.decode_attention = fn
+        kernel = getattr(ops, name)
+        setattr(ops, name, fn)
         try:
             yield
         finally:
-            ops.decode_attention = kernel
+            setattr(ops, name, kernel)
 
     return cm()
 
@@ -1009,7 +1115,23 @@ def rel_rows(a, b) -> float:
     return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
 
 
-def check_batch_step(torch, ops, ref, b, snap):
+def recorder(route, out):
+    """``route`` that also appends each call's result (gates, experts, aux)
+    to ``out``."""
+    def f(*args):
+        r = route(*args)
+        out.append(r)
+        return r
+    return f
+
+
+def replayer(records):
+    """A router that returns ``records`` in turn: another run's routing."""
+    it = iter(records)
+    return lambda *args: next(it)
+
+
+def check_batch_step(torch, ops, ref, moe, b, snap):
     """The step ``b`` just replayed, from ``snap`` (its cache as it was
     before the step) and the same tokens and lengths: (1) run eagerly with
     every ``decode_attention`` call also made by its plain version in the
@@ -1019,12 +1141,19 @@ def check_batch_step(torch, ops, ref, b, snap):
     the plain per-row path on the card (Pallas arithmetic), within a
     relative L2 of 2e-2 a row.  The logits are not held elementwise to
     2e-2: after 32 bfloat16 layers the two plain versions (probabilities
-    rounded to bfloat16 or not) already differ by more than that.  The
-    comparison's own launches are taken off the counters.  Returns (largest
-    layer error, logits' max abs err and row relative L2 against the plain
-    path, the same between the two plain paths)."""
-    kernel, plain = ops.decode_attention, plain_in_f32(ref)
-    layer_errs = []
+    rounded to bfloat16 or not) already differ by more than that.  In a MoE
+    model the plain paths take the kernel path's routing (``moe.route``'s
+    experts and gates, recorded in (1)): a top-k choice is a step function
+    of its input, so a last-bit difference upstream can move a token to
+    another expert and change its row entirely.  Such a plain path with its
+    own routing is run too, and its differing choices and row error are
+    returned for the record.  The comparison's own launches are taken off
+    the counters.  Returns (largest layer error, logits' max abs err and
+    row relative L2 against the plain path, the same between the two plain
+    paths, and for a MoE model (expert choices that differ, row relative L2)
+    with the plain path's own routing, else None)."""
+    kernel, plain = ops.decode_attention, plain_in_f32(ref.decode_attention_ref)
+    layer_errs, routes = [], []
 
     def both(q, k, v, valid_len, window=None):
         out, want = kernel(q, k, v, valid_len, window), plain(q, k, v, valid_len, window)
@@ -1034,26 +1163,32 @@ def check_batch_step(torch, ops, ref, b, snap):
                  f"differs from its plain version by {layer_errs[-1]:.3e} (atol 2e-2, rtol 2e-2)")
         return out
 
+    def step(attn, route):
+        with swapped(ops, attn), swapped(moe, route, "route"), torch.no_grad():
+            return b.model.decode_step(b.params, b.step_tokens.clone(), _clone(snap),
+                                       b.step_lengths.clone())[0]
+
     counts = dict(ops.LAUNCHES)
-    args = (b.params, b.step_tokens.clone())
-    with swapped(ops, both), torch.no_grad():
-        eager, _ = b.model.decode_step(*args, _clone(snap), b.step_lengths.clone())
+    eager = step(both, recorder(moe.route, routes))
     ops.LAUNCHES.update(counts)
     if not torch.equal(eager, b.logits):
         fail(f"batch step {b.steps}: the replayed logits differ from the eager step's by "
              f"{max_abs(eager, b.logits):.3e}")
-    wants = []
-    for fn in (plain, ref.decode_attention_ref):
-        with swapped(ops, fn), torch.no_grad():
-            wants.append(b.model.decode_step(*args, _clone(snap), b.step_lengths.clone())[0])
+    wants = [step(fn, replayer(routes)) for fn in (plain, ref.decode_attention_ref)]
     err, rel = max_abs(b.logits, wants[0]), rel_rows(b.logits, wants[0])
     if rel > 2e-2:
         fail(f"batch step {b.steps}: logits differ from the plain per-row path by a relative "
              f"L2 of {rel:.3e} in a row (max abs {err:.3e})")
-    return max(layer_errs), err, rel, max_abs(*wants), rel_rows(*wants)
+    free = None
+    if routes:
+        own = []
+        logits = step(plain, recorder(moe.route, own))
+        free = (sum(int((a[1] != c[1]).sum()) for a, c in zip(routes, own)),
+                rel_rows(b.logits, logits))
+    return max(layer_errs), err, rel, max_abs(*wants), rel_rows(*wants), free
 
 
-def drive_batcher(torch, ops, ref, b, check_step):
+def drive_batcher(torch, ops, ref, moe, b, check_step):
     """Step ``b`` until its queue and slots are empty.  Returns the host-clock
     seconds of each step (each ends in the argmax read-back, so it waits for
     the device) and ``check_batch_step``'s numbers for step ``check_step``
@@ -1065,7 +1200,7 @@ def drive_batcher(torch, ops, ref, b, check_step):
         running = b.step()
         times.append(time.perf_counter() - t0)
         if snap is not None:
-            check = (*check_batch_step(torch, ops, ref, b, snap), b.step_lengths.tolist())
+            check = (*check_batch_step(torch, ops, ref, moe, b, snap), b.step_lengths.tolist())
             del snap
         if running == 0 and not b.queue:
             return times, check
@@ -1094,7 +1229,66 @@ def trace_batch_steps(torch, np, b, GenRequest, vocab, n_steps=16):
     return traced_ms, busy_ms, dev
 
 
-def phase_batch(torch, np, ops, ref, get_config, Model, serving, captured):
+def run_batcher(torch, np, ops, ref, moe, serving, model, params, dtype, reqs, tag):
+    """``reqs`` through a ``ContinuousBatcher`` of 8 slots x 1,024 positions
+    with a ``dtype`` cache, each step one replay of the captured step, then 16
+    traced steps with every slot busy.  Checks one ``decode_attention``
+    launch per attention layer in the captured step, one replay per step,
+    every request complete with its token count, and step 200 against the
+    plain per-row path (``check_batch_step``); prints steps/s, tokens/s, ms a
+    step and the traced idle share.  Returns ({request: tokens}, the cache's
+    bytes, the replays made)."""
+    L = model.cfg.n_layers
+    t0 = time.perf_counter()
+    b = serving.ContinuousBatcher(model, params, n_slots=BATCH_SLOTS, max_len=BATCH_MAX_LEN,
+                                  dtype=dtype)
+    capture_s = time.perf_counter() - t0
+    if b.captured.launches["decode_attention"] != L:
+        fail(f"the captured batch step holds {b.captured.launches} launches, not {L} "
+             "decode_attention")
+    for rid, prompt, n in reqs:
+        b.submit(serving.GenRequest(rid, prompt, max_new_tokens=n))
+    times, (layer_err, err, rel, spread, spread_rel, free, lengths) = drive_batcher(
+        torch, ops, ref, moe, b, check_step=200)
+    if b.captured.replays != b.steps:
+        fail(f"{b.captured.replays} replays for {b.steps} batcher steps")
+    done = b.completed
+    if sorted(done) != sorted(r[0] for r in reqs) or any(
+            len(done[rid].generated) != n for rid, _, n in reqs):
+        fail(f"{tag}: requests incomplete or with the wrong token counts")
+    wall = sum(times)
+    gen = sum(n for _, _, n in reqs)
+    fed = sum(len(p) + n - 1 for _, p, n in reqs)
+    nbytes = b.mgr.bytes()
+    log(f"{tag} cache ({nbytes / 1e9:.3f} GB): {len(reqs)} requests in "
+        f"{b.steps} steps, {wall:.2f} s on the host clock: {b.steps / wall:.1f} steps/s, "
+        f"{gen / wall:.1f} generated tokens/s, {fed / wall:.1f} tokens fed/s (prompts "
+        f"through decode), {1e3 * wall / b.steps:.2f} ms a step (median "
+        f"{1e3 * statistics.median(times):.2f}); capture {capture_s:.2f} s")
+    log(f"{tag} step 200 (lengths {lengths}): each layer's decode_attention vs "
+        f"its plain version on the same inputs max abs err {layer_err:.3e} (atol 2e-2, rtol "
+        f"2e-2); replayed logits equal the eager step's; logits vs the plain per-row path "
+        f"max abs err {err:.3e}, row relative L2 {rel:.2e} (limit 2e-2); the two plain "
+        f"paths differ by {spread:.3e}, {spread_rel:.2e}" + (
+            "" if free is None else f"; both plain paths take the kernel path's routing: with "
+            f"its own, the plain path chose another expert {free[0]} times of "
+            f"{model.cfg.n_layers * BATCH_SLOTS * model.cfg.moe.top_k} (row relative L2 "
+            f"{free[1]:.2e})"))
+    traced_ms, busy_ms, dev = trace_batch_steps(torch, np, b, serving.GenRequest,
+                                                model.cfg.vocab)
+    if busy_ms:
+        log(f"{tag} traced 16 steps, 8 busy slots: {traced_ms:.1f} ms, device busy "
+            f"{busy_ms:.2f} ms ({100 * busy_ms / traced_ms:.1f}%), idle "
+            f"{100 * (1 - busy_ms / traced_ms):.1f}%, {sum(e.count for e in dev)} device entries")
+        self_us = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731
+        for e in sorted(dev, key=self_us, reverse=True)[:6]:
+            log(f"{tag}   {self_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    else:
+        log(f"{tag} device time: not measured (the profiler saw no kernel time)")
+    return {rid: done[rid].generated for rid, _, _ in reqs}, nbytes, b.captured.replays
+
+
+def phase_batch(torch, np, ops, ref, get_config, Model, serving, captured, moe):
     """The batch path: full-width llava-next-mistral-7b (bfloat16 weights
     from seed 0) behind a ``ContinuousBatcher`` of 8 slots x 1,024
     positions, 16 seeded requests, first with a bfloat16 cache and then with
@@ -1121,51 +1315,9 @@ def phase_batch(torch, np, ops, ref, get_config, Model, serving, captured):
     out = {"bf16": [0, 0], "fp8": [0, 0]}
     nbytes, tokens = {}, {}
     for label, dtype in (("bf16", torch.bfloat16), ("fp8", torch.float8_e4m3fn)):
-        t0 = time.perf_counter()
-        b = serving.ContinuousBatcher(model, params, n_slots=BATCH_SLOTS, max_len=BATCH_MAX_LEN,
-                                      dtype=dtype)
-        capture_s = time.perf_counter() - t0
-        if b.captured.launches["decode_attention"] != L:
-            fail(f"the captured batch step holds {b.captured.launches} launches, not {L} "
-                 "decode_attention")
-        for rid, prompt, n in reqs:
-            b.submit(serving.GenRequest(rid, prompt, max_new_tokens=n))
-        times, (layer_err, err, rel, spread, spread_rel, lengths) = drive_batcher(
-            torch, ops, ref, b, check_step=200)
-        if b.captured.replays != b.steps:
-            fail(f"{b.captured.replays} replays for {b.steps} batcher steps")
-        done = b.completed
-        if sorted(done) != sorted(r[0] for r in reqs) or any(
-                len(done[rid].generated) != n for rid, _, n in reqs):
-            fail(f"batch {label}: requests incomplete or with the wrong token counts")
-        tokens[label] = {rid: done[rid].generated for rid, _, _ in reqs}
-        wall = sum(times)
-        gen = sum(n for _, _, n in reqs)
-        fed = sum(len(p) + n - 1 for _, p, n in reqs)
-        nbytes[label] = b.mgr.bytes()
-        log(f"[batch] {label} cache ({nbytes[label] / 1e9:.3f} GB): {len(reqs)} requests in "
-            f"{b.steps} steps, {wall:.2f} s on the host clock: {b.steps / wall:.1f} steps/s, "
-            f"{gen / wall:.1f} generated tokens/s, {fed / wall:.1f} tokens fed/s (prompts "
-            f"through decode), {1e3 * wall / b.steps:.2f} ms a step (median "
-            f"{1e3 * statistics.median(times):.2f}); capture {capture_s:.2f} s")
-        log(f"[batch] {label} step 200 (lengths {lengths}): each layer's decode_attention vs "
-            f"its plain version on the same inputs max abs err {layer_err:.3e} (atol 2e-2, rtol "
-            f"2e-2); replayed logits equal the eager step's; logits vs the plain per-row path "
-            f"max abs err {err:.3e}, row relative L2 {rel:.2e} (limit 2e-2); the two plain "
-            f"paths differ by {spread:.3e}, {spread_rel:.2e}")
-        traced_ms, busy_ms, dev = trace_batch_steps(torch, np, b, serving.GenRequest, cfg.vocab)
-        if busy_ms:
-            log(f"[batch] {label} traced 16 steps, 8 busy slots: {traced_ms:.1f} ms, device busy "
-                f"{busy_ms:.2f} ms ({100 * busy_ms / traced_ms:.1f}%), idle "
-                f"{100 * (1 - busy_ms / traced_ms):.1f}%, {sum(e.count for e in dev)} device entries")
-            self_us = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731
-            for e in sorted(dev, key=self_us, reverse=True)[:6]:
-                log(f"[batch]   {self_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
-        else:
-            log(f"[batch] {label} device time: not measured (the profiler saw no kernel time)")
-        out[label][0] += b.captured.replays
+        tokens[label], nbytes[label], out[label][0] = run_batcher(
+            torch, np, ops, ref, moe, serving, model, params, dtype, reqs, f"[batch] {label}")
         out[label][1] += 1
-        del b
         torch.cuda.empty_cache()
     if 2 * nbytes["fp8"] != nbytes["bf16"]:
         fail(f"fp8 cache {nbytes['fp8']} bytes, bf16 {nbytes['bf16']}: not half")
@@ -1189,6 +1341,80 @@ def phase_batch(torch, np, ops, ref, get_config, Model, serving, captured):
         f"with either cache; {same}/{sum(n for _, _, n in reqs)} tokens equal between the two "
         f"caches; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return out
+
+
+def phase_moe(torch, np, ops, ref, get_config, Model, serving, captured, moe):
+    """The MoE path: mixtral-8x22b at full width (d_model 6144, 48 / 8 heads
+    of 128, window 4096, 8 experts top-2 of d_ff 16,384, vocab 32,768), 8 of
+    its 56 layers, bfloat16 weights from seed 0 (router float32), behind the
+    batch phase's ``ContinuousBatcher`` (8 slots x 1,024 positions, bfloat16
+    cache, the 16 seeded requests, ``run_batcher``'s checks); then one
+    ``Model.prefill`` of a 512-token seeded prompt at B=1 (capacity 160 an
+    expert, so tokens drop), twice (the second timed): its last logits
+    against the same prefill with ``flash_attention`` swapped for its plain
+    version in the kernel's arithmetic and the kernel path's routing (as in
+    ``check_batch_step``), to a relative L2 of 2e-2, and the assignments
+    dropped per layer.  Returns (replays, eager decode calls, prefills)
+    made."""
+    import dataclasses
+
+    cfg = dataclasses.replace(full_width(get_config, "mixtral_8x22b", MIXTRAL_WIDTH),
+                              n_layers=MOE_LAYERS)
+    L, m = cfg.n_layers, cfg.moe
+    model = Model(cfg, param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in captured.tree_leaves(params))
+    tag = f"[moe] mixtral-8x22b {L} of 56 layers"
+    log(f"{tag}: d{cfg.d_model} {cfg.n_heads}H/{cfg.n_kv_heads}KV hd{cfg.head_dim_} window "
+        f"{cfg.sliding_window}, {m.n_experts} experts top-{m.top_k} d_ff {m.expert_dff}, vocab "
+        f"{cfg.vocab}: {cfg.n_params() / 1e9:.2f} B parameters, {n_bytes / 1e9:.2f} GB in "
+        f"bfloat16 (router float32), drawn in {time.perf_counter() - t0:.1f} s; weights bound a "
+        f"step {n_bytes / PEAK_BYTES_PER_S * 1e3:.2f} ms")
+    _, _, replays = run_batcher(torch, np, ops, ref, moe, serving, model, params,
+                                torch.bfloat16, batch_requests(np, cfg.vocab), f"{tag} bf16")
+    torch.cuda.empty_cache()
+
+    # the prefill, where capacity drops tokens; each layer's routing recorded
+    prompt = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab, (1, MOE_PROMPT))
+                              .astype(np.int32)).to(DEVICE)
+    C = moe._capacity(m.capacity_factor, MOE_PROMPT, m.top_k, m.n_experts)
+    kernel_routes, plain_routes = [], []
+    plain = plain_in_f32(ref.flash_attention_ref)
+    with torch.no_grad():
+        before = ops.LAUNCHES["flash_attention"]
+        with swapped(moe, recorder(moe.route, kernel_routes), "route"):
+            _, logits = model.prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": prompt})  # again, warm, for its time
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if ops.LAUNCHES["flash_attention"] - before != 2 * L:
+            fail(f"two moe prefills launched flash_attention "
+                 f"{ops.LAUNCHES['flash_attention'] - before} times, not {L} each")
+        # the plain path with the kernel path's routing (see check_batch_step),
+        # then with its own for the record
+        with swapped(ops, plain, "flash_attention"), swapped(moe, replayer(kernel_routes), "route"):
+            _, want = model.prefill(params, {"tokens": prompt})
+        with swapped(ops, plain, "flash_attention"), \
+                swapped(moe, recorder(moe.route, plain_routes), "route"):
+            _, own = model.prefill(params, {"tokens": prompt})
+    moved = sum(int((a[1] != b[1]).sum()) for a, b in zip(kernel_routes, plain_routes))
+    rel = rel_rows(logits, want)
+    if not torch.isfinite(logits).all() or rel > 2e-2:
+        fail(f"moe prefill's last logits differ from the plain path's by a relative L2 of "
+             f"{rel:.3e} (limit 2e-2)")
+    drops = [int(moe.dropped(idx, m.n_experts, C)) for _, idx, _ in kernel_routes]
+    log(f"{tag} prefill B=1 T={MOE_PROMPT} (capacity {C} an expert): {prefill_ms:.1f} ms on the "
+        f"host clock (warm), flash_attention {L} launches each; last logits vs flash_attention's plain "
+        f"version (with the kernel path's routing) relative L2 {rel:.2e} (limit 2e-2), max abs "
+        f"{max_abs(logits, want):.3e}; with its own routing the plain path chose another expert "
+        f"{moved} times of {L * MOE_PROMPT * m.top_k} (relative L2 {rel_rows(logits, own):.2e}); "
+        f"assignments dropped per layer {drops} of {MOE_PROMPT * m.top_k}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return replays, 1, 2
 
 
 def _to_cpu(tree):
@@ -1233,7 +1459,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch import serving
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.models import Model
+    from repro_torch.models import Model, moe
     from repro_torch.serving import Endpoint, Instance, ServingEngine, captured
 
     if args.sched_only:
@@ -1310,7 +1536,6 @@ def main(argv=None) -> int:
         f"decode_attention {L} x {d_cold} eager (each capture's first call) + {L} x 7 x "
         f"{d_reqs} in {replayed['steps']} replays, as expected; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    dense_decode = launches["decode_attention"]
 
     check_serve_against_cpu(torch, Instance, m_eng, m_wid, "mamba0", m_prompt, "serve")
     short = torch.from_numpy(np.random.default_rng(5).integers(0, dcfg.vocab, (1, 128))
@@ -1319,14 +1544,44 @@ def main(argv=None) -> int:
     run_launcher()
     profile_warm_request(torch, m_eng, m_wid, "mamba0", m_prompt, "mamba2-130m")
     profile_warm_request(torch, d_eng, d_wid, "minicpm0", d_prompt, "minicpm-2b")
-    del m_eng, d_eng  # free the dense engines before the 7B model
+    del m_eng, d_eng  # free the engines before the next full-width models
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    hcfg = full_width(get_config, "zamba2_2p7b", ZAMBA_WIDTH)
+    h_eps = [Endpoint(f"zamba{i}", hcfg, seed=i, max_cache_len=2048) for i in range(3)]
+    h_eng = ServingEngine(h_eps, n_workers=2, scheduler="hiku", mem_pool_bytes=32 * 2**30)
+    h_wid, h_prompt, h_reqs, h_cold = counted(
+        "hybrid", ("ssd_scan", "flash_attention", "decode_attention"),
+        lambda: serve(torch, np, h_eng, "zamba", hcfg.vocab,
+                      f"hybrid zamba2-2.7b {hcfg.n_layers}L d{hcfg.d_model} vocab {hcfg.vocab}"))
+    G = hcfg.n_layers // hcfg.hybrid.every  # shared-block applications: one attention each
+    eager, replayed = path_launches["hybrid"]
+    if (eager["ssd_scan"] != hcfg.n_layers * h_reqs or eager["flash_attention"] != G * h_reqs
+            or eager["decode_attention"] != G * h_cold or replayed["steps"] != 7 * h_reqs
+            or replayed["decode_attention"] != G * 7 * h_reqs):
+        fail(f"hybrid path launched ssd_scan {eager['ssd_scan']}, flash {eager['flash_attention']}, "
+             f"decode {eager['decode_attention']} eagerly and {replayed['decode_attention']} in "
+             f"{replayed['steps']} replays, for {h_reqs} requests of 7 decode steps and "
+             f"{h_cold} cold starts")
+    log(f"[hybrid] {h_reqs} requests, {h_cold} cold starts: ssd_scan {hcfg.n_layers} x {h_reqs}, "
+        f"flash_attention {G} x {h_reqs}; decode_attention {G} x {h_cold} eager + {G} x 7 x "
+        f"{h_reqs} in {replayed['steps']} replays, as expected; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    h_short = torch.from_numpy(np.random.default_rng(5).integers(0, hcfg.vocab, (1, 128))
+                               .astype(np.int32))
+    check_serve_against_cpu(torch, Instance, h_eng, h_wid, "zamba0", h_short, "hybrid")
+    profile_warm_request(torch, h_eng, h_wid, "zamba0", h_prompt, "zamba2-2.7b")
+    del h_eng
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     L = LLAVA_WIDTH[0]
     made = counted("batch", ("decode_attention",),
-                   lambda: phase_batch(torch, np, ops, ref, get_config, Model, serving, captured))
+                   lambda: phase_batch(torch, np, ops, ref, get_config, Model, serving, captured,
+                                       moe))
     eager, replayed = path_launches["batch"]
     n_replays = sum(r for r, _ in made.values())
     n_eager = sum(e for _, e in made.values())
@@ -1337,30 +1592,54 @@ def main(argv=None) -> int:
              f"captures and {n_replays} replays of {L} layers")
     log(f"[batch] decode_attention {L} x {n_eager} eager (each capture's first call) + {L} x "
         f"{n_replays} replays (bf16 cache {made['bf16'][0]}, fp8 {made['fp8'][0]}), as expected")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
-    kernels, loss = [], {}
+    L = MOE_LAYERS
+    n_replays, n_eager, n_prefill = counted(
+        "moe", ("flash_attention", "decode_attention"),
+        lambda: phase_moe(torch, np, ops, ref, get_config, Model, serving, captured, moe))
+    eager, replayed = path_launches["moe"]
+    if (eager["flash_attention"] != L * n_prefill or eager["decode_attention"] != L * n_eager
+            or replayed["steps"] != n_replays or replayed["decode_attention"] != L * n_replays):
+        fail(f"moe path launched flash {eager['flash_attention']}, decode "
+             f"{eager['decode_attention']} eagerly and {replayed['decode_attention']} in "
+             f"{replayed['steps']} replays, for {n_prefill} prefill, {n_eager} capture and "
+             f"{n_replays} replays of {L} layers")
+    log(f"[moe] flash_attention {L} x {n_prefill}; decode_attention {L} x {n_eager} eager + {L} x "
+        f"{n_replays} replays, as expected")
+
+    # each row of the kernels line, and the launches of the path its shape is on
+    path = {p: {k: e[k] + r[k] for k in e} for p, (e, r) in path_launches.items()}
     batch = rows.pop("decode_attention_batch")
     for c in batch:
-        batch[c]["launches"] = L * sum(made[c])
+        batch[c]["launches"] = LLAVA_WIDTH[0] * sum(made[c])
+    rows["decode_attention"]["batch"] = batch
+    rows["decode_attention"]["shapes"] = rows.pop("decode_attention_shapes")
+    own = {"ssd_scan": ("serve", {"zamba2": "hybrid"}),
+           "flash_attention": ("dense", {"zamba2": "hybrid", "mixtral": "moe"}),
+           "decode_attention": ("dense", {"zamba2": "hybrid", "mixtral": "moe"})}
+    kernels, loss = [], {}
     for name in ("sched_events", "sched_step", "ssd_scan", "flash_attention", "decode_attention"):
         row = rows[name]
         row["launches"] = launches[name]
         # time lost on the main paths beyond the bound: per event for the
         # scheduling kernels (timed at the path's chunk), per launch
-        # otherwise, decode's at the shape of each path (minicpm-2b width on
-        # the dense path, llava width per cache dtype on the batch path)
+        # otherwise, each shape's launches on its own path
         if name in events:
             loss[name] = events[name] * (row["ms"] - row["bound_ms"]) / SCHED_CHUNK
-        elif name == "decode_attention":
-            row["batch"] = batch
-            loss[name] = dense_decode * (row["ms"] - row["bound_ms"]) + sum(
-                b["launches"] * (b["ms"] - b["bound_ms"]) for b in batch.values())
         else:
-            loss[name] = launches[name] * (row["ms"] - row["bound_ms"])
+            main_path, shape_paths = own[name]
+            for label, p in shape_paths.items():
+                row["shapes"][label]["launches"] = path[p][name]
+            subs = [dict(launches=path[main_path][name], ms=row["ms"], bound_ms=row["bound_ms"]),
+                    *row.get("batch", {}).values(), *row["shapes"].values()]
+            loss[name] = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in subs)
         kernels.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms", "burst", "ns_per_event",
-                                            "ms_4096", "batch") if k in row})
+                                            "ms_4096", "batch", "shapes") if k in row})
     log("[done] time over the bound on the main paths: " + ", ".join(
         f"{name} {ms:.2f} ms" for name, ms in sorted(loss.items(), key=lambda kv: -kv[1])))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,4 +1,5 @@
 from .convert import params_from_numpy
 from .model import Model, build_model
+from .moe import apply_moe, init_moe, route
 
-__all__ = ["Model", "build_model", "params_from_numpy"]
+__all__ = ["Model", "apply_moe", "build_model", "init_moe", "params_from_numpy", "route"]

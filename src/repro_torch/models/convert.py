@@ -17,18 +17,31 @@ import torch
 
 from .. import default_device
 
+#: leaves that the JAX init makes in float32 whatever ``param_dtype`` is (and
+#: the port's ``Model.init`` too): norm scales and biases (``scale``,
+#: ``bias``; attention's ``q_norm``/``k_norm`` and MLA's ``kv_norm``), the MoE
+#: ``router`` and ``router_bias``, and the Mamba block's ``A_log``, ``D``,
+#: ``dt_bias`` and ``norm``.  Projection biases are ``b*`` and ``conv_b``.
+FLOAT32_LEAVES = frozenset({"scale", "bias", "q_norm", "k_norm", "kv_norm", "router",
+                            "router_bias", "A_log", "D", "dt_bias", "norm"})
+
 
 def params_from_numpy(tree: Any, device=None, dtype: torch.dtype | None = None) -> Any:
     """Map a nested dict/list/tuple of numpy arrays to tensors on ``device``
-    (the card unless ``device="cpu"``), optionally cast to ``dtype``."""
-    return _to_tensors(tree, default_device(device), dtype)
+    (the card unless ``device="cpu"``).  With ``dtype``, every leaf that the
+    JAX init makes in ``param_dtype`` is cast to it, and the leaves of
+    ``FLOAT32_LEAVES`` stay float32, so the result has the leaf dtypes of
+    ``Model(cfg, param_dtype=dtype).init``."""
+    return _to_tensors(tree, default_device(device), dtype, None)
 
 
-def _to_tensors(tree: Any, device: torch.device, dtype: torch.dtype | None) -> Any:
+def _to_tensors(tree: Any, device: torch.device, dtype: torch.dtype | None, key) -> Any:
     if isinstance(tree, dict):
-        return {k: _to_tensors(v, device, dtype) for k, v in tree.items()}
+        return {k: _to_tensors(v, device, dtype, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        items = [_to_tensors(v, device, dtype) for v in tree]
+        items = [_to_tensors(v, device, dtype, key) for v in tree]
         return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
     t = torch.from_numpy(np.array(tree, copy=True))
-    return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
+    if dtype is None:
+        return t.to(device)
+    return t.to(device=device, dtype=torch.float32 if key in FLOAT32_LEAVES else dtype)

@@ -2,12 +2,15 @@
 ``models/model.py``).
 
 So far the ``ssm`` family (mamba2-130m), the ``dense`` family (minicpm-2b,
-gemma3-4b, command-r-35b, command-r-plus-104b) and the ``vlm`` family's dense
+gemma3-4b, command-r-35b, command-r-plus-104b), the ``vlm`` family's dense
 backbone (llava-next-mistral-7b, whose forward splices precomputed patch
-embeddings over the first token embeddings): ``init``, ``forward``,
-``prefill``, ``decode_step`` and ``init_cache`` with the JAX package's
-signatures and parameter/cache layouts, so the two can be held against each
-other on the same weights.
+embeddings over the first token embeddings), the ``moe`` family without MLA
+(mixtral-8x22b; a stack of MoE blocks, or leading dense blocks and then MoE
+blocks) and the ``hybrid`` family (zamba2-2.7b: groups of Mamba2 layers,
+each followed by one application of a shared attention block):
+``init``, ``forward``, ``prefill``, ``decode_step`` and ``init_cache`` with
+the JAX package's signatures and parameter/cache layouts, so the two can be
+held against each other on the same weights.
 Parameters are a nested dict of tensors whose per-layer entries are stacked
 along a leading layer axis, as in the JAX value tree; the layers run in a
 Python loop over that axis.
@@ -20,11 +23,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from .. import default_device
-from .layers import apply_norm, embed_tokens, init_embedding, init_norm, unembed
+from .layers import apply_norm, embed_tokens, init_embedding, init_norm, normal_param, unembed
 from .mamba import MambaState, init_mamba, init_mamba_state, mamba_decode, mamba_forward
-from .transformer import _index, init_block, layer_meta, run_stack
+from .transformer import _index, block_forward, init_block, layer_meta, run_stack
 
-FAMILIES = ("ssm", "dense", "vlm")  # vlm: a dense backbone
+FAMILIES = ("ssm", "dense", "vlm", "moe", "hybrid")  # vlm: a dense backbone
 
 
 def build_model(cfg, param_dtype=torch.float32, device=None) -> "Model":
@@ -33,9 +36,9 @@ def build_model(cfg, param_dtype=torch.float32, device=None) -> "Model":
 
 class Model:
     def __init__(self, cfg, param_dtype=torch.float32, device=None):
-        if cfg.family not in FAMILIES or cfg.moe is not None or cfg.mla is not None:
+        if cfg.family not in FAMILIES or cfg.mla is not None or cfg.enc_dec:
             raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) is not ported yet: MLA, MoE, hybrid and "
+                f"{cfg.name} ({cfg.family}) is not ported yet: MLA (with MTP) and "
                 "encoder-decoder models are ROADMAP Queue 1 item 7"
             )
         self.cfg = cfg
@@ -45,52 +48,95 @@ class Model:
     # ================================================================ init
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Random parameters on ``self.device`` from ``generator`` (which
-        must live on that device), with the JAX package's distributions:
-        normal / sqrt(fan_in), embeddings x 0.02, ``conv_w`` x 0.5, zeros and
-        ones where the JAX package has them.  The dense stack is drawn
-        layer-stacked at once (``stack``, leading axis of ``n_layers``)."""
-        cfg, dev = self.cfg, self.device
-        if cfg.family != "ssm":
-            return {
-                "embed": init_embedding(cfg, generator, dev, self.dtype),
-                "final_norm": init_norm(cfg, dev),
-                "stack": init_block(cfg, generator, dev, self.dtype, layers=cfg.n_layers),
-            }
-        layers = [
-            {"ln": init_norm(cfg, dev), "mamba": init_mamba(cfg, generator, dev, self.dtype)}
-            for _ in range(cfg.n_layers)
-        ]
-        return {
-            "embed": init_embedding(cfg, generator, dev, self.dtype),
-            "final_norm": init_norm(cfg, dev),
-            "layers": _stack(layers),
-        }
+        must live on that device), with the JAX package's tree and
+        distributions: normal / sqrt(fan_in), embeddings x 0.02, ``conv_w`` x
+        0.5, zeros and ones where the JAX package has them; norms, the MoE
+        router and the Mamba block's A_log, D, dt_bias and norm in float32
+        whatever ``param_dtype`` is.  Stacks are drawn layer by layer into
+        tensors with a leading layer axis."""
+        cfg, dev, dt = self.cfg, self.device, self.dtype
+        p: Dict[str, Any] = {"embed": init_embedding(cfg, generator, dev, dt),
+                             "final_norm": init_norm(cfg, dev)}
+        if cfg.family == "ssm":
+            p["layers"] = _stack([self._init_mamba_layer(generator)
+                                  for _ in range(cfg.n_layers)])
+        elif cfg.family == "hybrid":
+            p.update(self._init_hybrid(generator))
+        elif cfg.moe is not None and cfg.moe.n_dense_layers > 0:
+            nd = cfg.moe.n_dense_layers
+            p["dense_stack"] = init_block(cfg, generator, dev, dt, layers=nd)
+            p["moe_stack"] = init_block(cfg, generator, dev, dt, layers=cfg.n_layers - nd,
+                                        moe_layer=True)
+        else:
+            p["stack"] = init_block(cfg, generator, dev, dt, layers=cfg.n_layers,
+                                    moe_layer=cfg.moe is not None)
+        return p
+
+    def _init_mamba_layer(self, generator):
+        return {"ln": init_norm(self.cfg, self.device),
+                "mamba": init_mamba(self.cfg, generator, self.device, self.dtype)}
+
+    def _init_hybrid(self, generator):
+        """Zamba2: ``mamba_groups`` stacked (n_groups, every, ...) and the
+        ``shared_blocks`` stacked (n_shared_blocks, ...), each a projection
+        of the concatenated [hidden, embedding] and a transformer block."""
+        cfg, dev, dt = self.cfg, self.device, self.dtype
+        h = cfg.hybrid
+        if cfg.n_layers % h.every:
+            raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of every {h.every}")
+        groups = [_stack([self._init_mamba_layer(generator) for _ in range(h.every)])
+                  for _ in range(cfg.n_layers // h.every)]
+        in_dim = 2 * cfg.d_model if h.concat_embedding else cfg.d_model
+        shared = [{"proj": normal_param((in_dim, cfg.d_model), generator, dev, dtype=dt),
+                   "block": init_block(cfg, generator, dev, dt)}
+                  for _ in range(h.n_shared_blocks)]
+        return {"mamba_groups": _stack(groups), "shared_blocks": _stack(shared)}
 
     # ============================================================= forward
     def forward(self, params, batch: Dict[str, torch.Tensor], mode: str = "train"):
-        """Full-sequence forward.  Returns (logits, aux, caches_or_None).  A
-        vlm batch may carry ``patches`` (B, n_img, d): they replace the first
-        ``n_img`` token embeddings."""
+        """Full-sequence forward.  Returns (logits, aux, caches_or_None): aux
+        is the MoE load-balancing loss summed over the layers (a float32 0-d
+        tensor, zero for the families without MoE).  A vlm batch may carry
+        ``patches`` (B, n_img, d): they replace the first ``n_img`` token
+        embeddings."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = embed_tokens(params["embed"], tokens, cfg, self.dtype)
         if cfg.family == "vlm" and "patches" in batch:
             n_img = batch["patches"].shape[1]
             x = torch.cat([batch["patches"].to(x.dtype), x[:, n_img:]], dim=1)
+        aux = 0.0
         if cfg.family == "ssm":
             x, caches = self._run_ssm(params, x, mode)
         else:
             B, S = tokens.shape
             positions = torch.arange(S, device=x.device).expand(B, S)
-            x, caches = self._run_lm_stacks(params, x, positions, mode)
+            if cfg.family == "hybrid":
+                x, caches = self._run_hybrid(params, x, x, positions, mode)
+            else:
+                x, aux, caches = self._run_lm_stacks(params, x, positions, mode)
         x = apply_norm(params["final_norm"], x, cfg)
-        return unembed(params["embed"], x, cfg), torch.zeros((), device=x.device), caches
+        if not isinstance(aux, torch.Tensor):
+            aux = torch.zeros((), device=x.device)
+        return unembed(params["embed"], x, cfg), aux, caches
 
     def _run_lm_stacks(self, params, x, positions, mode, cache_index=None, caches=None):
-        w, t = layer_meta(self.cfg)
-        x, c = run_stack(params["stack"], x, self.cfg, positions, w, t, mode,
-                         caches["stack"] if caches else None, cache_index)
-        return x, ({"stack": c} if mode in ("prefill", "decode") else None)
+        """The dense, vlm and moe stacks: ``stack``, or ``dense_stack`` then
+        ``moe_stack`` (caches ``dense`` and ``moe``).  Returns (x, aux,
+        caches in prefill and decode, else None)."""
+        cfg = self.cfg
+        if "dense_stack" in params:
+            nd = cfg.moe.n_dense_layers
+            parts = (("dense_stack", "dense", nd), ("moe_stack", "moe", cfg.n_layers - nd))
+        else:
+            parts = (("stack", "stack", cfg.n_layers),)
+        aux, out = 0.0, {}
+        for name, key, n in parts:
+            w, t = layer_meta(cfg, n)
+            x, out[key], a = run_stack(params[name], x, cfg, positions, w, t, mode,
+                                       caches[key] if caches else None, cache_index)
+            aux = aux + a
+        return x, aux, (out if mode in ("prefill", "decode") else None)
 
     def _run_ssm(self, params, x, mode, states: Optional[Dict] = None):
         cfg = self.cfg
@@ -113,6 +159,47 @@ class Model:
             caches = {"layers": MambaState(torch.stack(convs), torch.stack(ssms))}
         return x, caches
 
+    def _run_hybrid(self, params, x, x_emb, positions, mode, cache_index=None, caches=None):
+        """Zamba2: for each group, ``every`` Mamba2 layers, then shared block
+        ``g % n_shared_blocks`` applied to ``[hidden, x_emb] @ proj`` and its
+        delta added to the hidden state.  Returns (x, caches in prefill and
+        decode, else None): ``mamba`` states stacked (n_groups, every, B,
+        ...), new tensors, and ``shared_kv``, one (k, v) cache per group
+        application (n_groups, B, S, KH, hd), written in place in decode."""
+        cfg = self.cfg
+        h = cfg.hybrid
+        convs, ssms, ks, vs = [], [], [], []
+        for g in range(cfg.n_layers // h.every):
+            pg = _index(params["mamba_groups"], g)
+            for e in range(h.every):
+                p_l = _index(pg, e)
+                hn = apply_norm(p_l["ln"], x, cfg)
+                if mode == "decode":
+                    st = MambaState(caches["mamba"].conv[g, e], caches["mamba"].ssm[g, e])
+                    y, new_st = mamba_decode(p_l["mamba"], hn, cfg, st)
+                else:
+                    y, new_st = mamba_forward(p_l["mamba"], hn, cfg)
+                x = x + y
+                convs.append(new_st.conv)
+                ssms.append(new_st.ssm)
+            sb = _index(params["shared_blocks"], g % h.n_shared_blocks)
+            inp = torch.cat([x, x_emb], dim=-1) if h.concat_embedding else x
+            hb = inp @ sb["proj"]
+            kv = (caches["shared_kv"][0][g], caches["shared_kv"][1][g]) if mode == "decode" \
+                else None
+            yb, kv, _ = block_forward(sb["block"], hb, cfg, positions, mode=mode, cache=kv,
+                                      cache_index=cache_index)
+            x = x + (yb - hb)  # the block returns hb + delta; add only the delta
+            if mode == "prefill":
+                ks.append(kv[0])
+                vs.append(kv[1])
+        if mode not in ("prefill", "decode"):
+            return x, None
+        shape = (cfg.n_layers // h.every, h.every)
+        mamba = MambaState(*(torch.stack(t).reshape(shape + t[0].shape) for t in (convs, ssms)))
+        kv = caches["shared_kv"] if mode == "decode" else (torch.stack(ks), torch.stack(vs))
+        return x, {"mamba": mamba, "shared_kv": kv}
+
     # ============================================================ serving
     def prefill(self, params, batch):
         """Forward + cache build.  Returns (cache, last-position logits)."""
@@ -121,31 +208,45 @@ class Model:
 
     def decode_step(self, params, tokens, cache, cache_index):
         """tokens: (B, 1) — one token per row.  ``cache_index``: the
-        attention families' write position, a Python int or a 0-d integer
+        attention layers' write position, a Python int or a 0-d integer
         tensor for the whole batch, or a (B,) tensor of per-slot positions;
         a tensor stays on the device (no host sync), so the step can be
-        captured in a CUDA graph.  The K/V cache is written in place.  The
-        SSM state needs no position."""
+        captured in a CUDA graph.  The K/V cache is written in place; the
+        SSM state comes back as new tensors and needs no position."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg, self.dtype)
         if cfg.family == "ssm":
             x, cache = self._run_ssm(params, x, "decode", states=cache)
+        elif cfg.family == "hybrid":
+            x, cache = self._run_hybrid(params, x, x, None, "decode", cache_index, cache)
         else:
-            x, cache = self._run_lm_stacks(params, x, None, "decode", cache_index, cache)
+            x, _, cache = self._run_lm_stacks(params, x, None, "decode", cache_index, cache)
         x = apply_norm(params["final_norm"], x, cfg)
         return unembed(params["embed"], x, cfg)[:, 0], cache
 
     def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16):
         """Zero decode state, one entry per layer stacked along axis 0: the
-        attention families' (k, v) pair of (L, B, seq, KH, hd)."""
-        cfg = self.cfg
-        if cfg.family != "ssm":
-            shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim_)
-            return {"stack": (torch.zeros(shape, dtype=dtype, device=self.device),
-                              torch.zeros(shape, dtype=dtype, device=self.device))}
-        st = init_mamba_state(self.cfg, batch, dtype, self.device)
-        L = self.cfg.n_layers
-        return {"layers": MambaState(*(torch.stack([a] * L) for a in st))}
+        attention families' (k, v) pair of (L, B, seq, KH, hd) (``dense`` and
+        ``moe`` pairs for a MoE model with leading dense layers, the layout
+        its decode reads and its prefill returns); the ssm family's Mamba
+        state; the hybrid family's Mamba state (n_groups, every, B, ...) and
+        one (k, v) pair of (n_groups, B, seq, KH, hd) for the shared block's
+        applications."""
+        cfg, dev = self.cfg, self.device
+        kv = lambda L: tuple(torch.zeros((L, batch, seq, cfg.n_kv_heads, cfg.head_dim_),  # noqa: E731
+                                         dtype=dtype, device=dev) for _ in range(2))
+        if cfg.family in ("ssm", "hybrid"):
+            st = init_mamba_state(cfg, batch, dtype, dev)
+            if cfg.family == "ssm":
+                return {"layers": MambaState(*(a.expand(cfg.n_layers, *a.shape).contiguous()
+                                               for a in st))}
+            lead = (cfg.n_layers // cfg.hybrid.every, cfg.hybrid.every)
+            return {"mamba": MambaState(*(a.expand(*lead, *a.shape).contiguous() for a in st)),
+                    "shared_kv": kv(lead[0])}
+        if cfg.moe is not None and cfg.moe.n_dense_layers:
+            nd = cfg.moe.n_dense_layers
+            return {"dense": kv(nd), "moe": kv(cfg.n_layers - nd)}
+        return {"stack": kv(cfg.n_layers)}
 
 
 def _stack(trees):

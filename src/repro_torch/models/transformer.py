@@ -1,11 +1,13 @@
-"""Transformer blocks and the layer stack of the dense family (counterpart
-of the JAX package's ``models/transformer.py``).
+"""Transformer blocks and the layer stacks of the dense, vlm, moe and hybrid
+families (counterpart of the JAX package's ``models/transformer.py``).
 
 The JAX package scans a stack over parameters stacked on a leading layer
 axis; here ``run_stack`` loops over that axis in Python, as the ssm family's
 ``Model._run_ssm`` does.  gemma3's local:global pattern rides along as
 per-layer Python values from ``layer_meta`` (window ``GLOBAL_WINDOW`` means a
-global layer), so each layer passes its own window and rope theta.
+global layer), so each layer passes its own window and rope theta.  A block
+of a MoE stack has ``moe`` (``models/moe.py``) in place of ``mlp``, and its
+load-balancing aux is summed over the stack.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from .attention import GLOBAL_WINDOW, attn_decode, attn_forward, init_attention
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
+from .moe import apply_moe, init_moe
 
 
 def layer_meta(cfg, n_layers: Optional[int] = None) -> Tuple[List[int], List[float]]:
@@ -35,31 +38,36 @@ def layer_meta(cfg, n_layers: Optional[int] = None) -> Tuple[List[int], List[flo
 
 
 def init_block(cfg, generator: torch.Generator, device, dtype=torch.float32,
-               layers: int = 0) -> Dict[str, Any]:
+               layers: int = 0, moe_layer: bool = False) -> Dict[str, Any]:
     """One block's parameters, or ``layers`` blocks stacked on a leading axis,
-    with the JAX package's keys: ln1, attn, [ln2], mlp."""
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE blocks are not ported yet: ROADMAP Queue 1 item 7")
+    with the JAX package's keys: ln1, attn, [ln2], then ``moe`` for a MoE
+    layer, else ``mlp`` (of width ``moe.dense_dff`` in the leading dense
+    layers of a MoE model that has them)."""
     if cfg.enc_dec:
         raise NotImplementedError("cross-attention blocks (encoder-decoder) are not ported yet: "
-                                  "ROADMAP Queue 1 item 5")
+                                  "ROADMAP Queue 1 item 7")
     if cfg.mla is not None:
         raise NotImplementedError("MLA is not ported yet: ROADMAP Queue 1 item 7")
     p: Dict[str, Any] = {"ln1": init_norm(cfg, device, layers=layers),
                          "attn": init_attention(cfg, generator, device, dtype, layers)}
     if not cfg.parallel_block:
         p["ln2"] = init_norm(cfg, device, layers=layers)
-    p["mlp"] = init_mlp(cfg, generator, device, dtype, layers)
+    if moe_layer:
+        p["moe"] = init_moe(cfg, generator, device, dtype, layers)
+    else:
+        d_ff = cfg.moe.dense_dff if (cfg.moe and cfg.moe.n_dense_layers) else cfg.d_ff
+        p["mlp"] = init_mlp(cfg, generator, device, dtype, layers, d_ff)
     return p
 
 
 def block_forward(p: Dict, x: torch.Tensor, cfg, positions: Optional[torch.Tensor],
                   window: Optional[int] = None, theta: Optional[float] = None,
-                  mode: str = "train", cache=None, cache_index=None) -> Tuple[torch.Tensor, Any]:
-    """Returns (x', cache entry): the layer's (k, v) in prefill, its updated
-    cache in decode.  Pre-norm residual block, or Cohere's parallel block
-    ``x + (attn(n(x)) + mlp(n(x))) * depth_scale``; MiniCPM's
-    ``depth_scale`` scales both residual branches."""
+                  mode: str = "train", cache=None, cache_index=None):
+    """Returns (x', cache entry, aux): the layer's (k, v) in prefill, its
+    updated cache in decode; aux is the MoE load-balancing loss (a float32
+    0-d tensor) of a MoE block, else 0.0.  Pre-norm residual block, or
+    Cohere's parallel block ``x + (attn(n(x)) + mlp(n(x))) * depth_scale``;
+    MiniCPM's ``depth_scale`` scales both residual branches."""
     ds = cfg.depth_scale
     h = apply_norm(p["ln1"], x, cfg)
     if mode == "decode":
@@ -67,10 +75,15 @@ def block_forward(p: Dict, x: torch.Tensor, cfg, positions: Optional[torch.Tenso
     else:
         a, new_cache = attn_forward(p["attn"], h, cfg, positions, window, theta)
     if cfg.parallel_block:
-        return x + _scaled(a + apply_mlp(p["mlp"], h, cfg), ds), new_cache
+        return x + _scaled(a + apply_mlp(p["mlp"], h, cfg), ds), new_cache, 0.0
     x = x + _scaled(a, ds)
-    m = apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
-    return x + _scaled(m, ds), new_cache
+    h2 = apply_norm(p["ln2"], x, cfg)
+    aux = 0.0
+    if "moe" in p:
+        m, aux = apply_moe(p["moe"], h2, cfg)
+    else:
+        m = apply_mlp(p["mlp"], h2, cfg)
+    return x + _scaled(m, ds), new_cache, aux
 
 
 def _scaled(t: torch.Tensor, s: float) -> torch.Tensor:
@@ -81,19 +94,22 @@ def run_stack(stack: Dict, x: torch.Tensor, cfg, positions: Optional[torch.Tenso
               windows: List[int], thetas: List[float], mode: str = "train", caches=None,
               cache_index=None):
     """Run the layers of a stacked parameter tree in order.  Returns (x,
-    caches): in prefill the layers' (k, v) stacked to (L,B,S,KH,hd) each; in
-    decode ``caches`` itself, written in place; else None."""
+    caches, aux): in prefill the layers' (k, v) stacked to (L,B,S,KH,hd)
+    each; in decode ``caches`` itself, written in place; else None.  aux is
+    the sum of the blocks' MoE aux (0.0 for a stack without MoE)."""
     ks, vs = [], []
+    aux = 0.0
     for i, (w, th) in enumerate(zip(windows, thetas)):
         c_l = (caches[0][i], caches[1][i]) if mode == "decode" else None
-        x, new_c = block_forward(_index(stack, i), x, cfg, positions, w, th, mode, c_l,
-                                 cache_index)
+        x, new_c, a = block_forward(_index(stack, i), x, cfg, positions, w, th, mode, c_l,
+                                    cache_index)
+        aux = aux + a
         if mode == "prefill":
             ks.append(new_c[0])
             vs.append(new_c[1])
     if mode == "prefill":
-        return x, (torch.stack(ks), torch.stack(vs))
-    return x, (caches if mode == "decode" else None)
+        return x, (torch.stack(ks), torch.stack(vs)), aux
+    return x, (caches if mode == "decode" else None), aux
 
 
 def _index(tree, i: int):

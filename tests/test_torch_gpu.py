@@ -132,6 +132,7 @@ def _ssd_inputs(B, S, H, P, N, G=1, seed=1):
     (1, 1024, 24, 64, 128, 256),   # four: the main path's prefill
     (2, 1024, 24, 64, 128, 256),
     (1, 1000, 24, 64, 128, 256),   # ragged: padded rows leave the state alone
+    (1, 1024, 80, 64, 64, 256),    # zamba2-2.7b width (80 heads, N=64): the hybrid prefill
 ])
 def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
     x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N)
@@ -198,6 +199,8 @@ def _attn_inputs(shapes, dtype, seed, cuda):
     (1, 1024, 36, 36, 64, True, None),  # minicpm-2b prefill width
     (1, 2048, 8, 4, 256, True, 1024),   # gemma3-4b width, window 1024 at S=2048
     (1, 2048, 8, 4, 256, True, None),
+    (1, 1024, 32, 32, 80, True, None),  # zamba2-2.7b shared block prefill, hd 80
+    (1, 512, 48, 8, 128, True, 4096),   # mixtral-8x22b prefill: GQA 6:1, window 4096 > S
 ])
 def test_flash_kernel_matches_plain(cuda, B, S, H, KH, hd, causal, window, dtype):
     q, k, v = _attn_inputs([(B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)], dtype, S + hd, cuda)
@@ -276,6 +279,8 @@ def test_each_wrapper_call_counts_one_launch(cuda):
     (1, 256, 4, 4, 64, 255, None),      # valid_len at S-1
     (1, 256, 4, 2, 64, 300, None),      # past S-1: every row live
     (1, 256, 8, 4, 256, 400, 200),      # past S-1 with a window
+    (1, 2048, 32, 32, 80, 1031, None),  # zamba2-2.7b width, hd 80, float32 cache 2048
+    (1, 2048, 32, 32, 80, 2047, None),
 ])
 def test_decode_kernel_matches_plain(cuda, B, S, H, KH, hd, valid, window, dtype):
     q, kc, vc = _attn_inputs([(B, H, hd), (B, S, KH, hd), (B, S, KH, hd)], dtype, S + valid, cuda)
@@ -457,6 +462,7 @@ CACHE_DTYPES = [torch.float32, torch.bfloat16, torch.float8_e4m3fn]
 @pytest.mark.parametrize("B,S,H,KH,hd,window,lengths", [
     (4, 512, 8, 2, 64, None, [511, 0, 300, -1]),          # -1: no live position
     (8, 1024, 32, 8, 128, None, [15, 511, 1023, 700, 64, 1, 333, 1500]),  # llava width
+    (8, 1024, 48, 8, 128, 4096, [15, 511, 1023, 700, 64, 1, 333, 0]),  # mixtral-8x22b width
     (3, 2048, 36, 36, 64, None, [1024, 2047, 7]),        # minicpm-2b width
     (2, 2048, 8, 4, 256, 1024, [2047, 100]),             # gemma3-4b width, window
     (3, 300, 4, 2, 80, 40, [150, 10, 299]),
@@ -588,6 +594,15 @@ def _tiny_endpoint(name):
     return Endpoint(name, cfg, seed=3, max_cache_len=64)
 
 
+def _attention_layers(cfg):
+    """Attention layers a forward runs: one ``flash_attention`` a prefill and
+    one ``decode_attention`` a decode step each (a hybrid model's are its
+    shared-block applications, one a group)."""
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers // cfg.hybrid.every if cfg.family == "hybrid" else cfg.n_layers
+
+
 def _eager_generate(inst, tokens, gen_len):
     """``Instance.generate``'s loop, run eagerly on the card."""
     model, ep = inst.model, inst.endpoint
@@ -601,7 +616,7 @@ def _eager_generate(inst, tokens, gen_len):
     return torch.stack(out, 1)
 
 
-@pytest.mark.parametrize("name", ["mamba2_130m", "minicpm_2b"])
+@pytest.mark.parametrize("name", ["mamba2_130m", "minicpm_2b", "zamba2_2p7b", "mixtral_8x22b"])
 def test_generate_replays_the_captured_step(cuda, name):
     """``Instance.generate`` on the card replays one captured decode step a
     token: its tokens equal the eager loop's, twice over (the static cache
@@ -621,7 +636,7 @@ def test_generate_replays_the_captured_step(cuda, name):
         got = inst.generate(tokens, gen_len)
         assert torch.equal(got, want)
         assert captured.REPLAYED["steps"] == gen_len - 1
-        per_step = inst.model.cfg.n_layers if name == "minicpm_2b" else 0
+        per_step = _attention_layers(inst.model.cfg)
         assert captured.REPLAYED["decode_attention"] == per_step * (gen_len - 1)
         assert ops.LAUNCHES["decode_attention"] == 0
     assert sorted(inst._loops) == [1, 2]
@@ -658,5 +673,125 @@ def test_batcher_on_card_matches_cpu(cuda):
             assert captured.REPLAYED["steps"] == b.steps
             assert captured.REPLAYED["decode_attention"] == cfg.n_layers * b.steps
             assert ops.LAUNCHES["decode_attention"] == 0
+    assert outs[0] == outs[1]
+    torch.testing.assert_close(logits[1], logits[0], **TOL)
+
+
+# ------------------------------------------------------- hybrid and MoE families
+def _family_cfg(name):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name.removesuffix("-dense-first")).reduced()
+    if name.endswith("-dense-first"):  # one leading dense layer of width 128
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_dense_layers=1,
+                                                               dense_dff=128))
+    return cfg
+
+
+@pytest.mark.parametrize("name", ["zamba2_2p7b", "mixtral_8x22b", "mixtral_8x22b-dense-first"])
+def test_hybrid_and_moe_models_on_card_match_cpu(cuda, name):
+    """Reduced zamba2-2.7b (two groups of three Mamba layers, both shared
+    blocks) and reduced mixtral-8x22b (window 16, and with a leading dense
+    layer) on the card through the kernels, against the same model on the
+    CPU: prefill logits and aux, then three decode steps from a zero cache,
+    the last with per-row positions."""
+    from repro_torch.models import Model
+
+    cfg = _family_cfg(name)
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    params_card = _tree_to(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 40))
+                              .astype(np.int32))
+    ops.reset_launches()
+    logits_c, aux_c, _ = card.forward(params_card, {"tokens": tokens.to(cuda)}, mode="prefill")
+    logits, aux, _ = cpu.forward(params, {"tokens": tokens}, mode="prefill")
+    assert ops.LAUNCHES["flash_attention"] == _attention_layers(cfg)
+    assert ops.LAUNCHES["ssd_scan"] == (cfg.n_layers if cfg.family == "hybrid" else 0)
+    torch.testing.assert_close(logits_c.cpu(), logits, **TOL)
+    torch.testing.assert_close(aux_c.cpu(), aux, **TOL)
+    kv_c, kv = card.init_cache(2, 48, torch.float32), cpu.init_cache(2, 48, torch.float32)
+    tok = tokens[:, -1:]
+    for idx in (40, 41, torch.tensor([44, 7], dtype=torch.int32)):
+        lc, kv_c = card.decode_step(params_card, tok.to(cuda), kv_c,
+                                    idx.to(cuda) if isinstance(idx, torch.Tensor) else idx)
+        lp, kv = cpu.decode_step(params, tok, kv, idx)
+        torch.testing.assert_close(lc.cpu(), lp, **TOL)
+        tok = lp.argmax(-1, keepdim=True).to(torch.int32)
+    assert ops.LAUNCHES["decode_attention"] == 3 * _attention_layers(cfg)
+
+
+def test_moe_decode_step_makes_no_host_sync(cuda):
+    """Reduced mixtral-8x22b in bfloat16 with a bfloat16 cache: a decode step
+    with (B,) per-row positions runs under ``set_sync_debug_mode("error")``
+    (the routing's sort, the per-expert counts and the scatter-adds read
+    nothing back to the host), and one replay of it captured in a CUDA graph
+    gives the eager step's logits bit for bit (the top-2 combine adds two
+    rows onto zeros, so the atomics' order does not matter)."""
+    from repro_torch.models import Model
+    from repro_torch.serving.captured import CapturedStep, copy_into, tree_leaves
+
+    cfg = _family_cfg("mixtral_8x22b")
+    model = Model(cfg, param_dtype=torch.bfloat16, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    B = 8
+    cache = model.init_cache(B, 32, torch.bfloat16)
+    tok = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (B, 1))
+                           .astype(np.int32)).to(cuda)
+    lengths = torch.tensor([3, 0, 17, 9, 31, 30, 1, 12], dtype=torch.int32, device=cuda)
+    model.decode_step(params, tok, cache, lengths)  # first call: loads, allocations
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager, _ = model.decode_step(params, tok, cache, lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    snap = [t.clone() for t in tree_leaves(cache)]
+
+    def step():
+        logits, new = model.decode_step(params, tok, cache, lengths)
+        copy_into(cache, new)
+        return logits
+
+    graph = CapturedStep(step, cuda)
+    for t, s in zip(tree_leaves(cache), snap):
+        t.copy_(s)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(graph.out, eager)
+
+
+@pytest.mark.parametrize("name", ["zamba2_2p7b", "mixtral_8x22b"])
+def test_new_family_batcher_on_card_matches_cpu(cuda, name):
+    """The batcher on the card (one replay a step) gives the CPU batcher's
+    tokens for 7 requests through 3 slots, slots reused (for zamba2 the
+    reused slot's stale Mamba state included), float32 weights and cache."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousBatcher, GenRequest, captured
+
+    cfg = dataclasses.replace(_family_cfg(name), vocab=64)
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(5))
+    card = Model(cfg, device=cuda)
+    params_card = _tree_to(params, cuda)
+    rng = np.random.default_rng(2)
+    reqs = [(f"r{i}", [int(t) for t in rng.integers(0, cfg.vocab, rng.integers(1, 12))],
+             int(rng.integers(1, 9))) for i in range(7)]
+    outs, logits = [], []
+    for model, p in ((cpu, params), (card, params_card)):
+        b = ContinuousBatcher(model, p, n_slots=3, max_len=24)
+        for rid, prompt, n in reqs:
+            b.submit(GenRequest(rid, prompt, max_new_tokens=n))
+        captured.reset_replays()
+        outs.append(b.run_to_completion())
+        logits.append(b.logits.float().cpu())
+        if model is card:
+            assert captured.REPLAYED["steps"] == b.steps
+            assert captured.REPLAYED["decode_attention"] == _attention_layers(cfg) * b.steps
     assert outs[0] == outs[1]
     torch.testing.assert_close(logits[1], logits[0], **TOL)

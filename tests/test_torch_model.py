@@ -46,8 +46,8 @@ def test_config_copy_matches_jax():
     j, t = jax_get_config("mamba2_130m"), get_config("mamba2_130m")
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
     assert j.n_params() == t.n_params() and j.reduced().n_params() == t.reduced().n_params()
-    with pytest.raises(NotImplementedError):
-        get_config("mixtral_8x22b")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        get_config("deepseek_v3_671b")
 
 
 @pytest.mark.parametrize("S", [40, 32])
@@ -110,5 +110,5 @@ def test_random_init_distributions():
     assert abs(float(m["in_proj"].std()) - cfg.d_model ** -0.5) < 0.01
     assert abs(float(m["conv_w"].std()) - 0.5) < 0.05
     assert torch.all(m["D"] == 1) and torch.all(m["A_log"] == 0) and torch.all(m["conv_b"] == 0)
-    with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(cfg, family="hybrid"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        Model(dataclasses.replace(cfg, enc_dec=True))
