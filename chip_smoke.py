@@ -123,9 +123,33 @@ line):
              exactly 8 ``flash_attention`` launches each, the last logits
              against the plain path (same routing) to a relative L2 of 2e-2,
              the assignments dropped per layer.
+11. mla    — after the mixtral model is freed: deepseek-v3 at full width,
+             4 of its 61 layers (its 3 dense layers and 1 MoE layer; d_model
+             7168, 128 heads, MLA q_lora 1536 / kv_lora 512, qk 128 + 64, v
+             128; 256 experts top-8 of d_ff 2048, sigmoid router, 1 shared
+             expert; dense d_ff 18,432; vocab 129,280; MTP depth 1): 31.6 GB
+             in bfloat16 from seed 0 (norms and router float32). One
+             endpoint (``param_dtype=torch.bfloat16``, so a bfloat16
+             latent cache, ``max_cache_len`` 2048) behind a ``ServingEngine`` with hiku and 2 workers, 4
+             requests of 1,024 tokens, gen_len 8 (one cold): exactly 4
+             ``flash_attention`` at (192, 128) a prefill and 4
+             ``decode_attention_latent`` a replay; a 128-token request's
+             replayed tokens against the eager loop's, and its prefill
+             logits against the same weights' plain path on the CPU
+             (bfloat16, the card's routing shared, to a row relative L2 of
+             2e-2; the CPU's own routing printed beside); the warm request
+             profiled as in 7; then the batch phase's batcher (8 slots x
+             1,024, bf16 latent cache, the same 16 requests) with its
+             checks on the latent kernel (4 a replay). Phase 2 also holds
+             ``flash_attention`` at deepseek-v3 prefill (B=1, S=1024,
+             H=KH=128, q/k 192, v 128 strided, bfloat16) and the latent
+             decode at the engine's shape (B=1, bfloat16 cache of 2,048,
+             valid_len 1,024) and the batcher's (B=8, bfloat16 cache, seeded
+             lengths) against their plain versions, each timed with SDPA
+             beside (on [c | r] joined once, for the latent decode).
 
 The launch counters are set to 0 just before each main path (phases 3, 4,
-5, 8, 9 and 10) and read just after: the wrappers' own launches plus, for each
+5, 8, 9, 10 and both parts of 11) and read just after: the wrappers' own launches plus, for each
 replay of a captured step, the launches recorded when it was captured
 (``serving/captured.py``); launches made in phase 2 do not count.  Before the last line it prints one
 JSON line ``{"kernels": [...]}``, and the last line is
@@ -143,8 +167,10 @@ turns, with ``--sched-only``.
 
 In the ``{"kernels": [...]}`` line the ``ssd_scan``, ``flash_attention``
 and ``decode_attention`` rows carry ``shapes``: the same numbers at the
-hybrid and moe paths' shapes, each with the launches of its own path
-(``decode_attention``'s ``batch`` holds the llava-width rows).  The two
+hybrid, moe and mla paths' shapes, each with the launches of its own path
+(``decode_attention``'s ``batch`` holds the llava-width rows, its
+``mla_b1`` and ``mla_b8`` the latent entry's, counted under
+``decode_attention_latent``).  The two
 scheduling rows also carry
 ``burst`` (the events of the timed burst, the path's chunk of 1,024),
 ``ns_per_event`` and ``ms_4096`` (the time of a 4,096-event burst): their
@@ -177,6 +203,9 @@ ZAMBA_WIDTH = (54, 2560, 32000)  # zamba2-2.7b: Mamba2 layers, d_model, vocab
 MIXTRAL_WIDTH = (56, 6144, 32768)  # mixtral-8x22b: layers, d_model, vocab
 MOE_LAYERS = 8  # of mixtral's 56: 20.44 B parameters in bfloat16 fit one card
 MOE_PROMPT = 512  # the moe path's prefill: T=512, capacity 160 a expert (tokens drop)
+MLA_WIDTH = (61, 7168, 129280)  # deepseek-v3-671b: layers, d_model, vocab
+MLA_LAYERS = 4  # of deepseek-v3's 61: its 3 dense layers and 1 MoE layer, 31.6 GB in bfloat16
+MLA_CACHE = 2048  # the mla endpoint's max_cache_len: 1,024-token prompts decode at 1,024-1,030
 BATCH_SLOTS, BATCH_MAX_LEN = 8, 1024  # the batch phase's cache: slots, positions a slot
 ORDER = [0, 0, 1, 1, 2, 0, 1, 2]  # endpoint of each serve request
 
@@ -556,10 +585,12 @@ def live_pairs(S, causal, window):
     return n
 
 
-def flash_counts(B, S, H, KH, hd, causal, window, elem):
-    """q, k, v read once and out written once; 4*hd operations (q.k and
-    p*v) per live pair."""
-    return (2 * B * S * H + 2 * B * S * KH) * hd * elem, 4 * hd * B * H * live_pairs(S, causal, window)
+def flash_counts(B, S, H, KH, hd, causal, window, elem, hd_v=None):
+    """q, k, v read once and out written once; 2*hd + 2*hd_v operations (q.k
+    and p*v) per live pair (hd_v: v's head dim, hd unless given)."""
+    hd_v = hd_v or hd
+    nbytes = (B * S * H * (hd + hd_v) + B * S * KH * (hd + hd_v)) * elem
+    return nbytes, 2 * (hd + hd_v) * B * H * live_pairs(S, causal, window)
 
 
 def decode_counts(S, H, KH, hd, lengths, window, q_elem, cache_elem):
@@ -649,22 +680,37 @@ def phase_attention(torch, np, ops, ref, rows):
                                     f32),
                 "mixtral": flash_row(torch, ops, ref, "mixtral-8x22b", (1, MOE_PROMPT, 48, 8, 128),
                                      4096, torch.bfloat16)})
+    # deepseek-v3's MLA: prefill at q/k heads of 192 against v heads of 128
+    rows["flash_attention"]["shapes"]["mla"] = flash_row(
+        torch, ops, ref, "deepseek-v3", (1, 1024, 128, 128, 192), None, torch.bfloat16, hd_v=128)
     decode_timing(torch, ops, ref, rows)
     rows["decode_attention"]["max_abs_err"] = max(errs["decode_attention"])
     decode_batch_timing(torch, np, ops, ref, rows)
+    # and its absorbed decode at the engine's shape (a bfloat16 cache of
+    # MLA_CACHE, the first decode step of a 1,024-token request) and the
+    # batcher's (bfloat16 cache, the batch phase's lengths)
+    lengths = np.random.default_rng(7).integers(16, 577, BATCH_SLOTS).tolist()
+    rows["decode_attention_shapes"].update(
+        mla_b1=latent_row(torch, ops, ref, "deepseek-v3 engine", 1, MLA_CACHE, [1024],
+                          torch.bfloat16, torch.bfloat16, 60, n=16),
+        mla_b8=latent_row(torch, ops, ref, "deepseek-v3 batch", BATCH_SLOTS, BATCH_MAX_LEN,
+                          lengths, torch.bfloat16, torch.bfloat16, 70))
 
 
-def flash_row(torch, ops, ref, label, shape, window, dtype):
+def flash_row(torch, ops, ref, label, shape, window, dtype, hd_v=None):
     """``flash_attention`` causal at ``shape`` (B, S, H, KH, hd) in ``dtype``:
     against its plain version (the dtype's tolerance), then its time, the
     plain version's and one ``scaled_dot_product_attention`` call's (the
     library yardstick, never called by the port) from CUDA graphs of
-    back-to-back calls; the bound at the peak for the inputs' type.  Returns
-    the row for the kernels line."""
+    back-to-back calls; the bound at the peak for the inputs' type.  With
+    ``hd_v`` (MLA) v has heads of that width, read in place as the tail of
+    each head's [k_nope | v] row of 2 x hd_v, as ``mla_forward`` passes it.
+    Returns the row for the kernels line."""
     F = torch.nn.functional
     B, S, H, KH, hd = shape
-    q, k, v = (t.to(dtype) for t in attn_inputs(
-        torch, [(B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)], 7))
+    q, k, kv = (t.to(dtype) for t in attn_inputs(
+        torch, [(B, S, H, hd), (B, S, KH, hd), (B, S, KH, 2 * hd_v if hd_v else hd)], 7))
+    v = kv[..., hd_v:] if hd_v else kv
     want = ref.flash_attention_ref(q, k, v, True, window)
     err = check_close(torch, f"flash_attention {label}", ops.flash_attention(q, k, v, True, window),
                       want, dtype)
@@ -680,9 +726,10 @@ def flash_row(torch, ops, ref, label, shape, window, dtype):
     ms = time_graph(torch, [lambda: ops.flash_attention(q, k, v, True, window)] * 10)
     plain_ms = time_graph(torch, [lambda: ref.flash_attention_ref(q, k, v, True, window)] * 3)
     lib_ms = time_graph(torch, [lib] * 10)
-    nbytes, nops = flash_counts(B, S, H, KH, hd, True, window, q.element_size())
+    nbytes, nops = flash_counts(B, S, H, KH, hd, True, window, q.element_size(), hd_v)
     b_ms, b_by = bound(nbytes, nops, peak_ops(torch, dtype))
-    log(f"[kernels] flash_attention {label} B={B} S={S} H={H} KH={KH} hd={hd} causal "
+    log(f"[kernels] flash_attention {label} B={B} S={S} H={H} KH={KH} hd={hd} "
+        f"{f'hd_v={hd_v} (v strided) ' if hd_v else ''}causal "
         f"window={window} {str(dtype)[6:]}: max abs err {err:.3e}; {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}), bound "
         f"{b_ms:.4f} ms ({b_by}: {nops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
@@ -810,6 +857,61 @@ def decode_row(torch, ops, ref, label, shape, lengths, window, q_dtype, cache_dt
         f"caches in turn: max abs err {err:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
         f"on a copy in q's dtype {lib_ms:.4f} ms (max abs diff {lib_err:.2e}), bound "
         f"{b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {nops / 1e6:.2f} MFLOP)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def latent_counts(H, dc, dr, lengths, S, q_elem, cache_elem):
+    """The latent decode's bytes (q_lat, q_rope and out at q's element size,
+    the live c and r rows once at the cache's) and operations (2 x (dc + dr)
+    for the score and 2 x dc for the value, per head and live row)."""
+    n_live = sum(min(n, S - 1) + 1 for n in lengths)
+    B = len(lengths)
+    nbytes = B * H * (2 * dc + dr) * q_elem + n_live * (dc + dr) * cache_elem
+    return nbytes, 2 * H * (2 * dc + dr) * n_live
+
+
+def latent_row(torch, ops, ref, label, B, S, lengths, q_dtype, cache_dtype, seed, n=8):
+    """``decode_attention_latent`` at deepseek-v3's dims (128 heads, latent
+    512, rope 64) with (B,) lengths ``lengths`` over an S-long cache:
+    against its plain version (q's tolerance), then its time, the plain
+    version's and one ``scaled_dot_product_attention`` call's on q =
+    [q_lat | q_rope] (B,128,1,576) against one kv head [c | r] (576) and c
+    (512), joined once beforehand (the library yardstick; the port never
+    joins them), from CUDA graphs over ``n`` caches in turn (L2 cold).
+    Returns the row for the kernels line."""
+    F = torch.nn.functional
+    H, dc, dr = 128, 512, 64
+    scale = ref.attn_scale(192)
+    valid = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+    q_lat, q_rope = (t.to(q_dtype) for t in attn_inputs(torch, [(B, H, dc), (B, H, dr)], seed))
+    caches = [[t.to(cache_dtype) for t in attn_inputs(torch, [(B, S, dc), (B, S, dr)],
+                                                      seed + 1 + c)] for c in range(n)]
+    want = ref.decode_attention_latent_ref(q_lat, q_rope, *caches[0], valid, scale)
+    err = check_close(torch, f"decode_attention_latent {label}",
+                      ops.decode_attention_latent(q_lat, q_rope, *caches[0], valid, scale), want,
+                      q_dtype)
+    pos = torch.arange(S, device=DEVICE)
+    mask = (pos[None, :] <= valid[:, None])[:, None, None, :]
+    qt = torch.cat([q_lat, q_rope], -1)[:, :, None, :]
+    lib_kv = [(torch.cat([c, r], -1).to(q_dtype)[:, None], c.to(q_dtype)[:, None])
+              for c, r in caches]
+    lib = lambda kv: F.scaled_dot_product_attention(  # noqa: E731
+        qt, *kv, attn_mask=mask, scale=scale, enable_gqa=True)
+    lib_err = max_abs(lib(lib_kv[0])[:, :, 0], want)
+    ms = time_graph(torch, [lambda kv=kv: ops.decode_attention_latent(q_lat, q_rope, *kv, valid,
+                                                                      scale) for kv in caches])
+    plain_ms = time_graph(torch, [lambda kv=kv: ref.decode_attention_latent_ref(
+        q_lat, q_rope, *kv, valid, scale) for kv in caches])
+    lib_ms = time_graph(torch, [lambda kv=kv: lib(kv) for kv in lib_kv])
+    nbytes, nops = latent_counts(H, dc, dr, lengths, S, q_lat.element_size(),
+                                 caches[0][0].element_size())
+    b_ms, b_by = bound(nbytes, nops, peak_ops(torch, q_dtype))
+    log(f"[kernels] decode_attention_latent {label} B={B} cache {S} H={H} latent {dc}+{dr} "
+        f"lengths {lengths}, q {str(q_dtype)[6:]}, cache {str(cache_dtype)[6:]}, {n} caches in "
+        f"turn: max abs err {err:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on the joined "
+        f"cache {lib_ms:.4f} ms (max abs diff {lib_err:.2e}), bound {b_ms:.5f} ms ({b_by}: "
+        f"{nbytes / 1e6:.2f} MB, {nops / 1e6:.2f} MFLOP)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms)
 
@@ -942,14 +1044,15 @@ def trace_sched(torch, np, core):
         log(f"[sched trace]   {self_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
-def serve(torch, np, eng, prefix, vocab, label):
+def serve(torch, np, eng, prefix, vocab, label, order=None):
     """Submit the 8 requests of ``ORDER`` (1,024-token seeded prompts,
-    gen_len 8) to ``eng``'s endpoints ``prefix0..2``; check cold then warm on
-    the same worker.  Returns (worker of the first request, its prompt, the
-    number of requests, the number of cold starts: each captures the decode
-    step after one eager call of it)."""
+    gen_len 8) to ``eng``'s endpoints ``prefix0..2``, or one request to each
+    endpoint name of ``order``; check cold then warm on the same worker.
+    Returns (worker of the first request, its prompt, the number of
+    requests, the number of cold starts: each captures the decode step after
+    one eager call of it)."""
     rng = np.random.default_rng(4)
-    order = [f"{prefix}{i}" for i in ORDER]
+    order = order or [f"{prefix}{i}" for i in ORDER]
     prompts = [torch.from_numpy(rng.integers(0, vocab, (1, 1024)).astype(np.int32))
                for _ in order]
     first = {}
@@ -968,7 +1071,7 @@ def serve(torch, np, eng, prefix, vocab, label):
         f"{statistics.median(warm):.1f} ms (median of {len(warm)}), scheduler overhead "
         f"{eng.summary()['sched_overhead_ms'] * 1e3:.1f} us; workers "
         f"{[r.worker for r in eng.records]}")
-    return first[f"{prefix}0"].worker, prompts[0], len(order), len(cold)
+    return first[order[0]].worker, prompts[0], len(order), len(cold)
 
 
 def full_width(get_config, name, width):
@@ -983,7 +1086,7 @@ def generate_with_logits(torch, inst, prompt, gen_len):
     also returning each step's logits."""
     model = inst.model
     prompt = prompt.to(inst.device)
-    cache = model.init_cache(1, inst.endpoint.max_cache_len, dtype=torch.float32)
+    cache = model.init_cache(1, inst.endpoint.max_cache_len, dtype=inst.endpoint.param_dtype)
     _, lg = model.prefill(inst.params, {"tokens": prompt})
     logits, out = [lg], [lg.argmax(-1)]
     idx = min(prompt.shape[1], inst.endpoint.max_cache_len - gen_len - 1)
@@ -1131,10 +1234,11 @@ def replayer(records):
     return lambda *args: next(it)
 
 
-def check_batch_step(torch, ops, ref, moe, b, snap):
+def check_batch_step(torch, ops, ref, moe, b, snap, kernel="decode_attention"):
     """The step ``b`` just replayed, from ``snap`` (its cache as it was
     before the step) and the same tokens and lengths: (1) run eagerly with
-    every ``decode_attention`` call also made by its plain version in the
+    every call of the decode kernel ``kernel`` (``decode_attention``, or
+    MLA's ``decode_attention_latent``) also made by its plain version in the
     Pallas kernel's arithmetic on the same inputs, each layer within
     atol=rtol=2e-2 (the bf16 tolerance of tests/test_kernels.py), and the
     eager logits equal to the replayed ones bit for bit; (2) the logits of
@@ -1150,21 +1254,23 @@ def check_batch_step(torch, ops, ref, moe, b, snap):
     returned for the record.  The comparison's own launches are taken off
     the counters.  Returns (largest layer error, logits' max abs err and
     row relative L2 against the plain path, the same between the two plain
-    paths, and for a MoE model (expert choices that differ, row relative L2)
-    with the plain path's own routing, else None)."""
-    kernel, plain = ops.decode_attention, plain_in_f32(ref.decode_attention_ref)
+    paths, and for a MoE model (expert choices that differ, choices made,
+    row relative L2) with the plain path's own routing, else None)."""
+    name = kernel
+    kernel, plain_ref = getattr(ops, name), getattr(ref, f"{name}_ref")
+    plain = plain_in_f32(plain_ref)
     layer_errs, routes = [], []
 
-    def both(q, k, v, valid_len, window=None):
-        out, want = kernel(q, k, v, valid_len, window), plain(q, k, v, valid_len, window)
+    def both(*args):
+        out, want = kernel(*args), plain(*args)
         layer_errs.append(max_abs(out, want))
         if not torch.allclose(out.float(), want.float(), **TOL_ATTN_BF16):
-            fail(f"batch step {b.steps}: decode_attention of layer {len(layer_errs) - 1} "
+            fail(f"batch step {b.steps}: {name} of layer {len(layer_errs) - 1} "
                  f"differs from its plain version by {layer_errs[-1]:.3e} (atol 2e-2, rtol 2e-2)")
         return out
 
     def step(attn, route):
-        with swapped(ops, attn), swapped(moe, route, "route"), torch.no_grad():
+        with swapped(ops, attn, name), swapped(moe, route, "route"), torch.no_grad():
             return b.model.decode_step(b.params, b.step_tokens.clone(), _clone(snap),
                                        b.step_lengths.clone())[0]
 
@@ -1174,7 +1280,7 @@ def check_batch_step(torch, ops, ref, moe, b, snap):
     if not torch.equal(eager, b.logits):
         fail(f"batch step {b.steps}: the replayed logits differ from the eager step's by "
              f"{max_abs(eager, b.logits):.3e}")
-    wants = [step(fn, replayer(routes)) for fn in (plain, ref.decode_attention_ref)]
+    wants = [step(fn, replayer(routes)) for fn in (plain, plain_ref)]
     err, rel = max_abs(b.logits, wants[0]), rel_rows(b.logits, wants[0])
     if rel > 2e-2:
         fail(f"batch step {b.steps}: logits differ from the plain per-row path by a relative "
@@ -1184,11 +1290,11 @@ def check_batch_step(torch, ops, ref, moe, b, snap):
         own = []
         logits = step(plain, recorder(moe.route, own))
         free = (sum(int((a[1] != c[1]).sum()) for a, c in zip(routes, own)),
-                rel_rows(b.logits, logits))
+                sum(a[1].numel() for a in routes), rel_rows(b.logits, logits))
     return max(layer_errs), err, rel, max_abs(*wants), rel_rows(*wants), free
 
 
-def drive_batcher(torch, ops, ref, moe, b, check_step):
+def drive_batcher(torch, ops, ref, moe, b, check_step, kernel="decode_attention"):
     """Step ``b`` until its queue and slots are empty.  Returns the host-clock
     seconds of each step (each ends in the argmax read-back, so it waits for
     the device) and ``check_batch_step``'s numbers for step ``check_step``
@@ -1200,7 +1306,8 @@ def drive_batcher(torch, ops, ref, moe, b, check_step):
         running = b.step()
         times.append(time.perf_counter() - t0)
         if snap is not None:
-            check = (*check_batch_step(torch, ops, ref, moe, b, snap), b.step_lengths.tolist())
+            check = (*check_batch_step(torch, ops, ref, moe, b, snap, kernel),
+                     b.step_lengths.tolist())
             del snap
         if running == 0 and not b.queue:
             return times, check
@@ -1229,11 +1336,14 @@ def trace_batch_steps(torch, np, b, GenRequest, vocab, n_steps=16):
     return traced_ms, busy_ms, dev
 
 
-def run_batcher(torch, np, ops, ref, moe, serving, model, params, dtype, reqs, tag):
+def run_batcher(torch, np, ops, ref, moe, serving, model, params, dtype, reqs, tag,
+                kernel="decode_attention"):
     """``reqs`` through a ``ContinuousBatcher`` of 8 slots x 1,024 positions
     with a ``dtype`` cache, each step one replay of the captured step, then 16
-    traced steps with every slot busy.  Checks one ``decode_attention``
-    launch per attention layer in the captured step, one replay per step,
+    traced steps with every slot busy.  Checks one launch of the decode
+    kernel ``kernel`` (``decode_attention``, or MLA's
+    ``decode_attention_latent``) per attention layer in the captured step,
+    one replay per step,
     every request complete with its token count, and step 200 against the
     plain per-row path (``check_batch_step``); prints steps/s, tokens/s, ms a
     step and the traced idle share.  Returns ({request: tokens}, the cache's
@@ -1243,13 +1353,12 @@ def run_batcher(torch, np, ops, ref, moe, serving, model, params, dtype, reqs, t
     b = serving.ContinuousBatcher(model, params, n_slots=BATCH_SLOTS, max_len=BATCH_MAX_LEN,
                                   dtype=dtype)
     capture_s = time.perf_counter() - t0
-    if b.captured.launches["decode_attention"] != L:
-        fail(f"the captured batch step holds {b.captured.launches} launches, not {L} "
-             "decode_attention")
+    if b.captured.launches[kernel] != L:
+        fail(f"the captured batch step holds {b.captured.launches} launches, not {L} {kernel}")
     for rid, prompt, n in reqs:
         b.submit(serving.GenRequest(rid, prompt, max_new_tokens=n))
     times, (layer_err, err, rel, spread, spread_rel, free, lengths) = drive_batcher(
-        torch, ops, ref, moe, b, check_step=200)
+        torch, ops, ref, moe, b, check_step=200, kernel=kernel)
     if b.captured.replays != b.steps:
         fail(f"{b.captured.replays} replays for {b.steps} batcher steps")
     done = b.completed
@@ -1265,15 +1374,14 @@ def run_batcher(torch, np, ops, ref, moe, serving, model, params, dtype, reqs, t
         f"{gen / wall:.1f} generated tokens/s, {fed / wall:.1f} tokens fed/s (prompts "
         f"through decode), {1e3 * wall / b.steps:.2f} ms a step (median "
         f"{1e3 * statistics.median(times):.2f}); capture {capture_s:.2f} s")
-    log(f"{tag} step 200 (lengths {lengths}): each layer's decode_attention vs "
+    log(f"{tag} step 200 (lengths {lengths}): each layer's {kernel} vs "
         f"its plain version on the same inputs max abs err {layer_err:.3e} (atol 2e-2, rtol "
         f"2e-2); replayed logits equal the eager step's; logits vs the plain per-row path "
         f"max abs err {err:.3e}, row relative L2 {rel:.2e} (limit 2e-2); the two plain "
         f"paths differ by {spread:.3e}, {spread_rel:.2e}" + (
             "" if free is None else f"; both plain paths take the kernel path's routing: with "
-            f"its own, the plain path chose another expert {free[0]} times of "
-            f"{model.cfg.n_layers * BATCH_SLOTS * model.cfg.moe.top_k} (row relative L2 "
-            f"{free[1]:.2e})"))
+            f"its own, the plain path chose another expert {free[0]} times of {free[1]} (row "
+            f"relative L2 {free[2]:.2e})"))
     traced_ms, busy_ms, dev = trace_batch_steps(torch, np, b, serving.GenRequest,
                                                 model.cfg.vocab)
     if busy_ms:
@@ -1415,6 +1523,66 @@ def phase_moe(torch, np, ops, ref, get_config, Model, serving, captured, moe):
         f"assignments dropped per layer {drops} of {MOE_PROMPT * m.top_k}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return replays, 1, 2
+
+
+def describe_mla(cfg, params, captured):
+    """One log line of the mla phase's model and its parameters' bytes."""
+    m, e = cfg.mla, cfg.moe
+    n_bytes = sum(t.numel() * t.element_size() for t in captured.tree_leaves(params))
+    n_mtp = sum(t.numel() for t in captured.tree_leaves(params["mtp"]))
+    return (f"deepseek-v3-671b {cfg.n_layers} of 61 layers: d{cfg.d_model} {cfg.n_heads}H MLA "
+            f"q_lora {m.q_lora_rank} kv_lora {m.kv_lora_rank} qk {m.qk_nope_head_dim}+"
+            f"{m.qk_rope_head_dim} v {m.v_head_dim}, {e.n_dense_layers} dense layers of d_ff "
+            f"{e.dense_dff}, {e.n_experts} experts top-{e.top_k} ({e.router} router, "
+            f"{e.n_shared} shared) d_ff {e.expert_dff}, MTP depth {cfg.mtp_depth}, vocab "
+            f"{cfg.vocab}: {cfg.n_params() / 1e9:.2f} B parameters by n_params + "
+            f"{n_mtp / 1e9:.2f} B of MTP, {n_bytes / 1e9:.2f} GB in bfloat16 (norms and "
+            f"router float32); weights bound a step {n_bytes / PEAK_BYTES_PER_S * 1e3:.2f} ms "
+            f"(every weight but MTP's is read: the reference's dispatch reads every expert)")
+
+
+def check_mla_against_cpu(torch, np, Model, moe, inst, label):
+    """The mla endpoint's replayed tokens against the eager loop's on the
+    card, then a 128-token prefill on the card against the same weights'
+    plain path on the CPU (bfloat16 there too), the plain path taking the
+    card's routing (``moe.route``'s experts and gates, recorded; a top-k
+    choice is a step function of its input), within a row relative L2 of
+    2e-2; the CPU path with its own routing is run beside for the record."""
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(0, inst.model.cfg.vocab, (1, 128))
+                              .astype(np.int32))
+    tokens = inst.generate(prompt, 8).cpu()
+    eager_tokens, _ = generate_with_logits(torch, inst, prompt, 8)
+    if not torch.equal(tokens, eager_tokens):
+        fail(f"{label}: replayed tokens {tokens.tolist()} differ from the eager loop's "
+             f"{eager_tokens.tolist()}")
+    routes, own = [], []
+    with torch.no_grad(), swapped(moe, recorder(moe.route, routes), "route"):
+        _, logits = inst.model.prefill(inst.params, {"tokens": prompt.to(inst.device)})
+    logits = logits.float().cpu()
+    t0 = time.perf_counter()
+    params = _to_cpu(inst.params)
+    cpu = Model(inst.model.cfg, param_dtype=torch.bfloat16, device="cpu")
+    copy_s = time.perf_counter() - t0
+    shared = [tuple(t.cpu() for t in r) for r in routes]
+    t0 = time.perf_counter()
+    with torch.no_grad(), swapped(moe, replayer(shared), "route"):
+        _, want = cpu.prefill(params, {"tokens": prompt})
+    cpu_s = time.perf_counter() - t0
+    with torch.no_grad(), swapped(moe, recorder(moe.route, own), "route"):
+        _, want_own = cpu.prefill(params, {"tokens": prompt})
+    del params
+    rel = rel_rows(logits, want)
+    if not torch.isfinite(logits).all() or rel > 2e-2:
+        fail(f"{label}: prefill logits differ from the CPU plain path's by a relative L2 of "
+             f"{rel:.3e} (limit 2e-2)")
+    flips = sum(int((a[1] != b[1]).sum()) for a, b in zip(shared, own))
+    log(f"{label} replayed tokens equal the eager loop's on the card {tokens.tolist()[0]}; "
+        f"card vs CPU plain path (bfloat16) on the same weights, 128-token prefill, routing "
+        f"shared: last logits row relative L2 {rel:.2e} (limit 2e-2), max abs "
+        f"{max_abs(logits, want):.3e}; with its own routing the CPU path chose another expert "
+        f"{flips} times of {sum(a[1].numel() for a in shared)} (relative L2 "
+        f"{rel_rows(logits, want_own):.2e}); weights copied to the host in {copy_s:.1f} s, "
+        f"one CPU prefill {cpu_s:.1f} s")
 
 
 def _to_cpu(tree):
@@ -1609,6 +1777,59 @@ def main(argv=None) -> int:
              f"{n_replays} replays of {L} layers")
     log(f"[moe] flash_attention {L} x {n_prefill}; decode_attention {L} x {n_eager} eager + {L} x "
         f"{n_replays} replays, as expected")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # deepseek-v3 at full width, 4 of 61 layers in bfloat16: one endpoint
+    # served cold and warm behind hiku, then the batcher on its weights
+    import dataclasses
+
+    L = MLA_LAYERS
+    xcfg = dataclasses.replace(full_width(get_config, "deepseek_v3_671b", MLA_WIDTH), n_layers=L)
+    x_eng = ServingEngine([Endpoint("deepseek0", xcfg, seed=0, max_cache_len=MLA_CACHE,
+                                    param_dtype=torch.bfloat16)],
+                          n_workers=2, scheduler="hiku", mem_pool_bytes=48 * 2**30)
+    x_wid, x_prompt, x_reqs, x_cold = counted(
+        "mla", ("flash_attention", "decode_attention_latent"),
+        lambda: serve(torch, np, x_eng, "deepseek", xcfg.vocab,
+                      f"mla deepseek-v3 {L} of 61 layers", order=["deepseek0"] * 4))
+    eager, replayed = path_launches["mla"]
+    if (eager["flash_attention"] != L * x_reqs or eager["decode_attention_latent"] != L * x_cold
+            or replayed["steps"] != 7 * x_reqs
+            or replayed["decode_attention_latent"] != L * 7 * x_reqs
+            or eager["decode_attention"] or replayed["decode_attention"]):
+        fail(f"mla path launched flash {eager['flash_attention']}, latent decode "
+             f"{eager['decode_attention_latent']} eagerly and "
+             f"{replayed['decode_attention_latent']} in {replayed['steps']} replays "
+             f"(decode_attention {eager['decode_attention']} + {replayed['decode_attention']}), "
+             f"for {x_reqs} requests of 7 decode steps and {x_cold} cold starts")
+    inst = x_eng.workers[x_wid].idle["deepseek0"][0]
+    log(f"[mla] {describe_mla(xcfg, inst.params, captured)}")
+    log(f"[mla] {x_reqs} requests, {x_cold} cold start: flash_attention (hd 192, v 128) {L} x "
+        f"{x_reqs}; decode_attention_latent {L} x {x_cold} eager (the capture's first call) + "
+        f"{L} x 7 x {x_reqs} in {replayed['steps']} replays, as expected; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    check_mla_against_cpu(torch, np, Model, moe, inst, "[mla]")
+    profile_warm_request(torch, x_eng, x_wid, "deepseek0", x_prompt, "deepseek-v3 4L")
+    gc.collect()
+    _, _, x_replays = counted(
+        "mla_batch", ("decode_attention_latent",),
+        lambda: run_batcher(torch, np, ops, ref, moe, serving,
+                            Model(xcfg, param_dtype=torch.bfloat16), inst.params, torch.bfloat16,
+                            batch_requests(np, xcfg.vocab), f"[mla] deepseek-v3 {L} of 61 layers",
+                            kernel="decode_attention_latent"))
+    eager, replayed = path_launches["mla_batch"]
+    if (eager["decode_attention_latent"] != L or replayed["steps"] != x_replays
+            or replayed["decode_attention_latent"] != L * x_replays):
+        fail(f"mla batch path launched the latent decode {eager['decode_attention_latent']} "
+             f"eagerly and {replayed['decode_attention_latent']} in {replayed['steps']} "
+             f"replays, for one capture and {x_replays} replays of {L} layers")
+    log(f"[mla] batch: decode_attention_latent {L} x 1 eager + {L} x {x_replays} replays, as "
+        f"expected; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del x_eng, inst
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # each row of the kernels line, and the launches of the path its shape is on
     path = {p: {k: e[k] + r[k] for k in e} for p, (e, r) in path_launches.items()}
@@ -1618,8 +1839,10 @@ def main(argv=None) -> int:
     rows["decode_attention"]["batch"] = batch
     rows["decode_attention"]["shapes"] = rows.pop("decode_attention_shapes")
     own = {"ssd_scan": ("serve", {"zamba2": "hybrid"}),
-           "flash_attention": ("dense", {"zamba2": "hybrid", "mixtral": "moe"}),
-           "decode_attention": ("dense", {"zamba2": "hybrid", "mixtral": "moe"})}
+           "flash_attention": ("dense", {"zamba2": "hybrid", "mixtral": "moe", "mla": "mla"}),
+           "decode_attention": ("dense", {"zamba2": "hybrid", "mixtral": "moe",
+                                          "mla_b1": ("mla", "decode_attention_latent"),
+                                          "mla_b8": ("mla_batch", "decode_attention_latent")})}
     kernels, loss = [], {}
     for name in ("sched_events", "sched_step", "ssd_scan", "flash_attention", "decode_attention"):
         row = rows[name]
@@ -1632,7 +1855,8 @@ def main(argv=None) -> int:
         else:
             main_path, shape_paths = own[name]
             for label, p in shape_paths.items():
-                row["shapes"][label]["launches"] = path[p][name]
+                p, key = p if isinstance(p, tuple) else (p, name)
+                row["shapes"][label]["launches"] = path[p][key]
             subs = [dict(launches=path[main_path][name], ms=row["ms"], bound_ms=row["bound_ms"]),
                     *row.get("batch", {}).values(), *row["shapes"].values()]
             loss[name] = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in subs)

@@ -5,9 +5,9 @@ reads the same in both packages and ``reduced()`` / ``n_params()`` give the
 same numbers.  The ``ssm`` family (mamba2-130m), the ``dense`` family
 (minicpm-2b, gemma3-4b, command-r-35b, command-r-plus-104b), the ``vlm``
 backbone (llava-next-mistral-7b), the ``hybrid`` family (zamba2-2.7b) and
-the ``moe`` family without MLA (mixtral-8x22b) have a model in this package
-so far; ``get_config`` names the ROADMAP item for the others (deepseek-v3-671b
-and whisper-small).
+the ``moe`` family (mixtral-8x22b, and deepseek-v3-671b with MLA and MTP)
+have a model in this package so far; ``get_config`` names the ROADMAP item
+for the one left (whisper-small, an encoder-decoder).
 """
 
 from __future__ import annotations
@@ -224,8 +224,8 @@ def get_config(name: str) -> ModelConfig:
         except ModuleNotFoundError:
             if key in ARCH_IDS:
                 raise NotImplementedError(
-                    f"{key} is not ported yet: MLA (with MTP) and encoder-decoder "
-                    "models are ROADMAP Queue 1 item 7"
+                    f"{key} is not ported yet: encoder-decoder models are ROADMAP "
+                    "Queue 1 item 7"
                 ) from None
             raise KeyError(f"unknown config {name!r}") from None
     return _REGISTRY[key]

@@ -96,7 +96,7 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "sched":
         lib.sched_events_launch.argtypes = [p, p, p, ctypes.c_longlong] + [p] * 6 + [i] * 4 + [p]
         lib.sched_events_launch.restype = i
@@ -108,10 +108,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ssd_scan_max_chunk.argtypes = []
         lib.ssd_scan_max_chunk.restype = i
     elif name == "flash_attention":
-        lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 8 + [p]
+        lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 11 + [p]
         lib.flash_attention_launch.restype = i
     elif name == "decode_attention":
         lib.decode_attention_launch.argtypes = [p] * 7 + [i] * 12 + [p]
         lib.decode_attention_launch.restype = i
         lib.decode_attention_max_group.argtypes = []
         lib.decode_attention_max_group.restype = i
+        lib.decode_attention_latent_launch.argtypes = [p] * 8 + [i] * 8 + [f, i, i, p]
+        lib.decode_attention_latent_launch.restype = i

@@ -57,11 +57,17 @@
 //   loads in flight a thread) and writes out, then resets the ticket to 0
 //   for the next call or graph replay.
 // Positions outside [lo, hi] are never read.
+//
+// The absorbed-MLA entry (decode_attention_latent_launch, below) is the same
+// function on DeepSeek-V2/V3's latent cache: every query head reads the one
+// latent row of a position, so it is laid out by head groups over a row
+// tile instead; its own note follows.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -480,6 +486,377 @@ cudaError_t dispatch_cache(int cache_code, const void* q, const void* kc, const 
   }
 }
 
+// ------------------------------------------------------------ absorbed MLA
+// One-token decode against MLA's latent cache (DeepSeek-V2/V3's absorbed
+// decode; the JAX package computes it with einsums in
+// models/attention.py::mla_decode).  For head h of the new token, with q_lat
+// = q_nope absorbed through W_UK (dc wide) and q_rope (dr wide), against the
+// latent rows c_p (dc) and rope keys r_p (dr) of the live positions p <=
+// valid_len:
+//   out_h = sum_p softmax_p((q_lat_h . c_p + q_rope_h . r_p) * scale) c_p,
+// (dc, dr) = (512, 64) at deepseek-v3.  Same function as
+// kernels/ref.py::decode_attention_latent_ref: float32 running (m, l, acc),
+// out = acc / max(l, 1e-30) in q's type, zeros for a row with none live.
+//
+// What bounds it on this card: all 128 query heads share each cache row, so
+// a row of 576 values (1.1 KB in bfloat16) feeds 128 x 2 x (576 + 512)
+// operations, ~240 a byte: bound by the bf16 tensor-core rate at best, and
+// far from the memory rate.  These products run on CUDA cores in float32
+// (ROADMAP Queue 2: wgmma for the 128-head score and value products).
+//
+// Design (a simple one): the grid is (splits, head groups of kLatHeads, B),
+// from ops.py::latent_geometry (shapes and SM count only, so a captured call
+// replays with new valid_len).  Each CTA takes its share of its row's live
+// range in whole kLatRows-row tiles (ops.py::decode_share with that
+// granule), copies the tiles' c and r rows into shared memory with cp.async
+// (double-buffered, rows outside the share zero-filled, so no dead row is
+// ever read from the cache), and on each tile
+//   1. scores: the 16 lanes of a half-warp share a head; lane k holds the
+//      head's query chunks k, k + 16, ... (36 of its 576 values, float32 in
+//      registers for the whole call) and forms its partial dot with each of
+//      the tile's 16 rows, reading only the rows from shared memory; a
+//      transposing butterfly (15 shuffles) leaves lane j the score of row
+//      j; then the head's online softmax over the tile with 16-lane
+//      shuffles;
+//   2. values: each thread owns 4 heads x 8 latent columns of acc in
+//      registers (16 x 512 float32 over 256 threads) and adds p * c_p for
+//      the tile's rows.
+// The 16 heads of a CTA keep 16 x 512 float32 accumulators: the whole 128
+// would take 256 KB, beyond a CTA's registers and shared memory, so the 8
+// head groups each read the rows (the later ones mostly from L2).  The
+// splits merge in the same launch through the tickets, as above; the last
+// CTA reads splits x 32 KB a head group, so ops.py caps the splits at 16.
+constexpr int kLatHeads = 16;    // query heads a CTA (ops.LATENT_HEADS)
+constexpr int kLatRows = 16;     // cache rows a tile (ops.LATENT_ROWS)
+constexpr int kLatThreads = kLatHeads * kLatRows;
+constexpr int kLatCols = 8;      // latent columns of acc a thread
+constexpr int kLatHeadsPer = 4;  // heads of acc a thread
+constexpr int kLatChunk = 4;     // query / row elements a chunk of the scores
+
+__device__ __forceinline__ void lat_cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void lat_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void lat_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+template <typename TC, int DC, int DR>
+struct LatCfg {
+  static constexpr int DQ = DC + DR;
+  static constexpr int LDT = DQ + 16 / (int)sizeof(TC);  // a tile row, padded 16 bytes
+  static constexpr int VEC = 16 / (int)sizeof(TC);
+  static constexpr int NQ = DQ / (kLatChunk * kLatRows);  // query chunks a lane
+  static constexpr size_t smem = sizeof(TC) * 2 * kLatRows * LDT +       // two tiles
+                                 sizeof(float) * kLatRows * kLatHeads;   // p
+  static_assert(DC % 16 == 0 && DR % 16 == 0, "16-byte chunks of c and r");
+  static_assert(DC % kLatChunk == 0 && DQ % (kLatChunk * kLatRows) == 0, "query chunks");
+  static_assert(DC / kLatCols * (kLatHeads / kLatHeadsPer) == kLatThreads, "acc layout");
+};
+
+__device__ __forceinline__ float4 lat_load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 lat_load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                     __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+}
+
+// rows [row0, row0 + kLatRows) of the caches into a tile: c in columns
+// [0, DC), r in [DC, DC + DR); rows at or past `end` zero-filled
+template <typename TC, int DC, int DR>
+__device__ __forceinline__ void lat_load_tile(TC* tile, const TC* __restrict__ cc,
+                                              const TC* __restrict__ rc, int b, int S, int row0,
+                                              int end) {
+  using C = LatCfg<TC, DC, DR>;
+  constexpr int CC = DC / C::VEC, CR = DR / C::VEC;  // 16-byte chunks of a c and an r row
+  for (int e = threadIdx.x; e < kLatRows * (CC + CR); e += kLatThreads) {
+    const int r = e / (CC + CR), ch = e % (CC + CR);
+    const int row = row0 + r;
+    const bool in = row < end;
+    const TC* from = ch < CC ? cc + ((size_t)b * S + (in ? row : 0)) * DC + ch * C::VEC
+                             : rc + ((size_t)b * S + (in ? row : 0)) * DR + (ch - CC) * C::VEC;
+    lat_cp_async16(tile + r * C::LDT + ch * C::VEC, from, in);
+  }
+}
+
+template <typename TQ, typename TC, int DC, int DR>
+__global__ void __launch_bounds__(kLatThreads)
+latent_kernel(const TQ* __restrict__ q_lat, const TQ* __restrict__ q_rope,
+              const TC* __restrict__ cc, const TC* __restrict__ rc, TQ* __restrict__ out,
+              float* __restrict__ part, int* __restrict__ tickets,
+              const int* __restrict__ valid_dev, int valid_stride, int valid_host, int S, int H,
+              float scale_log2) {
+  using C = LatCfg<TC, DC, DR>;
+  constexpr int LDT = C::LDT, VEC = C::VEC, NQ = C::NQ;
+  extern __shared__ __align__(16) unsigned char lat_smem[];
+  TC* tiles = reinterpret_cast<TC*>(lat_smem);                       // 2 x (kLatRows, LDT)
+  float* ps = reinterpret_cast<float*>(tiles + 2 * kLatRows * LDT);  // (kLatRows, kLatHeads)
+  __shared__ __align__(16) float s_alpha[kLatHeads];
+  __shared__ int s_last;
+
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int hg = blockIdx.y, b = blockIdx.z;
+  const int unit = b * gridDim.y + hg;  // (batch, head group)
+  const int h0 = hg * kLatHeads;
+  const int tid = threadIdx.x;
+
+  // this CTA's share of its row's live range [0, hi], in whole tiles
+  const long long valid =
+      valid_dev ? (long long)valid_dev[(size_t)b * valid_stride] : (long long)valid_host;
+  const long long hi = min(valid, (long long)S - 1);
+  int beg = 0, end = 0;
+  if (hi >= 0) {
+    const long long n = hi + 1;
+    const long long per = ((n + kLatRows - 1) / kLatRows + splits - 1) / splits * kLatRows;
+    const long long bb = split * per, ee = min(hi + 1, bb + per);
+    if (ee > bb) {
+      beg = (int)bb;
+      end = (int)ee;
+    }
+  }
+  const int n_tiles = (end - beg + kLatRows - 1) / kLatRows;
+  if (n_tiles > 0) lat_load_tile<TC, DC, DR>(tiles, cc, rc, b, S, beg, end);
+  lat_commit();
+
+  // scores: thread (sh, sj) = (head, lane of the head's half-warp), which
+  // holds the query chunks sj + 16 i and ends with the score of row sj;
+  // values: thread (vh, vc) = (heads 4 vh .. 4 vh + 3, latent columns 8 vc ..
+  // 8 vc + 7)
+  const int sh = tid / kLatRows, sj = tid % kLatRows;
+  float4 qr[NQ];
+  {
+    const size_t row = (size_t)b * H + h0 + sh;
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int d = (sj + kLatRows * i) * kLatChunk;  // a chunk never straddles q_lat | q_rope
+      const TQ* src = d < DC ? q_lat + row * DC + d : q_rope + row * DR + d - DC;
+      qr[i] = make_float4(to_f(src[0]), to_f(src[1]), to_f(src[2]), to_f(src[3]));
+    }
+  }
+  const int vh = tid / (DC / kLatCols), vc = tid % (DC / kLatCols);
+  float m = kNegInf, l = 0.f;  // head sh's running max and sum
+  float acc[kLatHeadsPer][kLatCols];
+#pragma unroll
+  for (int i = 0; i < kLatHeadsPer; ++i)
+#pragma unroll
+    for (int c = 0; c < kLatCols; ++c) acc[i][c] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int row0 = beg + t * kLatRows;
+    if (t + 1 < n_tiles)
+      lat_load_tile<TC, DC, DR>(tiles + ((t + 1) & 1) * kLatRows * LDT, cc, rc, b, S,
+                                row0 + kLatRows, end);
+    lat_commit();
+    lat_wait<1>();  // tile t has landed
+    __syncthreads();
+    const TC* tile = tiles + (t & 1) * kLatRows * LDT;
+
+    // 1. lane sj's partial dots of head sh with every row of the tile, then
+    // the transposing butterfly: at each step a lane keeps the half of the
+    // rows whose bit `off` matches its own and adds its partner's partials
+    // of them, so lane sj ends with the whole score of row sj
+    float part[kLatRows];
+#pragma unroll
+    for (int j = 0; j < kLatRows; ++j) {
+      const TC* trow = tile + j * LDT + sj * kLatChunk;
+      float acc0 = 0.f, acc1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        const float4 x = lat_load4(trow + i * kLatRows * kLatChunk);
+        acc0 = fmaf(qr[i].x, x.x, acc0);
+        acc1 = fmaf(qr[i].y, x.y, acc1);
+        acc0 = fmaf(qr[i].z, x.z, acc0);
+        acc1 = fmaf(qr[i].w, x.w, acc1);
+      }
+      part[j] = acc0 + acc1;
+    }
+#pragma unroll
+    for (int off = kLatRows / 2; off > 0; off >>= 1) {
+      const bool upper = (sj & off) != 0;
+#pragma unroll
+      for (int r = 0; r < off; ++r) {
+        const float send = upper ? part[r] : part[r + off];
+        const float keep = upper ? part[r + off] : part[r];
+        part[r] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+      }
+    }
+    const bool live = row0 + sj < end;
+    const float sc = part[0] * scale_log2;
+    float mt = live ? sc : kNegInf;
+#pragma unroll
+    for (int o = kLatRows / 2; o > 0; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+    const float mn = fmaxf(m, mt);
+    const float alpha = exp2f(m - mn);
+    const float p = live ? exp2f(sc - mn) : 0.f;
+    float ls = p;
+#pragma unroll
+    for (int o = kLatRows / 2; o > 0; o >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, o);
+    l = l * alpha + ls;
+    m = mn;
+    ps[sj * kLatHeads + sh] = p;
+    if (sj == 0) s_alpha[sh] = alpha;
+    __syncthreads();
+
+    // 2. acc[head][col] = acc * alpha + sum over the tile's rows of p * c
+    const float4 al = *reinterpret_cast<const float4*>(s_alpha + kLatHeadsPer * vh);
+    const float alv[4] = {al.x, al.y, al.z, al.w};
+#pragma unroll
+    for (int i = 0; i < kLatHeadsPer; ++i)
+#pragma unroll
+      for (int c = 0; c < kLatCols; ++c) acc[i][c] *= alv[i];
+#pragma unroll 4
+    for (int j = 0; j < kLatRows; ++j) {
+      const float4 pv = *reinterpret_cast<const float4*>(ps + j * kLatHeads + kLatHeadsPer * vh);
+      const float pj[4] = {pv.x, pv.y, pv.z, pv.w};
+      float x[kLatCols];
+#pragma unroll
+      for (int c = 0; c < kLatCols; c += VEC) {
+        float y[VEC];
+        unpack<TC>(*reinterpret_cast<const uint4*>(tile + j * LDT + vc * kLatCols + c), y);
+#pragma unroll
+        for (int e = 0; e < VEC && c + e < kLatCols; ++e) x[c + e] = y[e];
+      }
+#pragma unroll
+      for (int i = 0; i < kLatHeadsPer; ++i)
+#pragma unroll
+        for (int c = 0; c < kLatCols; ++c) acc[i][c] = fmaf(pj[i], x[c], acc[i][c]);
+    }
+    __syncthreads();  // tile t and p are free for the next copy
+  }
+  lat_wait<0>();  // no copy outlives the CTA
+
+  // this CTA's partial: acc (units, splits, kLatHeads, DC), then (m, l)
+  // (units, splits, 2, kLatHeads)
+  const int n_units = gridDim.z * gridDim.y;
+  float* acc_part = part;
+  float* ml_part = part + (size_t)n_units * splits * kLatHeads * DC;
+  const size_t pidx = (size_t)unit * splits + split;
+#pragma unroll
+  for (int i = 0; i < kLatHeadsPer; ++i) {
+    float4* dst = reinterpret_cast<float4*>(
+        acc_part + (pidx * kLatHeads + kLatHeadsPer * vh + i) * DC + vc * kLatCols);
+#pragma unroll
+    for (int c = 0; c < kLatCols; c += 4)
+      dst[c / 4] = make_float4(acc[i][c], acc[i][c + 1], acc[i][c + 2], acc[i][c + 3]);
+  }
+  if (sj == 0) {
+    ml_part[pidx * 2 * kLatHeads + sh] = m;
+    ml_part[pidx * 2 * kLatHeads + kLatHeads + sh] = l;
+  }
+  __syncthreads();  // every store of the partial issued; thread 0 releases them
+  if (tid == 0) {   // acquire-release: the last CTA sees every partial
+    int tk;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(tk) : "l"(&tickets[unit]) : "memory");
+    s_last = tk == splits - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+
+  // the last CTA merges the splits: one column of 4 floats a thread at a
+  // time, kMerge splits' (m, l, acc) loaded together (one L2 round trip
+  // each batch) and merged online
+  const float* accs = acc_part + (size_t)unit * splits * kLatHeads * DC;
+  const float* mls = ml_part + (size_t)unit * splits * 2 * kLatHeads;
+  for (int i = tid; i < kLatHeads * DC / 4; i += kLatThreads) {
+    const int h = i * 4 / DC;
+    float M = kNegInf, L = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < splits; s0 += kMerge) {
+      float mm[kMerge], ll[kMerge];
+      float4 x[kMerge];
+#pragma unroll
+      for (int j = 0; j < kMerge; ++j) {
+        const int sp = s0 + j;
+        if (sp < splits) {
+          mm[j] = __ldcg(mls + sp * 2 * kLatHeads + h);
+          ll[j] = __ldcg(mls + sp * 2 * kLatHeads + kLatHeads + h);
+          x[j] = __ldcg(reinterpret_cast<const float4*>(accs + (size_t)sp * kLatHeads * DC) +
+                        i);
+        } else {
+          mm[j] = kNegInf;
+          ll[j] = 0.f;
+          x[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+      float mb = M;
+#pragma unroll
+      for (int j = 0; j < kMerge; ++j) mb = fmaxf(mb, mm[j]);
+      const float r = exp2f(M - mb);
+      L *= r;
+      a = make_float4(a.x * r, a.y * r, a.z * r, a.w * r);
+#pragma unroll
+      for (int j = 0; j < kMerge; ++j) {
+        const float w = exp2f(mm[j] - mb);
+        L = fmaf(ll[j], w, L);
+        a = make_float4(fmaf(x[j].x, w, a.x), fmaf(x[j].y, w, a.y), fmaf(x[j].z, w, a.z),
+                        fmaf(x[j].w, w, a.w));
+      }
+      M = mb;
+    }
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    TQ* o = out + ((size_t)b * H + h0) * DC + i * 4;
+    store(o, a.x * inv);
+    store(o + 1, a.y * inv);
+    store(o + 2, a.z * inv);
+    store(o + 3, a.w * inv);
+  }
+  if (tid == 0) tickets[unit] = 0;  // ready for the next call
+}
+
+template <typename TQ, typename TC, int DC, int DR>
+cudaError_t latent_launch(const void* q_lat, const void* q_rope, const void* cc, const void* rc,
+                          void* out, float* part, int* tickets, const int* valid_dev,
+                          int valid_stride, int valid_host, int B, int S, int H, int splits,
+                          float scale, cudaStream_t stream) {
+  constexpr size_t smem = LatCfg<TC, DC, DR>::smem;
+  static bool opted_in = false;  // the attribute is set once per instantiation
+  if (smem > 48 * 1024 && !opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(latent_kernel<TQ, TC, DC, DR>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  latent_kernel<TQ, TC, DC, DR><<<dim3(splits, H / kLatHeads, B), kLatThreads, smem, stream>>>(
+      static_cast<const TQ*>(q_lat), static_cast<const TQ*>(q_rope), static_cast<const TC*>(cc),
+      static_cast<const TC*>(rc), static_cast<TQ*>(out), part, tickets, valid_dev, valid_stride,
+      valid_host, S, H, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TC>
+cudaError_t latent_dispatch(int dc, int dr, const void* q_lat, const void* q_rope,
+                            const void* cc, const void* rc, void* out, float* part, int* tickets,
+                            const int* valid_dev, int valid_stride, int valid_host, int B, int S,
+                            int H, int splits, float scale, cudaStream_t s) {
+  if (dc == 512 && dr == 64)  // deepseek-v3: kv_lora 512, qk_rope 64
+    return latent_launch<TQ, TC, 512, 64>(q_lat, q_rope, cc, rc, out, part, tickets, valid_dev,
+                                          valid_stride, valid_host, B, S, H, splits, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename TQ>
+cudaError_t latent_dispatch_cache(int cache_code, int dc, int dr, const void* q_lat,
+                                  const void* q_rope, const void* cc, const void* rc, void* out,
+                                  float* part, int* tickets, const int* valid_dev,
+                                  int valid_stride, int valid_host, int B, int S, int H,
+                                  int splits, float scale, cudaStream_t s) {
+  switch (cache_code) {
+    case 0: return latent_dispatch<TQ, float>(dc, dr, q_lat, q_rope, cc, rc, out, part, tickets,
+                                              valid_dev, valid_stride, valid_host, B, S, H,
+                                              splits, scale, s);
+    case 1: return latent_dispatch<TQ, __nv_bfloat16>(dc, dr, q_lat, q_rope, cc, rc, out, part,
+                                                      tickets, valid_dev, valid_stride,
+                                                      valid_host, B, S, H, splits, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int decode_attention_max_group() { return kMaxG; }
@@ -513,6 +890,38 @@ extern "C" int decode_attention_launch(const void* q, const void* kc, const void
     case 1: return (int)dispatch_cache<__nv_bfloat16>(cache_code, q, kc, vc, out, part, tickets,
                                                       valid_dev, valid_stride, valid_host, B, S,
                                                       H, KH, hd, window, gb, splits, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// q_lat, out: (B, H, dc) and q_rope: (B, H, dr), float32 (q_code 0) or
+// bfloat16 (1); c_cache: (B, S, dc) and r_cache: (B, S, dr), float32
+// (cache_code 0) or bfloat16 (1), 16-byte aligned; all contiguous.  (dc, dr)
+// = (512, 64); H a multiple of 16.  valid_len as for decode_attention_launch
+// (no window).  splits <= 1024 CTAs a (batch, head group) unit, from
+// ops.py::latent_geometry.  Scratch: part, float32, units * splits * 16 *
+// (dc + 2); tickets as for decode_attention_launch, one per unit (units = B
+// * H / 16).  scale multiplies the scores (MLA: 1/sqrt(qk_nope + qk_rope)).
+extern "C" int decode_attention_latent_launch(const void* q_lat, const void* q_rope,
+                                              const void* cc, const void* rc, void* out,
+                                              float* part, int* tickets, const int* valid_dev,
+                                              int valid_stride, int valid_host, int B, int S,
+                                              int H, int dc, int dr, int splits, float scale,
+                                              int q_code, int cache_code, void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || H < kLatHeads || H % kLatHeads != 0 || splits < 1 ||
+      splits > kMaxSplits || valid_stride < 0 || valid_stride > 1 || !(scale > 0.f))
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)cc | (uintptr_t)rc) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (q_code) {
+    case 0: return (int)latent_dispatch_cache<float>(cache_code, dc, dr, q_lat, q_rope, cc, rc,
+                                                     out, part, tickets, valid_dev,
+                                                     valid_stride, valid_host, B, S, H, splits,
+                                                     scale, s);
+    case 1: return (int)latent_dispatch_cache<__nv_bfloat16>(cache_code, dc, dr, q_lat, q_rope,
+                                                             cc, rc, out, part, tickets,
+                                                             valid_dev, valid_stride, valid_host,
+                                                             B, S, H, splits, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -7,6 +7,11 @@
 // where j is live when j <= i (causal) and i - j < window (window set).  Same
 // function as kernels/ref.py::flash_attention_ref: masked logits never count,
 // the running (m, l, acc) are float32, out = acc / max(l, 1e-30) in q's type.
+// The value head dim HDV may differ from the q/k head dim HD: MLA's prefill
+// (deepseek-v3) attends with q/k heads of 192 (nope 128 + rope 64) and value
+// heads of 128, instantiated as (192, 128).  K and V are read at a head
+// stride the caller gives, so MLA's V is read in place as the tail of each
+// head's [k_nope | v] row, with no copy.
 //
 // What bounds it on this card: operations.  At minicpm-2b prefill (B=1,
 // S=1024, H=36, hd=64, causal) it does ~4.8 GFLOP against ~38 MB of q, k, v
@@ -37,6 +42,11 @@
 //     give 576 CTAs at minicpm-2b width, three per SM.
 // Masks are per element, so any S works (the TPU kernel asserted
 // S % block == 0).  q, k and v must be 16-byte aligned (the wrapper checks).
+//
+// At MLA's (192, 128) the work is 4 x 160 operations a live pair against 1.3
+// KB of q/k/v a row: in bfloat16 at deepseek-v3 prefill (S=1024, 128 heads)
+// ~11 GFLOP, bound by operations at the bf16 tensor-core rate, which these
+// CUDA-core products do not reach (ROADMAP Queue 2: a tensor-core path).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,17 +65,19 @@ template <> struct Cfg<64> { static constexpr int BQ = 64, BK = 64, RM = 8, TC =
 template <> struct Cfg<80> { static constexpr int BQ = 64, BK = 16, RM = 4, TC = 4, MinB = 1; };
 template <> struct Cfg<128> { static constexpr int BQ = 64, BK = 64, RM = 4, TC = 16, MinB = 1; };
 template <> struct Cfg<256> { static constexpr int BQ = 64, BK = 64, RM = 4, TC = 16, MinB = 1; };
+template <> struct Cfg<192> { static constexpr int BQ = 64, BK = 64, RM = 4, TC = 16, MinB = 1; };
 
 template <int HD> __host__ __device__ constexpr int threads() {
   return Cfg<HD>::BQ / Cfg<HD>::RM * Cfg<HD>::TC;
 }
-// shared-memory row of Q, K and V in elements: HD plus 16 bytes
+// shared-memory row of Q, K and V in elements: the head dim plus 16 bytes
 template <typename T, int HD> __host__ __device__ constexpr int row_ld() {
   return HD + 16 / (int)sizeof(T);
 }
-template <typename T, int HD> constexpr size_t smem_bytes() {
+template <typename T, int HD, int HDV> constexpr size_t smem_bytes() {
   using C = Cfg<HD>;
-  return sizeof(T) * (size_t)(C::BQ + 2 * C::BK) * row_ld<T, HD>() +
+  return sizeof(T) * ((size_t)(C::BQ + C::BK) * row_ld<T, HD>() +
+                      (size_t)C::BK * row_ld<T, HDV>()) +
          sizeof(float) * (size_t)C::BQ * (C::BK + 4);
 }
 
@@ -100,11 +112,12 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// rows [row0, row0 + R) of head `head` of a (B, S, heads, HD) tensor into a
-// (R, row_ld) tile; rows at or past S are zero-filled
+// rows [row0, row0 + R) of head `head` of a (B, S, heads, HD) tensor whose
+// heads lie ld elements apart (ld = HD when contiguous) into a (R, row_ld)
+// tile; rows at or past S are zero-filled
 template <typename T, int HD, int R, int NT>
 __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int b, int row0,
-                                          int S, int heads, int head) {
+                                          int S, int heads, int head, int ld) {
   constexpr int kPer = 16 / (int)sizeof(T);  // elements per 16-byte copy
   constexpr int kChunks = HD / kPer;         // copies per row
   constexpr int LD = row_ld<T, HD>();
@@ -112,31 +125,32 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int
     const int r = e / kChunks, ch = e % kChunks;
     const int row = row0 + r;
     const bool in = row < S;
-    const T* from = in ? src + (((size_t)b * S + row) * heads + head) * HD + ch * kPer : src;
+    const T* from = in ? src + (((size_t)b * S + row) * heads + head) * ld + ch * kPer : src;
     cp_async16(dst + r * LD + ch * kPer, from, in);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(threads<HD>(), Cfg<HD>::MinB)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       T* __restrict__ o, int S, int H, int KH, float scale_log2, int causal,
-                       int window) {
+                       T* __restrict__ o, int S, int H, int KH, int ldk, int ldv,
+                       float scale_log2, int causal, int window) {
   using C = Cfg<HD>;
   constexpr int BQ = C::BQ, BK = C::BK, RM = C::RM, TC = C::TC;
   constexpr int NT = threads<HD>();
   constexpr int CM = BK / TC;               // score columns per thread
-  constexpr int NG = HD / 4;                // float4 column groups of acc
+  constexpr int NG = HDV / 4;               // float4 column groups of acc
   constexpr int GPL = NG / TC;              // groups per lane
   constexpr int LD = row_ld<T, HD>();
+  constexpr int LDV = row_ld<T, HDV>();
   constexpr int LDP = BK + 4;
   static_assert(BK % TC == 0 && NG % TC == 0 && 32 % TC == 0 && BQ % RM == 0, "tile shape");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);  // (BQ, LD)
   T* Ks = Qs + BQ * LD;                    // (BK, LD)
-  T* Vs = Ks + BK * LD;                    // (BK, LD)
-  float* Ps = reinterpret_cast<float*>(Vs + BK * LD);  // (BQ, LDP) probabilities
+  T* Vs = Ks + BK * LD;                    // (BK, LDV)
+  float* Ps = reinterpret_cast<float*>(Vs + BK * LDV);  // (BQ, LDP) probabilities
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // last tile first
@@ -149,10 +163,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   const int k_hi = causal ? q_end : S;
   const int k_start = (k_lo / BK) * BK;
 
-  load_tile<T, HD, BQ, NT>(Qs, q, b, q0, S, H, h);
-  load_tile<T, HD, BK, NT>(Ks, k, b, k_start, S, KH, kh);
+  load_tile<T, HD, BQ, NT>(Qs, q, b, q0, S, H, h, HD);
+  load_tile<T, HD, BK, NT>(Ks, k, b, k_start, S, KH, kh, ldk);
   cp_async_commit();
-  load_tile<T, HD, BK, NT>(Vs, v, b, k_start, S, KH, kh);
+  load_tile<T, HDV, BK, NT>(Vs, v, b, k_start, S, KH, kh, ldv);
   cp_async_commit();
 
   float m[RM], l[RM], acc[RM][4 * GPL];
@@ -219,7 +233,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
       for (int j = 0; j < 4 * GPL; ++j) acc[r][j] *= alpha;
     }
     __syncthreads();  // K_j is free and P is visible
-    if (more) load_tile<T, HD, BK, NT>(Ks, k, b, k0 + BK, S, KH, kh);
+    if (more) load_tile<T, HD, BK, NT>(Ks, k, b, k0 + BK, S, KH, kh, ldk);
     cp_async_commit();
     cp_async_wait<1>();  // V_j has landed (K_{j+1} may be in flight)
     __syncthreads();
@@ -233,7 +247,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
         for (int g = 0; g < GPL; ++g) {
-          const float4 vv = load4(Vs + (kk + i) * LD + 4 * (tx + TC * g));
+          const float4 vv = load4(Vs + (kk + i) * LDV + 4 * (tx + TC * g));
 #pragma unroll
           for (int r = 0; r < RM; ++r) {
             const float p = at(pv[r], i);
@@ -246,7 +260,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
       }
     }
     __syncthreads();  // V_j and P are free
-    if (more) load_tile<T, HD, BK, NT>(Vs, v, b, k0 + BK, S, KH, kh);
+    if (more) load_tile<T, HDV, BK, NT>(Vs, v, b, k0 + BK, S, KH, kh, ldv);
     cp_async_commit();
   }
   cp_async_wait<0>();  // no copy outlives the CTA
@@ -256,7 +270,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     const int qi = q0 + ty * RM + r;
     if (qi >= S) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    T* out = o + (((size_t)b * S + qi) * H + h) * HD;
+    T* out = o + (((size_t)b * S + qi) * H + h) * HDV;
 #pragma unroll
     for (int g = 0; g < GPL; ++g)
 #pragma unroll
@@ -264,50 +278,63 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                   int KH, int causal, int window, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, HD>();
+                   int KH, int ldk, int ldv, int causal, int window, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, HD, HDV>();
   static bool opted_in = false;  // the attribute is set once per instantiation
   if (smem > 48 * 1024 && !opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HD, HDV>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
+  if (ldk < HD || ldv < HDV || (ldk * sizeof(T)) % 16 || (ldv * sizeof(T)) % 16)
+    return cudaErrorInvalidValue;
   const dim3 grid(H, B, (S + Cfg<HD>::BQ - 1) / Cfg<HD>::BQ);
-  flash_attention_kernel<T, HD><<<grid, threads<HD>(), smem, stream>>>(
+  flash_attention_kernel<T, HD, HDV><<<grid, threads<HD>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, KH, (1.0f / sqrtf((float)HD)) * kLog2e, causal, window);
+      static_cast<T*>(o), S, H, KH, ldk, ldv, (1.0f / sqrtf((float)HD)) * kLog2e, causal,
+      window);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                     int KH, int hd, int causal, int window, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KH, causal, window, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KH, causal, window, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KH, causal, window, s);
-    case 80: return launch<T, 80>(q, k, v, o, B, S, H, KH, causal, window, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KH, causal, window, s);
-    case 256: return launch<T, 256>(q, k, v, o, B, S, H, KH, causal, window, s);
-    default: return cudaErrorInvalidValue;
-  }
+                     int KH, int hd, int hd_v, int ldk, int ldv, int causal, int window,
+                     cudaStream_t s) {
+#define REPRO_FLASH_CASE(D, DV)                                                             \
+  if (hd == D && hd_v == DV)                                                                \
+    return launch<T, D, DV>(q, k, v, o, B, S, H, KH, ldk, ldv, causal, window, s)
+  REPRO_FLASH_CASE(16, 16);
+  REPRO_FLASH_CASE(32, 32);
+  REPRO_FLASH_CASE(64, 64);
+  REPRO_FLASH_CASE(80, 80);
+  REPRO_FLASH_CASE(128, 128);
+  REPRO_FLASH_CASE(256, 256);
+  REPRO_FLASH_CASE(192, 128);  // MLA: nope + rope against v
+#undef REPRO_FLASH_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, o: (B, S, H, hd); k, v: (B, S, KH, hd), all contiguous and 16-byte
-// aligned, float32 or (when is_bf16) bfloat16.  H % KH == 0; hd one of 16,
-// 32, 64, 80, 128, 256; window <= 0 means no window.
+// q: (B, S, H, hd), o: (B, S, H, hd_v), both contiguous; k: (B, S, KH, hd)
+// and v: (B, S, KH, hd_v) with their heads ldk and ldv elements apart (the
+// head dim when contiguous; each a multiple of 16 bytes); all 16-byte
+// aligned, float32 or (when is_bf16) bfloat16.  H % KH == 0; (hd, hd_v) with
+// hd_v == hd one of 16, 32, 64, 80, 128, 256, or (192, 128); window <= 0
+// means no window.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
-                                      int S, int H, int KH, int hd, int causal, int window,
-                                      int is_bf16, void* stream) {
+                                      int S, int H, int KH, int hd, int hd_v, int ldk, int ldv,
+                                      int causal, int window, int is_bf16, void* stream) {
   if (B < 1 || S < 1 || KH < 1 || H % KH != 0 || B > 65535) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KH, hd, causal, window, s)
-                       : dispatch<float>(q, k, v, o, B, S, H, KH, hd, causal, window, s));
+  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KH, hd, hd_v, ldk, ldv,
+                                                 causal, window, s)
+                       : dispatch<float>(q, k, v, o, B, S, H, KH, hd, hd_v, ldk, ldv, causal,
+                                         window, s));
 }

@@ -28,11 +28,27 @@ from . import build, ref
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"sched_events": 0, "sched_step": 0, "ssd_scan": 0,
-                            "flash_attention": 0, "decode_attention": 0}
+                            "flash_attention": 0, "decode_attention": 0,
+                            "decode_attention_latent": 0}
 
 #: head dims the attention kernels are instantiated for (the repo's attention
 #: configs, plus 16 and 32 for the tiny serving and test configs)
 ATTN_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+#: (q/k head dim, v head dim) pairs the prefill kernel is instantiated for
+#: beside the equal ones: MLA's expanded heads (deepseek-v3: nope 128 + rope
+#: 64 against v 128)
+FLASH_SPLIT_DIMS = ((192, 128),)
+#: (latent, rope) dims the absorbed-MLA decode kernel is instantiated for
+#: (deepseek-v3: kv_lora 512, qk_rope 64), the query heads one CTA carries
+#: (``LATENT_HEADS`` x 512 float32 accumulators in registers), the cache rows
+#: of one shared-memory tile (also the granule of a CTA's share), the CTAs
+#: it aims for per SM, and the most splits a unit (the last CTA merges
+#: splits x 32 KB of partials)
+LATENT_DIMS = ((512, 64),)
+LATENT_HEADS = 16
+LATENT_ROWS = 16
+LATENT_CTAS_PER_SM = 2
+LATENT_MAX_SPLITS = 16
 #: the decode kernel's geometry (``decode_geometry``): CTAs it aims for per
 #: SM, the granule of cache rows a CTA's share is made of, the float32
 #: partial columns (splits x heads x hd) that one CTA may merge before the
@@ -222,33 +238,66 @@ def _attn_checks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_shape, kv_
         raise ValueError(f"attention kernels take head_dim in {ATTN_HEAD_DIMS}, got {hd}")
 
 
+def _head_stride(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...]) -> int:
+    """The element stride between the heads of a (B, S, heads, hd) tensor
+    that the flash kernel reads in place: contiguous, or a slice of the last
+    dim of a contiguous tensor (MLA's v, the tail of each head's [k_nope |
+    v] row), each head's row 16-byte aligned."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    B, S, KH, hd = shape
+    ld = t.stride(2) if KH > 1 else t.stride(1) if S > 1 else t.stride(0) if B > 1 else hd
+    if ld < hd or t.stride(3) != 1 or (KH > 1 and S > 1 and t.stride(1) != KH * ld) or \
+            (B > 1 and t.stride(0) != S * KH * ld) or (ld * t.element_size()) % 16:
+        raise ValueError(f"{name}: the kernel reads rows of {hd} at a head stride of 16-byte "
+                         f"multiples, got strides {t.stride()}")
+    return ld
+
+
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None):
-    """Attention over a whole sequence (prefill).  q (B,S,H,hd); k, v
-    (B,S,KH,hd), each in any of ``FLOAT_DTYPES``: float32 or bfloat16 alike
-    run as they are, any other mix is cast to float32 first and the output
-    cast back to q's dtype.  Query head h reads kv head h // (H/KH).  Key j
-    is live for query i when ``j <= i`` (causal) and ``i - j < window``
-    (window set): the kernel takes positions from row and column indices, so
-    callers' positions must be ``arange(S)``.  Any S.  On the card q, k and
-    v must be 16-byte aligned.  Returns (B,S,H,hd) in q's dtype."""
+    """Attention over a whole sequence (prefill).  q (B,S,H,hd); k (B,S,KH,hd);
+    v (B,S,KH,hd_v) with hd_v == hd, or (hd, hd_v) one of
+    ``FLASH_SPLIT_DIMS`` (MLA); each in any of ``FLOAT_DTYPES``: float32 or
+    bfloat16 alike run as they are, any other mix is cast to float32 first
+    and the output cast back to q's dtype.  Query head h reads kv head
+    h // (H/KH).  Key j is live for query i when ``j <= i`` (causal) and
+    ``i - j < window`` (window set): the kernel takes positions from row and
+    column indices, so callers' positions must be ``arange(S)``.  The logits
+    are scaled by ``1/sqrt(hd)``, the q/k head dim (the Pallas kernel's).
+    Any S.  On the card q must be contiguous; k and v may also
+    be a slice of the last dim of a contiguous tensor (read in place, at
+    their head stride); all 16-byte aligned.  Returns (B,S,H,hd_v) in q's
+    dtype."""
     _check_floats(q=q, k=k, v=v)
     if not (q.dtype in _Q_CODES and k.dtype == v.dtype == q.dtype):
         return flash_attention(q.float(), k.float(), v.float(), causal, window).to(q.dtype)
     if not _on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal, window)
     B, S, H, hd = q.shape
-    _attn_checks(q, k, v, (B, S, H, hd), (B, S, k.shape[2], hd))
+    KH, hd_v = k.shape[2], v.shape[-1]
+    if KH < 1 or H % KH:
+        raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {KH}")
+    if hd_v != hd and (hd, hd_v) not in FLASH_SPLIT_DIMS:
+        raise ValueError(f"flash_attention kernel takes head dims (q/k, v) equal in "
+                         f"{ATTN_HEAD_DIMS} or one of {FLASH_SPLIT_DIMS}, got ({hd}, {hd_v})")
+    if hd_v == hd and hd not in ATTN_HEAD_DIMS:
+        raise ValueError(f"attention kernels take head_dim in {ATTN_HEAD_DIMS}, got {hd}")
+    _check("q", q, q.dtype, (B, S, H, hd))
+    ldk = _head_stride("k", k, q.dtype, (B, S, KH, hd))
+    ldv = _head_stride("v", v, q.dtype, (B, S, KH, hd_v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention kernel copies q, k and v 16 bytes at a time: "
                          "their storage must be 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    out = torch.empty_like(q)
+    out = torch.empty((B, S, H, hd_v), dtype=q.dtype, device=q.device)
     lib = build.load("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], hd,
-            int(causal), window or 0, _Q_CODES[q.dtype], _stream(q),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, KH, hd, hd_v,
+            ldk, ldv, int(causal), window or 0, _Q_CODES[q.dtype], _stream(q),
         )
     _raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
@@ -284,16 +333,16 @@ def decode_geometry(B: int, KH: int, G: int, hd: int, elem: int, n_sm: int) -> T
 
 
 def decode_share(valid_len: int, S: int, window: Optional[int], splits: int,
-                 split: int) -> Tuple[int, int]:
+                 split: int, g: int = DECODE_SHARE_ROWS) -> Tuple[int, int]:
     """Cache rows ``[begin, end)`` that CTA ``split`` of a unit reads: an
-    equal share of the live range ``[lo, hi]`` in whole
-    ``DECODE_SHARE_ROWS``-row granules; empty (``begin == end``) past its end
-    or when no position is live.  The kernel computes the same on the card."""
+    equal share of the live range ``[lo, hi]`` in whole ``g``-row granules
+    (``DECODE_SHARE_ROWS``; the latent kernel's tile rows for
+    ``decode_attention_latent``); empty (``begin == end``) past its end
+    or when no position is live.  The kernels compute the same on the card."""
     lo = max(0, valid_len - window + 1) if window else 0
     hi = min(valid_len, S - 1)
     if hi < lo:
         return 0, 0
-    g = DECODE_SHARE_ROWS
     per = -(-(-(-(hi - lo + 1) // g)) // splits) * g
     begin = lo + split * per
     end = min(hi + 1, begin + per)
@@ -303,6 +352,13 @@ def decode_share(valid_len: int, S: int, window: Optional[int], splits: int,
 _n_sm: Dict[torch.device, int] = {}
 _tickets: Dict[torch.device, torch.Tensor] = {}
 _held_tickets: List[torch.Tensor] = []
+
+
+def _sm_count(device: torch.device) -> int:
+    n_sm = _n_sm.get(device)
+    if n_sm is None:
+        n_sm = _n_sm[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n_sm
 
 
 def _decode_tickets(device: torch.device, units: int) -> torch.Tensor:
@@ -319,6 +375,30 @@ def _decode_tickets(device: torch.device, units: int) -> torch.Tensor:
         t = torch.zeros(max(units, 4096), dtype=torch.int32, device=device)
         _tickets[device] = t
     return t
+
+
+def _valid_len_args(valid_len, q: torch.Tensor, B: int, S: int, window: Optional[int]):
+    """(valid_dev, valid_host) for a decode kernel: an int32 copy of a 0-d
+    or (B,) integer tensor on q's device (read by the kernel, so a captured
+    call replays with new values), else None and the checked Python int."""
+    if isinstance(valid_len, torch.Tensor):
+        if tuple(valid_len.shape) not in ((), (B,)):
+            raise ValueError(f"valid_len: expected a 0-d or a ({B},) tensor, got shape "
+                             f"{tuple(valid_len.shape)}")
+        if valid_len.dtype.is_floating_point or valid_len.dtype.is_complex or \
+                valid_len.dtype == torch.bool:
+            raise TypeError(f"valid_len: expected an integer tensor, got {valid_len.dtype}")
+        if valid_len.device != q.device:
+            raise ValueError(f"valid_len on {valid_len.device}, q on {q.device}")
+        return valid_len.to(torch.int32).contiguous(), 0
+    valid_host = operator.index(valid_len)
+    lo = max(0, valid_host - window + 1) if window is not None else 0
+    if min(valid_host, S - 1) < lo:
+        raise ValueError(f"no live cache position: valid_len {valid_host}, window {window}, "
+                         f"cache length {S}")
+    if valid_host >= 2**31:
+        raise ValueError(f"valid_len {valid_host} does not fit the kernel's int32")
+    return None, valid_host
 
 
 def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = None):
@@ -357,33 +437,13 @@ def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = Non
                          "their storage must be 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    if isinstance(valid_len, torch.Tensor):
-        if tuple(valid_len.shape) not in ((), (B,)):
-            raise ValueError(f"valid_len: expected a 0-d or a ({B},) tensor, got shape "
-                             f"{tuple(valid_len.shape)}")
-        if valid_len.dtype.is_floating_point or valid_len.dtype.is_complex or \
-                valid_len.dtype == torch.bool:
-            raise TypeError(f"valid_len: expected an integer tensor, got {valid_len.dtype}")
-        if valid_len.device != q.device:
-            raise ValueError(f"valid_len on {valid_len.device}, q on {q.device}")
-        valid_dev, valid_host = valid_len.to(torch.int32).contiguous(), 0
-    else:
-        valid_host, valid_dev = operator.index(valid_len), None
-        lo = max(0, valid_host - window + 1) if window is not None else 0
-        if min(valid_host, S - 1) < lo:
-            raise ValueError(f"no live cache position: valid_len {valid_host}, window {window}, "
-                             f"cache length {S}")
-        if valid_host >= 2**31:
-            raise ValueError(f"valid_len {valid_host} does not fit the kernel's int32")
+    valid_dev, valid_host = _valid_len_args(valid_len, q, B, S, window)
     lib = build.load("decode_attention")
     G = H // KH
     if G > lib.decode_attention_max_group():
         raise ValueError(f"decode kernel takes at most {lib.decode_attention_max_group()} "
                          f"query heads per kv head, got {G}")
-    n_sm = _n_sm.get(q.device)
-    if n_sm is None:
-        n_sm = _n_sm[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
-    gb, n_hg, splits = decode_geometry(B, KH, G, hd, k_cache.element_size(), n_sm)
+    gb, n_hg, splits = decode_geometry(B, KH, G, hd, k_cache.element_size(), _sm_count(q.device))
     units = B * KH * n_hg
     out = torch.empty_like(q)
     part = torch.empty(units * splits * gb * (hd + 2), dtype=torch.float32, device=q.device)
@@ -399,4 +459,85 @@ def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = Non
         )
     _raise_on(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def latent_geometry(B: int, H: int, S: int, n_sm: int) -> Tuple[int, int]:
+    """(head groups, splits) of the latent decode kernel: the grid is
+    (splits, head groups, B), each CTA ``LATENT_HEADS`` query heads over its
+    share of the row's live range (``decode_share`` in granules of
+    ``LATENT_ROWS``), from the shapes and the SM count alone (never
+    ``valid_len``).  Splits fill ``LATENT_CTAS_PER_SM`` CTAs per SM in one
+    wave, up to ``LATENT_MAX_SPLITS``, and never outnumber the cache's
+    tiles."""
+    n_hg = H // LATENT_HEADS
+    tiles = -(-S // LATENT_ROWS)
+    return n_hg, max(1, min(LATENT_CTAS_PER_SM * n_sm // (B * n_hg), tiles, LATENT_MAX_SPLITS))
+
+
+_LATENT_CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def decode_attention_latent(q_lat, q_rope, c_cache, r_cache, valid_len, scale: float):
+    """Absorbed MLA decode (DeepSeek-V2/V3): one new token per sequence,
+    every query head against the one latent cache row a position.  q_lat
+    (B,H,dc), the query absorbed through W_UK; q_rope (B,H,dr); c_cache
+    (B,S,dc) and r_cache (B,S,dr), read in place (never joined into one
+    (B,S,dc+dr) copy).  Scores ``(q_lat . c + q_rope . r) * scale``, values
+    the latent rows ``c``; ``valid_len`` as in ``decode_attention`` (an int,
+    or a 0-d or (B,) integer tensor on the card, read there), no window.
+    The kernel is instantiated for (dc, dr) in ``LATENT_DIMS``, H a multiple
+    of ``LATENT_HEADS``, q in float32 or bfloat16 and both caches in
+    float32 or bfloat16; any other mix of ``FLOAT_DTYPES`` is cast to
+    float32 first and the output cast back.  Returns (B,H,dc) in q_lat's
+    dtype.
+
+    On the card this is one launch of ``latent_geometry``'s grid: each CTA
+    copies tiles of ``LATENT_ROWS`` cache rows of its share into shared
+    memory, where all its heads read them, and the last CTA of each (batch,
+    head group) merges the splits' float32 partials through the tickets
+    that ``decode_attention`` uses (one stream per device)."""
+    _check_floats(q_lat=q_lat, q_rope=q_rope, c_cache=c_cache, r_cache=r_cache)
+    if not (q_lat.dtype in _Q_CODES and q_rope.dtype == q_lat.dtype
+            and c_cache.dtype == r_cache.dtype and c_cache.dtype in _LATENT_CACHE_CODES):
+        return decode_attention_latent(q_lat.float(), q_rope.float(), c_cache.float(),
+                                       r_cache.float(), valid_len, scale).to(q_lat.dtype)
+    if not _on_cuda(q_lat, q_rope, c_cache, r_cache):
+        return ref.decode_attention_latent_ref(q_lat, q_rope, c_cache, r_cache, valid_len, scale)
+    B, S, dc = c_cache.shape
+    H, dr = q_lat.shape[1], r_cache.shape[-1]
+    if (dc, dr) not in LATENT_DIMS:
+        raise ValueError(f"latent decode kernel takes (latent, rope) dims in {LATENT_DIMS}, "
+                         f"got ({dc}, {dr})")
+    if H < 1 or H % LATENT_HEADS:
+        raise ValueError(f"latent decode kernel takes a multiple of {LATENT_HEADS} query heads, "
+                         f"got {H}")
+    _check("q_lat", q_lat, q_lat.dtype, (B, H, dc))
+    _check("q_rope", q_rope, q_lat.dtype, (B, H, dr))
+    _check("c_cache", c_cache, c_cache.dtype, (B, S, dc))
+    _check("r_cache", r_cache, c_cache.dtype, (B, S, dr))
+    if any(t.data_ptr() % 16 for t in (c_cache, r_cache)):
+        raise ValueError("latent decode kernel copies the caches 16 bytes at a time: "
+                         "their storage must be 16-byte aligned")
+    if not scale > 0:
+        raise ValueError(f"scale must be positive, got {scale}")
+    valid_dev, valid_host = _valid_len_args(valid_len, q_lat, B, S, None)
+    lib = build.load("decode_attention")
+    n_hg, splits = latent_geometry(B, H, S, _sm_count(q_lat.device))
+    units = B * n_hg
+    out = torch.empty_like(q_lat)
+    part = torch.empty(units * splits * LATENT_HEADS * (dc + 2), dtype=torch.float32,
+                       device=q_lat.device)
+    tickets = _decode_tickets(q_lat.device, units)
+    with torch.cuda.device(q_lat.device):
+        err = lib.decode_attention_latent_launch(
+            q_lat.data_ptr(), q_rope.data_ptr(), c_cache.data_ptr(), r_cache.data_ptr(),
+            out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+            valid_dev.data_ptr() if valid_dev is not None else None,
+            valid_dev.ndim if valid_dev is not None else 0, valid_host,
+            B, S, H, dc, dr, splits, float(scale), _Q_CODES[q_lat.dtype],
+            _LATENT_CACHE_CODES[c_cache.dtype], _stream(q_lat),
+        )
+    _raise_on(err, "decode_attention_latent")
+    LAUNCHES["decode_attention_latent"] += 1
     return out

@@ -5,6 +5,7 @@
   ssd_scan_ref     <-> csrc/ssd_scan.cu (the chunked SSD of models/mamba.py)
   flash_attention_ref  <-> csrc/flash_attention.cu
   decode_attention_ref <-> csrc/decode_attention.cu
+  decode_attention_latent_ref <-> csrc/decode_attention.cu, the absorbed-MLA entry
 
 ``kernels/ops.py`` takes these for tensors on the CPU; the tests and
 ``chip_smoke.py`` hold each kernel against its plain version on the card.
@@ -59,23 +60,25 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     return ssd_chunked(x, dt, A, Bm, Cm, chunk, init_state)
 
 
-def _scale(hd: int) -> float:
+def attn_scale(hd: int) -> float:
     """1/sqrt(hd) computed in float32, as the JAX package does."""
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
                         window: Optional[int] = None) -> torch.Tensor:
-    """Attention over a whole sequence.  q (B,S,H,hd); k, v (B,S,KH,hd);
-    query head h reads kv head h // (H/KH).  Key j is live for query i when
-    ``j <= i`` (causal) and ``i - j < window`` (window set); masked logits are
-    -2e38, the softmax runs in float32 and its probabilities are cast to
-    ``q.dtype`` before the product with ``v``.  Returns (B,S,H,hd)."""
+    """Attention over a whole sequence.  q (B,S,H,hd); k (B,S,KH,hd); v
+    (B,S,KH,hd_v), whose head dim may differ from q's and k's (MLA: 192 and
+    128); query head h reads kv head h // (H/KH).  Key j is live for query i
+    when ``j <= i`` (causal) and ``i - j < window`` (window set); the logits
+    are scaled by ``1/sqrt(hd)`` in float32, masked logits are -2e38, the softmax runs in float32 and its probabilities are
+    cast to ``q.dtype`` before the product with ``v``.  Returns
+    (B,S,H,hd_v)."""
     B, S, H, hd = q.shape
     KH = k.shape[2]
     G = H // KH
     qg = q.reshape(B, S, KH, G, hd)
-    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * _scale(hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * attn_scale(hd)
     pos = torch.arange(S, device=q.device)
     ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
     if causal:
@@ -85,7 +88,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
     logits = logits.masked_fill(~ok, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.to(q.dtype))
-    return out.reshape(B, S, H, hd)
+    return out.reshape(B, S, H, v.shape[-1])
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -105,15 +108,44 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.
     G = H // KH
     work = q.dtype if k_cache.dtype == v_cache.dtype == q.dtype else torch.float32
     qg = q.reshape(B, KH, G, hd)
-    logits = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float()) * _scale(hd)
-    pos = torch.arange(S, device=q.device)
-    valid = (valid_len.to(q.device).reshape(-1, 1) if isinstance(valid_len, torch.Tensor)
-             else int(valid_len))  # an int stays on the host: no copy to the card
-    ok = pos <= valid
-    if window is not None:
-        ok &= (valid - pos) < window
-    ok = ok.reshape(-1, 1, 1, S)  # (1 or B, 1, 1, S)
+    logits = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float()) * attn_scale(hd)
+    ok = _live(S, valid_len, window, q.device).reshape(-1, 1, 1, S)  # (1 or B, 1, 1, S)
     logits = logits.masked_fill(~ok, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).masked_fill(~ok, 0.0).to(work)
     out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache.to(work))
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def _live(S: int, valid_len, window: Optional[int], device) -> torch.Tensor:
+    """(1 or B, S) live cache positions: ``pos <= valid_len`` and, with a
+    window, ``valid_len - pos < window``."""
+    pos = torch.arange(S, device=device)
+    valid = (valid_len.to(device).reshape(-1, 1) if isinstance(valid_len, torch.Tensor)
+             else int(valid_len))  # an int stays on the host: no copy to the card
+    ok = pos <= valid
+    if window is not None:
+        ok &= (valid - pos) < window
+    return ok.reshape(-1, S)
+
+
+def decode_attention_latent_ref(q_lat: torch.Tensor, q_rope: torch.Tensor, c_cache: torch.Tensor,
+                                r_cache: torch.Tensor, valid_len, scale: float) -> torch.Tensor:
+    """Absorbed MLA decode: one new token per sequence against the latent
+    cache, every query head reading the one shared latent row.  q_lat
+    (B,H,dc) and q_rope (B,H,dr) are the query absorbed through W_UK and its
+    rope part; c_cache (B,S,dc) and r_cache (B,S,dr).  The score of head h
+    at position p is ``(q_lat_h . c_p + q_rope_h . r_p) * scale`` and the
+    values are the latent rows ``c_p`` themselves.  ``valid_len`` as in
+    ``decode_attention_ref`` (no window); masked logits -2e38, softmax in
+    float32, a row with no live position gives zeros; caches in q's dtype
+    are used as they are and the probabilities cast to it, caches in
+    another dtype are upcast to float32.  Returns (B,H,dc) in q_lat's
+    dtype."""
+    B, S, _ = c_cache.shape
+    work = q_lat.dtype if c_cache.dtype == r_cache.dtype == q_lat.dtype else torch.float32
+    logits = (torch.einsum("bhr,bsr->bhs", q_lat.float(), c_cache.float())
+              + torch.einsum("bhe,bse->bhs", q_rope.float(), r_cache.float())) * scale
+    ok = _live(S, valid_len, None, q_lat.device)[:, None, :]  # (1 or B, 1, S)
+    logits = logits.masked_fill(~ok, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1).masked_fill(~ok, 0.0).to(work)
+    return torch.einsum("bhs,bsr->bhr", probs, c_cache.to(work)).to(q_lat.dtype)

@@ -4,9 +4,10 @@
 So far the ``ssm`` family (mamba2-130m), the ``dense`` family (minicpm-2b,
 gemma3-4b, command-r-35b, command-r-plus-104b), the ``vlm`` family's dense
 backbone (llava-next-mistral-7b, whose forward splices precomputed patch
-embeddings over the first token embeddings), the ``moe`` family without MLA
+embeddings over the first token embeddings), the ``moe`` family
 (mixtral-8x22b; a stack of MoE blocks, or leading dense blocks and then MoE
-blocks) and the ``hybrid`` family (zamba2-2.7b: groups of Mamba2 layers,
+blocks, as deepseek-v3-671b has them, with MLA attention and a depth-1
+multi-token-prediction head) and the ``hybrid`` family (zamba2-2.7b: groups of Mamba2 layers,
 each followed by one application of a shared attention block):
 ``init``, ``forward``, ``prefill``, ``decode_step`` and ``init_cache`` with
 the JAX package's signatures and parameter/cache layouts, so the two can be
@@ -36,10 +37,10 @@ def build_model(cfg, param_dtype=torch.float32, device=None) -> "Model":
 
 class Model:
     def __init__(self, cfg, param_dtype=torch.float32, device=None):
-        if cfg.family not in FAMILIES or cfg.mla is not None or cfg.enc_dec:
+        if cfg.family not in FAMILIES or cfg.enc_dec:
             raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) is not ported yet: MLA (with MTP) and "
-                "encoder-decoder models are ROADMAP Queue 1 item 7"
+                f"{cfg.name} ({cfg.family}) is not ported yet: encoder-decoder models are "
+                "ROADMAP Queue 1 item 7"
             )
         self.cfg = cfg
         self.dtype = param_dtype
@@ -50,10 +51,12 @@ class Model:
         """Random parameters on ``self.device`` from ``generator`` (which
         must live on that device), with the JAX package's tree and
         distributions: normal / sqrt(fan_in), embeddings x 0.02, ``conv_w`` x
-        0.5, zeros and ones where the JAX package has them; norms, the MoE
-        router and the Mamba block's A_log, D, dt_bias and norm in float32
-        whatever ``param_dtype`` is.  Stacks are drawn layer by layer into
-        tensors with a leading layer axis."""
+        0.5, zeros and ones where the JAX package has them; norms (MLA's
+        ``q_norm`` and ``kv_norm`` too), the MoE router and the Mamba block's
+        A_log, D, dt_bias and norm in float32 whatever ``param_dtype`` is.
+        Stacks are drawn layer by layer into tensors with a leading layer
+        axis.  With ``mtp_depth`` the tree has ``mtp``: ``proj`` (2d, d), a
+        dense ``block`` and the norms ``norm_h`` and ``norm_e``."""
         cfg, dev, dt = self.cfg, self.device, self.dtype
         p: Dict[str, Any] = {"embed": init_embedding(cfg, generator, dev, dt),
                              "final_norm": init_norm(cfg, dev)}
@@ -70,6 +73,11 @@ class Model:
         else:
             p["stack"] = init_block(cfg, generator, dev, dt, layers=cfg.n_layers,
                                     moe_layer=cfg.moe is not None)
+        if cfg.mtp_depth:
+            p["mtp"] = {"proj": normal_param((2 * cfg.d_model, cfg.d_model), generator, dev,
+                                             dtype=dt),
+                        "block": init_block(cfg, generator, dev, dt),
+                        "norm_h": init_norm(cfg, dev), "norm_e": init_norm(cfg, dev)}
         return p
 
     def _init_mamba_layer(self, generator):
@@ -96,15 +104,18 @@ class Model:
     def forward(self, params, batch: Dict[str, torch.Tensor], mode: str = "train"):
         """Full-sequence forward.  Returns (logits, aux, caches_or_None): aux
         is the MoE load-balancing loss summed over the layers (a float32 0-d
-        tensor, zero for the families without MoE).  A vlm batch may carry
-        ``patches`` (B, n_img, d): they replace the first ``n_img`` token
-        embeddings."""
+        tensor, zero for the families without MoE); with ``mtp_depth`` and
+        ``mode="train"`` it is (that loss, the MTP head's hidden states (B,
+        S, d)), as in the JAX package (the MTP loss is ROADMAP Queue 1 item
+        8).  A vlm batch may carry ``patches`` (B, n_img, d): they replace the
+        first ``n_img`` token embeddings."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = embed_tokens(params["embed"], tokens, cfg, self.dtype)
         if cfg.family == "vlm" and "patches" in batch:
             n_img = batch["patches"].shape[1]
             x = torch.cat([batch["patches"].to(x.dtype), x[:, n_img:]], dim=1)
+        x_emb = x
         aux = 0.0
         if cfg.family == "ssm":
             x, caches = self._run_ssm(params, x, mode)
@@ -112,13 +123,28 @@ class Model:
             B, S = tokens.shape
             positions = torch.arange(S, device=x.device).expand(B, S)
             if cfg.family == "hybrid":
-                x, caches = self._run_hybrid(params, x, x, positions, mode)
+                x, caches = self._run_hybrid(params, x, x_emb, positions, mode)
             else:
                 x, aux, caches = self._run_lm_stacks(params, x, positions, mode)
-        x = apply_norm(params["final_norm"], x, cfg)
+        h_final = apply_norm(params["final_norm"], x, cfg)
         if not isinstance(aux, torch.Tensor):
             aux = torch.zeros((), device=x.device)
-        return unembed(params["embed"], x, cfg), aux, caches
+        if cfg.mtp_depth and mode == "train":
+            aux = (aux, self._mtp_hidden(params, x_emb, h_final))
+        return unembed(params["embed"], h_final, cfg), aux, caches
+
+    def _mtp_hidden(self, params, x_emb, h_final):
+        """DeepSeek-V3's depth-1 MTP head: the final hidden state at t and the
+        embedding of token t+1 (the last position repeats its own), each
+        normed, concatenated and projected, through one dense block."""
+        cfg, m = self.cfg, params["mtp"]
+        e_next = torch.cat([x_emb[:, 1:], x_emb[:, -1:]], dim=1)
+        hcat = torch.cat([apply_norm(m["norm_h"], h_final, cfg),
+                          apply_norm(m["norm_e"], e_next, cfg)], dim=-1)
+        h = hcat @ m["proj"]
+        B, S, _ = h.shape
+        positions = torch.arange(S, device=h.device).expand(B, S)
+        return block_forward(m["block"], h, cfg, positions, mode="train")[0]
 
     def _run_lm_stacks(self, params, x, positions, mode, cache_index=None, caches=None):
         """The dense, vlm and moe stacks: ``stack``, or ``dense_stack`` then
@@ -231,10 +257,13 @@ class Model:
         its decode reads and its prefill returns); the ssm family's Mamba
         state; the hybrid family's Mamba state (n_groups, every, B, ...) and
         one (k, v) pair of (n_groups, B, seq, KH, hd) for the shared block's
-        applications."""
+        applications; MLA's latent pair (c, r) of (L, B, seq, kv_lora) and
+        (L, B, seq, rope) in place of (k, v)."""
         cfg, dev = self.cfg, self.device
-        kv = lambda L: tuple(torch.zeros((L, batch, seq, cfg.n_kv_heads, cfg.head_dim_),  # noqa: E731
-                                         dtype=dtype, device=dev) for _ in range(2))
+        tails = ((cfg.mla.kv_lora_rank,), (cfg.mla.qk_rope_head_dim,)) if cfg.mla is not None \
+            else ((cfg.n_kv_heads, cfg.head_dim_),) * 2
+        kv = lambda L: tuple(torch.zeros((L, batch, seq, *tail), dtype=dtype, device=dev)  # noqa: E731
+                             for tail in tails)
         if cfg.family in ("ssm", "hybrid"):
             st = init_mamba_state(cfg, batch, dtype, dev)
             if cfg.family == "ssm":

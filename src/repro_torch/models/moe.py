@@ -5,7 +5,7 @@ Dispatch is the sort-based formulation: flatten token->expert assignments,
 stable-sort by expert id, compute each token's slot within its expert group,
 drop beyond capacity, scatter into an (E, C, d) buffer, run the expert FFNs
 as one batched matmul over every E x C slot (empty or not, as the reference
-does), and scatter-add back weighted by the router gates.  Both routers
+does), and combine each token's gated expert rows.  Both routers
 (softmax top-k, and DeepSeek-V3's sigmoid with a selection bias) and the
 shared expert are here, with the Switch-style load-balancing aux.
 
@@ -15,9 +15,12 @@ the capacity ``C`` is a Python int from the shapes, the per-expert counts
 are an ``index_add_`` into a buffer of ``E + 1`` (``torch.bincount`` would
 read its input's maximum back to the host), and nothing is indexed by a
 boolean mask, so a MoE decode step can be captured in a CUDA graph.  On the
-card ``index_add_`` adds with atomics in no fixed order: the dispatch only
-ever adds zeros onto a kept token's slot, and the combine adds ``top_k``
-gated rows onto zeros, which is exact whatever the order for ``top_k <= 2``.
+card ``index_add_`` adds with atomics in no fixed order, so it is used only
+where the order cannot show: the dispatch only ever adds zeros onto a kept
+token's slot.  The combine gathers each token's ``top_k`` gated rows into
+(T, k, d) and sums over k, one fixed order for any ``top_k`` (deepseek-v3
+routes top-8), so a replayed step equals its eager one bit for bit; for
+top-2 it is the same sum as the JAX package's two adds onto zeros.
 
 Expert parallelism over a mesh (the JAX package's ``apply_moe_sharded``) is
 ROADMAP Queue 1 item 9.
@@ -125,9 +128,13 @@ def _dispatch_ffn(x_flat, gates, idx, wg, wu, wo, e0: int, E_loc: int, C: int,
     buf.index_add_(0, dest, torch.where(keep[:, None], x_flat[tok_s].to(dtype), 0))
     h = buf.reshape(E_loc, C, d)
     out = torch.bmm(act(torch.bmm(h, wg)) * torch.bmm(h, wu), wo).reshape(E_loc * C, d)
-    gates_s = gates.reshape(-1)[order]
-    contrib = out[dest] * torch.where(keep, gates_s, 0.0)[:, None]
-    return torch.zeros((T, d), dtype=dtype, device=x_flat.device).index_add_(0, tok_s, contrib)
+    # each assignment's row back in (token, k) order, then each token's k rows
+    # summed in that order
+    dest_o = torch.empty_like(dest).scatter_(0, order, dest)
+    keep_o = torch.empty_like(keep).scatter_(0, order, keep)
+    k = idx.shape[1]
+    contrib = out[dest_o] * torch.where(keep_o, gates.reshape(-1), 0.0)[:, None]
+    return contrib.reshape(T, k, d).sum(dim=1)
 
 
 def _capacity(cf: float, T: int, k: int, E: int) -> int:

@@ -1,5 +1,6 @@
 """Transformer blocks and the layer stacks of the dense, vlm, moe and hybrid
-families (counterpart of the JAX package's ``models/transformer.py``).
+families, with GQA or MLA attention (counterpart of the JAX package's
+``models/transformer.py``).
 
 The JAX package scans a stack over parameters stacked on a leading layer
 axis; here ``run_stack`` loops over that axis in Python, as the ssm family's
@@ -16,7 +17,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from .attention import GLOBAL_WINDOW, attn_decode, attn_forward, init_attention
+from .attention import (GLOBAL_WINDOW, attn_decode, attn_forward, init_attention, init_mla,
+                        mla_decode, mla_forward)
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 from .moe import apply_moe, init_moe
 
@@ -40,16 +42,16 @@ def layer_meta(cfg, n_layers: Optional[int] = None) -> Tuple[List[int], List[flo
 def init_block(cfg, generator: torch.Generator, device, dtype=torch.float32,
                layers: int = 0, moe_layer: bool = False) -> Dict[str, Any]:
     """One block's parameters, or ``layers`` blocks stacked on a leading axis,
-    with the JAX package's keys: ln1, attn, [ln2], then ``moe`` for a MoE
-    layer, else ``mlp`` (of width ``moe.dense_dff`` in the leading dense
-    layers of a MoE model that has them)."""
+    with the JAX package's keys: ln1, attn (MLA's where ``cfg.mla`` is set),
+    [ln2], then ``moe`` for a MoE layer, else ``mlp`` (of width
+    ``moe.dense_dff`` in the leading dense layers of a MoE model that has
+    them)."""
     if cfg.enc_dec:
         raise NotImplementedError("cross-attention blocks (encoder-decoder) are not ported yet: "
                                   "ROADMAP Queue 1 item 7")
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA is not ported yet: ROADMAP Queue 1 item 7")
+    init_attn = init_mla if cfg.mla is not None else init_attention
     p: Dict[str, Any] = {"ln1": init_norm(cfg, device, layers=layers),
-                         "attn": init_attention(cfg, generator, device, dtype, layers)}
+                         "attn": init_attn(cfg, generator, device, dtype, layers)}
     if not cfg.parallel_block:
         p["ln2"] = init_norm(cfg, device, layers=layers)
     if moe_layer:
@@ -63,14 +65,18 @@ def init_block(cfg, generator: torch.Generator, device, dtype=torch.float32,
 def block_forward(p: Dict, x: torch.Tensor, cfg, positions: Optional[torch.Tensor],
                   window: Optional[int] = None, theta: Optional[float] = None,
                   mode: str = "train", cache=None, cache_index=None):
-    """Returns (x', cache entry, aux): the layer's (k, v) in prefill, its
-    updated cache in decode; aux is the MoE load-balancing loss (a float32
-    0-d tensor) of a MoE block, else 0.0.  Pre-norm residual block, or
-    Cohere's parallel block ``x + (attn(n(x)) + mlp(n(x))) * depth_scale``;
-    MiniCPM's ``depth_scale`` scales both residual branches."""
+    """Returns (x', cache entry, aux): the layer's (k, v) in prefill (MLA's
+    (c_kv, k_rope)), its updated cache in decode; aux is the MoE
+    load-balancing loss (a float32 0-d tensor) of a MoE block, else 0.0.
+    Pre-norm residual block, or Cohere's parallel block ``x + (attn(n(x)) +
+    mlp(n(x))) * depth_scale``; MiniCPM's ``depth_scale`` scales both
+    residual branches.  MLA takes no window and its own rope theta."""
     ds = cfg.depth_scale
     h = apply_norm(p["ln1"], x, cfg)
-    if mode == "decode":
+    if cfg.mla is not None:
+        a, new_cache = (mla_decode(p["attn"], h, cache, cfg, cache_index) if mode == "decode"
+                        else mla_forward(p["attn"], h, cfg, positions))
+    elif mode == "decode":
         a, new_cache = attn_decode(p["attn"], h, cache, cfg, cache_index, window, theta)
     else:
         a, new_cache = attn_forward(p["attn"], h, cfg, positions, window, theta)
@@ -95,8 +101,9 @@ def run_stack(stack: Dict, x: torch.Tensor, cfg, positions: Optional[torch.Tenso
               cache_index=None):
     """Run the layers of a stacked parameter tree in order.  Returns (x,
     caches, aux): in prefill the layers' (k, v) stacked to (L,B,S,KH,hd)
-    each; in decode ``caches`` itself, written in place; else None.  aux is
-    the sum of the blocks' MoE aux (0.0 for a stack without MoE)."""
+    each (MLA: (c_kv, k_rope) to (L,B,S,kv_lora) and (L,B,S,rope)); in
+    decode ``caches`` itself, written in place; else None.  aux is the sum
+    of the blocks' MoE aux (0.0 for a stack without MoE)."""
     ks, vs = [], []
     aux = 0.0
     for i, (w, th) in enumerate(zip(windows, thetas)):

@@ -26,15 +26,18 @@ from .captured import CapturedStep, copy_into, tree_leaves
 
 @dataclasses.dataclass
 class Endpoint:
-    """A deployable function type: model config + weight seed."""
+    """A deployable function type: model config + weight seed, and the
+    parameters' dtype (float32, as in the JAX package, unless a model too
+    large for that is served in bfloat16), which the decode cache takes too."""
 
     name: str
     cfg: object  # ModelConfig
     seed: int = 0
     max_cache_len: int = 128
+    param_dtype: torch.dtype = torch.float32
 
     def est_bytes(self) -> int:
-        p = self.cfg.n_params() * 4  # float32 parameters
+        p = self.cfg.n_params() * self.param_dtype.itemsize
         return int(p * 1.2) + 64 * self.max_cache_len * 1024
 
 
@@ -49,10 +52,11 @@ class _DecodeLoop:
     decodes one token, writes its argmax back as the next input token and
     advances the position."""
 
-    def __init__(self, model, params, batch: int, max_len: int, device: torch.device):
+    def __init__(self, model, params, batch: int, max_len: int, dtype: torch.dtype,
+                 device: torch.device):
         self.tokens = torch.zeros((batch, 1), dtype=torch.long, device=device)
         self.index = torch.zeros((), dtype=torch.int32, device=device)
-        self.cache = model.init_cache(batch, max_len, dtype=torch.float32)
+        self.cache = model.init_cache(batch, max_len, dtype=dtype)
 
         def step():
             logits, new = model.decode_step(params, self.tokens, self.cache, self.index)
@@ -90,7 +94,8 @@ class Instance:
     def __init__(self, endpoint: Endpoint, device=None, params: Optional[Dict] = None):
         self.endpoint = endpoint
         self.device = default_device(device)
-        self.model = build_model(endpoint.cfg, param_dtype=torch.float32, device=self.device)
+        self.model = build_model(endpoint.cfg, param_dtype=endpoint.param_dtype,
+                                 device=self.device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(endpoint.seed)
             params = self.model.init(gen)
@@ -107,7 +112,8 @@ class Instance:
         the CPU, where ``generate`` runs eagerly."""
         if self.device.type == "cuda" and batch not in self._loops:
             self._loops[batch] = _DecodeLoop(self.model, self.params, batch,
-                                             self.endpoint.max_cache_len, self.device)
+                                             self.endpoint.max_cache_len,
+                                             self.endpoint.param_dtype, self.device)
             _sync(self.device)
 
     @torch.no_grad()
@@ -130,7 +136,7 @@ class Instance:
             self.prepare(B)
             out = self._loops[B].run(out[0], idx, gen_len - 1)
         else:
-            cache = model.init_cache(B, ep.max_cache_len, dtype=torch.float32)
+            cache = model.init_cache(B, ep.max_cache_len, dtype=ep.param_dtype)
             for i in range(gen_len - 1):
                 logits, cache = model.decode_step(self.params, out[-1][:, None], cache, idx + i)
                 out.append(logits.argmax(-1))

@@ -233,8 +233,17 @@ def test_softcap_runs_the_plain_path_on_cpu():
 
 
 def test_mla_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        attn.init_mla(get_config("minicpm_2b"), None, "cpu")
+    """``init_mla`` on reduced deepseek-v3 gives the JAX ``init_mla``'s keys,
+    shapes and dtypes (norm scales zero and float32), unstacked and stacked
+    on a leading layer axis."""
+    jcfg, cfg = jax_get_config("deepseek_v3_671b").reduced(), get_config("deepseek_v3_671b").reduced()
+    want, _ = unzip(jax_attn.init_mla(jax.random.key(0), jcfg, jnp.bfloat16))
+    for layers in (0, 3):
+        got = attn.init_mla(cfg, torch.Generator().manual_seed(0), "cpu", torch.bfloat16, layers)
+        lead = (layers,) if layers else ()
+        assert {k: (tuple(t.shape), str(t.dtype)[6:]) for k, t in got.items()} == \
+            {k: (lead + a.shape, str(a.dtype)) for k, a in want.items()}
+        assert not got["q_norm"].any() and not got["kv_norm"].any()
 
 
 # ------------------------------------------- per-row lengths, cache dtypes

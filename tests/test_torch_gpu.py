@@ -251,6 +251,8 @@ def test_each_wrapper_call_counts_one_launch(cuda):
         "ssd_scan": lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=128),
         "flash_attention": lambda: ops.flash_attention(q, k, v),
         "decode_attention": lambda: ops.decode_attention(q[:, 0], k, v, 40),
+        "decode_attention_latent": lambda: ops.decode_attention_latent(
+            *_latent_inputs(1, 64, 16, torch.float32, torch.float32, 2, cuda), 40, 0.1),
         "sched_events": lambda: ops.sched_events(*args),
         "sched_step": lambda: ops.sched_step(*args[1:2], *args[3:]),
     }
@@ -606,7 +608,7 @@ def _attention_layers(cfg):
 def _eager_generate(inst, tokens, gen_len):
     """``Instance.generate``'s loop, run eagerly on the card."""
     model, ep = inst.model, inst.endpoint
-    cache = model.init_cache(tokens.shape[0], ep.max_cache_len, dtype=torch.float32)
+    cache = model.init_cache(tokens.shape[0], ep.max_cache_len, dtype=ep.param_dtype)
     _, lg = model.prefill(inst.params, {"tokens": tokens})
     out = [lg.argmax(-1)]
     idx = min(tokens.shape[1], ep.max_cache_len - gen_len - 1)
@@ -795,3 +797,276 @@ def test_new_family_batcher_on_card_matches_cpu(cuda, name):
             assert captured.REPLAYED["decode_attention"] == _attention_layers(cfg) * b.steps
     assert outs[0] == outs[1]
     torch.testing.assert_close(logits[1], logits[0], **TOL)
+
+
+# ------------------------------------------------------------ MLA (deepseek-v3)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,strided", [
+    (1, 130, 4, False),   # ragged: two full q tiles and a partial one
+    (2, 64, 8, True),     # v read in place as the tail of [k_nope | v]
+    (1, 300, 16, True),   # ragged and strided
+    (1, 1024, 128, True), # deepseek-v3 prefill width
+])
+def test_flash_kernel_split_head_dims(cuda, B, S, H, strided, dtype):
+    """MLA's prefill shape: q/k heads of 192 (nope 128 + rope 64), v heads
+    of 128, causal, against the plain version; v strided as ``mla_forward``
+    passes it; one launch; output (B,S,H,128)."""
+    q, k, kv = _attn_inputs([(B, S, H, 192), (B, S, H, 192), (B, S, H, 256)], dtype, S + H, cuda)
+    v = kv[..., 128:] if strided else kv[..., 128:].contiguous()
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, True, None)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert out.dtype == dtype and out.shape == (B, S, H, 128)
+    torch.testing.assert_close(out.float(), want.float(), **TOL_ATTN[dtype])
+
+
+def _latent_inputs(B, S, H, q_dtype, cache_dtype, seed, cuda):
+    q_lat, q_rope, c, r = _attn_inputs([(B, H, 512), (B, H, 64), (B, S, 512), (B, S, 64)],
+                                       torch.float32, seed, cuda)
+    return q_lat.to(q_dtype), q_rope.to(q_dtype), c.to(cache_dtype), r.to(cache_dtype)
+
+
+LATENT_SCALE = float(np.float32(1) / np.sqrt(np.float32(192)))
+
+
+@pytest.mark.parametrize("q_dtype,cache_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("B,S,valid,form", [
+    (1, 1024, 1023, "int"),     # the engine's shape: one row, the last position
+    (1, 1024, 1023, "0-d"),
+    (1, 1024, 0, "0-d"),        # the first token
+    (1, 100, 37, "int"),        # a partial tile
+    (1, 64, 500, "0-d"),        # past S-1: every row live
+    (3, 300, [5, 299, 140], "per-row"),
+    (8, 1024, [200, 200, 133, 200, 200, 200, 200, 9], "per-row"),  # the batcher's shape
+])
+def test_latent_kernel_matches_plain(cuda, B, S, valid, form, q_dtype, cache_dtype):
+    """The absorbed-MLA entry at deepseek-v3's dims (128 heads over one latent
+    head of 512 + 64) against its plain version: an int, a 0-d or a (B,)
+    valid_len; one launch; output (B,128,512) in q's dtype."""
+    v = valid if form == "int" else torch.tensor(valid, dtype=torch.int32, device=cuda)
+    args = _latent_inputs(B, S, 128, q_dtype, cache_dtype, S + B, cuda)
+    ops.reset_launches()
+    out = ops.decode_attention_latent(*args, v, LATENT_SCALE)
+    want = ref.decode_attention_latent_ref(*args, v, LATENT_SCALE)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention_latent"] == 1
+    assert out.dtype == q_dtype and out.shape == (B, 128, 512)
+    torch.testing.assert_close(out.float(), want.float(), **TOL_ATTN[q_dtype])
+
+
+def test_latent_kernel_never_reads_past_valid_len(cuda):
+    """NaN in every cache row past each row's length must not reach the
+    output; repeat calls agree bit for bit and leave the tickets at zero."""
+    q_lat, q_rope, c, r = _latent_inputs(2, 256, 128, torch.bfloat16, torch.bfloat16, 4, cuda)
+    lengths = torch.tensor([100, 17], dtype=torch.int32, device=cuda)
+    want = ref.decode_attention_latent_ref(q_lat, q_rope, c, r, lengths, LATENT_SCALE)
+    for b, n in enumerate(lengths.tolist()):
+        c[b, n + 1:] = float("nan")
+        r[b, n + 1:] = float("nan")
+    first = ops.decode_attention_latent(q_lat, q_rope, c, r, lengths, LATENT_SCALE)
+    torch.testing.assert_close(first.float(), want.float(), **TOL_ATTN[torch.bfloat16])
+    for _ in range(2):
+        assert torch.equal(ops.decode_attention_latent(q_lat, q_rope, c, r, lengths,
+                                                       LATENT_SCALE), first)
+    torch.cuda.synchronize()
+    assert not ops._tickets[q_lat.device].any()
+
+
+def test_latent_kernel_no_live_position_gives_zeros(cuda):
+    q_lat, q_rope, c, r = _latent_inputs(2, 64, 16, torch.float32, torch.float32, 5, cuda)
+    c.fill_(float("nan"))
+    r.fill_(float("nan"))
+    out = ops.decode_attention_latent(q_lat, q_rope, c, r, torch.tensor([-1, -3], device=cuda),
+                                      LATENT_SCALE)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_latent_kernel_graph_replays_new_lengths(cuda):
+    """One call with (B,) lengths captured in a CUDA graph, replayed with new
+    lengths in the same tensor: each against the plain version."""
+    B, S = 8, 1024
+    q_lat, q_rope, c, r = _latent_inputs(B, S, 128, torch.bfloat16, torch.bfloat16, 6, cuda)
+    valid = torch.zeros(B, dtype=torch.int32, device=cuda)
+    ops.decode_attention_latent(q_lat, q_rope, c, r, valid, LATENT_SCALE)  # outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention_latent(q_lat, q_rope, c, r, valid, LATENT_SCALE)
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        lengths = torch.from_numpy(rng.integers(0, S + 20, B).astype(np.int32)).to(cuda)
+        valid.copy_(lengths)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ref.decode_attention_latent_ref(q_lat, q_rope, c, r, lengths, LATENT_SCALE)
+        torch.testing.assert_close(out.float(), want.float(), **TOL_ATTN[torch.bfloat16])
+
+
+def test_latent_kernel_checks_inputs(cuda):
+    q_lat, q_rope, c, r = _latent_inputs(1, 64, 16, torch.float32, torch.float32, 7, cuda)
+    with pytest.raises(ValueError):  # 12 heads: not a multiple of 16
+        ops.decode_attention_latent(q_lat[:, :12].contiguous(), q_rope[:, :12].contiguous(), c,
+                                    r, 3, LATENT_SCALE)
+    with pytest.raises(ValueError):  # no instantiation at (256, 64)
+        ops.decode_attention_latent(q_lat[..., :256].contiguous(), q_rope,
+                                    c[..., :256].contiguous(), r, 3, LATENT_SCALE)
+    strided = torch.empty(1, 64, 1024, device=cuda)[..., :512]
+    with pytest.raises(ValueError):  # the kernel reads the caches in place, contiguous
+        ops.decode_attention_latent(q_lat, q_rope, strided, r, 3, LATENT_SCALE)
+    with pytest.raises(ValueError):  # no live position for an int
+        ops.decode_attention_latent(q_lat, q_rope, c, r, -1, LATENT_SCALE)
+
+
+def _mla_cfg():
+    """Reduced deepseek-v3 at its real MLA head dims (nope 128, rope 64, v
+    128, kv_lora 512) with 16 heads, so both attention kernels take it."""
+    import dataclasses
+
+    from repro_torch.configs import MLAConfig, get_config
+
+    cfg = get_config("deepseek_v3_671b").reduced()
+    return dataclasses.replace(cfg, n_heads=16, n_kv_heads=16,
+                               mla=MLAConfig(q_lora_rank=64, kv_lora_rank=512,
+                                             qk_nope_head_dim=128, qk_rope_head_dim=64,
+                                             v_head_dim=128))
+
+
+def test_mla_model_on_card_matches_cpu(cuda):
+    """The MLA model (leading dense layer, sigmoid MoE with a shared expert)
+    on the card through ``flash_attention`` at (192, 128) and the latent
+    decode, against the same model on the CPU: prefill logits, then three
+    decode steps into the prompt's latent cache, the last with per-row
+    positions; and the MTP hidden of ``forward("train")``."""
+    from repro_torch.models import Model
+
+    cfg = _mla_cfg()
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    params_card = _tree_to(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 40))
+                              .astype(np.int32))
+    ops.reset_launches()
+    cache_c, logits_c = card.prefill(params_card, {"tokens": tokens.to(cuda)})
+    cache, logits = cpu.prefill(params, {"tokens": tokens})
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(logits_c.cpu(), logits, **TOL)
+    kv_c, kv = card.init_cache(2, 48, torch.float32), cpu.init_cache(2, 48, torch.float32)
+    for key in kv:
+        for a, b, src in zip(kv_c[key], kv[key], cache[key]):
+            a[:, :, :40] = src.to(cuda)
+            b[:, :, :40] = src
+    tok = tokens[:, -1:]
+    for idx in (40, 41, torch.tensor([44, 7], dtype=torch.int32)):
+        lc, kv_c = card.decode_step(params_card, tok.to(cuda), kv_c,
+                                    idx.to(cuda) if isinstance(idx, torch.Tensor) else idx)
+        lp, kv = cpu.decode_step(params, tok, kv, idx)
+        torch.testing.assert_close(lc.cpu(), lp, **TOL)
+        tok = lp.argmax(-1, keepdim=True).to(torch.int32)
+    assert ops.LAUNCHES["decode_attention_latent"] == 3 * cfg.n_layers
+    assert ops.LAUNCHES["decode_attention"] == 0
+    _, (_, h_c), _ = card.forward(params_card, {"tokens": tokens.to(cuda)})
+    _, (_, h), _ = cpu.forward(params, {"tokens": tokens})
+    torch.testing.assert_close(h_c.cpu(), h, **TOL)
+
+
+def test_mla_batcher_and_generate_on_card_match_cpu(cuda):
+    """The MLA model's batcher on the card (one replay a step, 4 latent
+    launches a replay) gives the CPU batcher's tokens for 7 requests
+    through 3 slots; ``Instance.generate`` replays give the eager loop's."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousBatcher, Endpoint, GenRequest, Instance, captured
+
+    cfg = dataclasses.replace(_mla_cfg(), vocab=64)
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(5))
+    card = Model(cfg, device=cuda)
+    params_card = _tree_to(params, cuda)
+    rng = np.random.default_rng(2)
+    reqs = [(f"r{i}", [int(t) for t in rng.integers(0, cfg.vocab, rng.integers(1, 12))],
+             int(rng.integers(1, 9))) for i in range(7)]
+    outs, logits = [], []
+    for model, p in ((cpu, params), (card, params_card)):
+        b = ContinuousBatcher(model, p, n_slots=3, max_len=24)
+        for rid, prompt, n in reqs:
+            b.submit(GenRequest(rid, prompt, max_new_tokens=n))
+        captured.reset_replays()
+        outs.append(b.run_to_completion())
+        logits.append(b.logits.float().cpu())
+        if model is card:
+            assert captured.REPLAYED["steps"] == b.steps
+            assert captured.REPLAYED["decode_attention_latent"] == cfg.n_layers * b.steps
+    assert outs[0] == outs[1]
+    torch.testing.assert_close(logits[1], logits[0], **TOL)
+    inst = Instance(Endpoint("mla", cfg, seed=3, max_cache_len=64), device=cuda)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 20)).astype(np.int32)).to(cuda)
+    want = _eager_generate(inst, tokens, 6)
+    inst.prepare(1)
+    captured.reset_replays()
+    assert torch.equal(inst.generate(tokens, 6), want)
+    assert captured.REPLAYED["decode_attention_latent"] == cfg.n_layers * 5
+
+
+def test_bf16_endpoint_replays_on_a_bf16_latent_cache(cuda):
+    """A bfloat16 endpoint's captured decode loop keeps its latent cache in
+    bfloat16, and its replayed tokens equal the eager loop's on that cache."""
+    import dataclasses
+
+    from repro_torch.serving import Endpoint, Instance, captured
+
+    cfg = dataclasses.replace(_mla_cfg(), vocab=64)
+    inst = Instance(Endpoint("mla", cfg, seed=3, max_cache_len=64, param_dtype=torch.bfloat16),
+                    device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab, (2, 20))
+                              .astype(np.int32)).to(cuda)
+    want = _eager_generate(inst, tokens, 6)
+    inst.prepare(2)
+    assert {t.dtype for t in captured.tree_leaves(inst._loops[2].cache)} == {torch.bfloat16}
+    captured.reset_replays()
+    assert torch.equal(inst.generate(tokens, 6), want)
+    assert captured.REPLAYED["decode_attention_latent"] == cfg.n_layers * 5
+
+
+def test_moe_top8_replay_equals_eager(cuda):
+    """Top-8 routing (16 experts, the sigmoid router, bfloat16): a decode step
+    captured in a CUDA graph and replayed gives the eager step's logits bit
+    for bit, since each token's 8 gated rows are summed in a fixed order."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    from repro_torch.serving.captured import CapturedStep, copy_into, tree_leaves
+
+    cfg = _family_cfg("mixtral_8x22b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=16, top_k=8,
+                                                           router="sigmoid", n_shared=1))
+    model = Model(cfg, param_dtype=torch.bfloat16, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    B = 8
+    cache = model.init_cache(B, 32, torch.bfloat16)
+    tok = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (B, 1))
+                           .astype(np.int32)).to(cuda)
+    lengths = torch.tensor([3, 0, 17, 9, 31, 30, 1, 12], dtype=torch.int32, device=cuda)
+    model.decode_step(params, tok, cache, lengths)  # first call: loads, allocations
+    torch.cuda.synchronize()
+    snap = [t.clone() for t in tree_leaves(cache)]
+    eager, _ = model.decode_step(params, tok, cache, lengths)
+
+    def step():
+        logits, new = model.decode_step(params, tok, cache, lengths)
+        copy_into(cache, new)
+        return logits
+
+    graph = CapturedStep(step, cuda)
+    for _ in range(3):
+        for t, s in zip(tree_leaves(cache), snap):
+            t.copy_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(graph.out, eager)
