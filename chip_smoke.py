@@ -147,9 +147,41 @@ line):
              valid_len 1,024) and the batcher's (B=8, bfloat16 cache, seeded
              lengths) against their plain versions, each timed with SDPA
              beside (on [c | r] joined once, for the latent decode).
+12. whisper — after the deepseek model is freed: whisper-small whole (12
+             encoder and 12 decoder layers, d_model 768, 12 heads of 64,
+             d_ff 3072, vocab 51,865; 209.7 M parameters in float32 from
+             seeds 0-2, position tables of 2,048 rows), three endpoints
+             behind a ``ServingEngine`` with hiku and 2 workers, the 8
+             requests of ``ORDER`` with 440-token prompts and gen_len 8 (440
+             + 8 tokens fill whisper's text context of 448 positions; the
+             encoder runs over 440 zero frames and decode cross-attends to
+             8 rows of zero memory, as the reference's ``Instance`` does):
+             exactly 36 ``flash_attention``
+             a prefill (12 encoder, bidirectional; 12 self; 12 cross) and 24
+             ``decode_attention`` a replay (12 self, 12 cross) and a cold
+             start's eager call, one request against the CPU plain path
+             (logits within TOL_LOGITS) and profiled as in 7.  Then the
+             audio part on the first endpoint's weights: seeded frames of
+             T=1,500 (30 s of audio) through ``Model.prefill`` with prompts
+             of S=4 and 440 (cross-attention at Sk != S) and 8 greedy
+             decode steps over the encoded memory, each against the CPU
+             plain path (logits within TOL_LOGITS at every step, the same
+             tokens), and the device time of one prefill at B=8; then the
+             batch phase's batcher (8 slots x 1,024, float32 cache, 1,500
+             rows of zero memory, the same 16 requests) with its checks (24
+             ``decode_attention`` a replay).  Phase 2 also holds every
+             attention of these three parts at its own shape (12 heads of
+             64, float32), each against its plain version and timed with
+             SDPA beside: ``flash_attention`` at the serve prefill (B=1,
+             S=Sk=440, bidirectional and causal), at the audio prefills
+             (encoder S=1,500 bidirectional, also in bfloat16; self S=4
+             causal; cross S=440 and S=4 over Sk=1,500; and the same at B=8),
+             and ``decode_attention`` at B=1 over a 2,048-row cache, over 8
+             and over 1,500 memory rows, and at B=8 over the batcher's
+             1,024-row cache (seeded lengths) and 1,500 memory rows.
 
 The launch counters are set to 0 just before each main path (phases 3, 4,
-5, 8, 9, 10 and both parts of 11) and read just after: the wrappers' own launches plus, for each
+5, 8, 9, 10 and the parts of 11 and 12) and read just after: the wrappers' own launches plus, for each
 replay of a captured step, the launches recorded when it was captured
 (``serving/captured.py``); launches made in phase 2 do not count.  Before the last line it prints one
 JSON line ``{"kernels": [...]}``, and the last line is
@@ -167,10 +199,13 @@ turns, with ``--sched-only``.
 
 In the ``{"kernels": [...]}`` line the ``ssd_scan``, ``flash_attention``
 and ``decode_attention`` rows carry ``shapes``: the same numbers at the
-hybrid, moe and mla paths' shapes, each with the launches of its own path
-(``decode_attention``'s ``batch`` holds the llava-width rows, its
+hybrid, moe, mla and whisper paths' shapes, each with the launches of its
+own path (``decode_attention``'s ``batch`` holds the llava-width rows, its
 ``mla_b1`` and ``mla_b8`` the latent entry's, counted under
-``decode_attention_latent``).  The two
+``decode_attention_latent``).  A ``batch`` or ``whisper_*`` row's launches
+are those the wrappers counted at its own shape (``ops.SHAPE_LAUNCHES``,
+and for replays ``captured.REPLAYED_SHAPES``) on the main paths; every
+launch of the whisper paths falls in one of the ``whisper_*`` rows.  The two
 scheduling rows also carry
 ``burst`` (the events of the timed burst, the path's chunk of 1,024),
 ``ns_per_event`` and ``ms_4096`` (the time of a 4,096-event burst): their
@@ -206,6 +241,11 @@ MOE_PROMPT = 512  # the moe path's prefill: T=512, capacity 160 a expert (tokens
 MLA_WIDTH = (61, 7168, 129280)  # deepseek-v3-671b: layers, d_model, vocab
 MLA_LAYERS = 4  # of deepseek-v3's 61: its 3 dense layers and 1 MoE layer, 31.6 GB in bfloat16
 MLA_CACHE = 2048  # the mla endpoint's max_cache_len: 1,024-token prompts decode at 1,024-1,030
+WHISPER_WIDTH = (12, 768, 51865)  # whisper-small: decoder layers, d_model, vocab
+WHISPER_TEXT = 448  # whisper's text context: the positions dec_pos holds in the published model
+WHISPER_PROMPT = 440  # the whisper serve and audio prompts: with 8 tokens generated, 448 positions
+WHISPER_FRAMES = 1500  # encoder frames of 30 s of audio
+WHISPER_CACHE = 2048  # the whisper endpoints' max_cache_len (and position tables)
 BATCH_SLOTS, BATCH_MAX_LEN = 8, 1024  # the batch phase's cache: slots, positions a slot
 ORDER = [0, 0, 1, 1, 2, 0, 1, 2]  # endpoint of each serve request
 
@@ -576,21 +616,24 @@ def attn_inputs(torch, shapes, seed):
     return [torch.randn(*sh, generator=g).to(DEVICE) for sh in shapes]
 
 
-def live_pairs(S, causal, window):
-    """(query, key) pairs the masks leave live in one head."""
+def live_pairs(S, causal, window, Sk=None):
+    """(query, key) pairs the masks leave live in one head, for S queries
+    over Sk keys (S unless given; with Sk != S there is no mask)."""
+    Sk = Sk or S
     n = 0
     for i in range(S):
         lo = max(0, i - window + 1) if window else 0
-        n += (i if causal else S - 1) - lo + 1
+        n += (i if causal else Sk - 1) - lo + 1
     return n
 
 
-def flash_counts(B, S, H, KH, hd, causal, window, elem, hd_v=None):
+def flash_counts(B, S, H, KH, hd, causal, window, elem, hd_v=None, Sk=None):
     """q, k, v read once and out written once; 2*hd + 2*hd_v operations (q.k
-    and p*v) per live pair (hd_v: v's head dim, hd unless given)."""
-    hd_v = hd_v or hd
-    nbytes = (B * S * H * (hd + hd_v) + B * S * KH * (hd + hd_v)) * elem
-    return nbytes, 2 * (hd + hd_v) * B * H * live_pairs(S, causal, window)
+    and p*v) per live pair (hd_v: v's head dim, hd unless given; Sk: the
+    keys' length, S unless given)."""
+    hd_v, Sk = hd_v or hd, Sk or S
+    nbytes = (B * S * H * (hd + hd_v) + B * Sk * KH * (hd + hd_v)) * elem
+    return nbytes, 2 * (hd + hd_v) * B * H * live_pairs(S, causal, window, Sk)
 
 
 def decode_counts(S, H, KH, hd, lengths, window, q_elem, cache_elem):
@@ -683,6 +726,26 @@ def phase_attention(torch, np, ops, ref, rows):
     # deepseek-v3's MLA: prefill at q/k heads of 192 against v heads of 128
     rows["flash_attention"]["shapes"]["mla"] = flash_row(
         torch, ops, ref, "deepseek-v3", (1, 1024, 128, 128, 192), None, torch.bfloat16, hd_v=128)
+    # whisper-small, every prefill attention of its paths at its own shape:
+    # the serve part's (440 tokens over 440 zero frames: encoder and cross
+    # bidirectional at Sk = S, self causal), the audio part's over 30 s of
+    # audio at B=1 (prompts of 440 and 4 tokens) and B=8 (440), and the
+    # encoder in bfloat16 beside its float32
+    T, P, WH = WHISPER_FRAMES, WHISPER_PROMPT, (12, 12, 64)
+    for label, (B, S, causal, Sk, dtype) in {
+            f"whisper_serve_bidir_{P}": (1, P, False, None, f32),
+            f"whisper_self_{P}": (1, P, True, None, f32),
+            "whisper_self_4": (1, 4, True, None, f32),
+            "whisper_enc_f32": (1, T, False, None, f32),
+            "whisper_enc_bf16": (1, T, False, None, bf16),
+            f"whisper_cross_{P}": (1, P, False, T, f32),
+            "whisper_cross_4": (1, 4, False, T, f32),
+            "whisper_enc_b8": (8, T, False, None, f32),
+            f"whisper_self_b8_{P}": (8, P, True, None, f32),
+            f"whisper_cross_b8_{P}": (8, P, False, T, f32)}.items():
+        rows["flash_attention"]["shapes"][label] = flash_row(
+            torch, ops, ref, f"whisper-small {label[8:]}", (B, S, *WH), None, dtype,
+            causal=causal, Sk=Sk)
     decode_timing(torch, ops, ref, rows)
     rows["decode_attention"]["max_abs_err"] = max(errs["decode_attention"])
     decode_batch_timing(torch, np, ops, ref, rows)
@@ -697,44 +760,48 @@ def phase_attention(torch, np, ops, ref, rows):
                           lengths, torch.bfloat16, torch.bfloat16, 70))
 
 
-def flash_row(torch, ops, ref, label, shape, window, dtype, hd_v=None):
-    """``flash_attention`` causal at ``shape`` (B, S, H, KH, hd) in ``dtype``:
-    against its plain version (the dtype's tolerance), then its time, the
-    plain version's and one ``scaled_dot_product_attention`` call's (the
-    library yardstick, never called by the port) from CUDA graphs of
-    back-to-back calls; the bound at the peak for the inputs' type.  With
-    ``hd_v`` (MLA) v has heads of that width, read in place as the tail of
-    each head's [k_nope | v] row of 2 x hd_v, as ``mla_forward`` passes it.
-    Returns the row for the kernels line."""
+def flash_row(torch, ops, ref, label, shape, window, dtype, hd_v=None, causal=True, Sk=None):
+    """``flash_attention`` at ``shape`` (B, S, H, KH, hd) in ``dtype``, causal
+    unless ``causal=False``: against its plain version (the dtype's
+    tolerance), then its time, the plain version's and one
+    ``scaled_dot_product_attention`` call's (the library yardstick, never
+    called by the port) from CUDA graphs of back-to-back calls; the bound at
+    the peak for the inputs' type.  With ``hd_v`` (MLA) v has heads of that
+    width, read in place as the tail of each head's [k_nope | v] row of 2 x
+    hd_v, as ``mla_forward`` passes it; with ``Sk`` (cross-attention, not
+    causal) k and v have Sk rows.  Returns the row for the kernels line, with
+    ``key``: the call's shape as the wrapper counts it (``ops.shape_key``)."""
     F = torch.nn.functional
     B, S, H, KH, hd = shape
+    Sk = Sk or S
     q, k, kv = (t.to(dtype) for t in attn_inputs(
-        torch, [(B, S, H, hd), (B, S, KH, hd), (B, S, KH, 2 * hd_v if hd_v else hd)], 7))
+        torch, [(B, S, H, hd), (B, Sk, KH, hd), (B, Sk, KH, 2 * hd_v if hd_v else hd)], 7))
     v = kv[..., hd_v:] if hd_v else kv
-    want = ref.flash_attention_ref(q, k, v, True, window)
-    err = check_close(torch, f"flash_attention {label}", ops.flash_attention(q, k, v, True, window),
-                      want, dtype)
+    want = ref.flash_attention_ref(q, k, v, causal, window)
+    err = check_close(torch, f"flash_attention {label}",
+                      ops.flash_attention(q, k, v, causal, window), want, dtype)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     gqa = dict(enable_gqa=True) if H != KH else {}
     if window is None or window >= S:
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa)  # noqa: E731
     else:
         i = torch.arange(S, device=DEVICE)
         mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa)  # noqa: E731
     lib_err = max_abs(lib().transpose(1, 2), want)
-    ms = time_graph(torch, [lambda: ops.flash_attention(q, k, v, True, window)] * 10)
-    plain_ms = time_graph(torch, [lambda: ref.flash_attention_ref(q, k, v, True, window)] * 3)
+    ms = time_graph(torch, [lambda: ops.flash_attention(q, k, v, causal, window)] * 10)
+    plain_ms = time_graph(torch, [lambda: ref.flash_attention_ref(q, k, v, causal, window)] * 3)
     lib_ms = time_graph(torch, [lib] * 10)
-    nbytes, nops = flash_counts(B, S, H, KH, hd, True, window, q.element_size(), hd_v)
+    nbytes, nops = flash_counts(B, S, H, KH, hd, causal, window, q.element_size(), hd_v, Sk)
     b_ms, b_by = bound(nbytes, nops, peak_ops(torch, dtype))
-    log(f"[kernels] flash_attention {label} B={B} S={S} H={H} KH={KH} hd={hd} "
-        f"{f'hd_v={hd_v} (v strided) ' if hd_v else ''}causal "
+    log(f"[kernels] flash_attention {label} B={B} S={S} {f'Sk={Sk} ' if Sk != S else ''}H={H} "
+        f"KH={KH} hd={hd} {f'hd_v={hd_v} (v strided) ' if hd_v else ''}"
+        f"{'causal' if causal else 'bidirectional'} "
         f"window={window} {str(dtype)[6:]}: max abs err {err:.3e}; {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}), bound "
         f"{b_ms:.4f} ms ({b_by}: {nops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, key=ops.shape_key(q, k, v, causal, window))
 
 
 def decode_timing(torch, ops, ref, rows):
@@ -799,8 +866,9 @@ def decode_batch_timing(torch, np, ops, ref, rows):
     lengths) with a bfloat16 and an fp8 cache (``rows["decode_attention_batch"]``),
     and at the new paths' shapes (``rows["decode_attention_shapes"]``):
     zamba2-2.7b width (B=1, H=KH=32, hd=80, float32, 2,048-position cache,
-    valid_len 1,024) and mixtral-8x22b batch width (the llava lengths, H=48,
-    KH=8, hd=128, q and cache in bfloat16, window 4096)."""
+    valid_len 1,024), mixtral-8x22b batch width (the llava lengths, H=48,
+    KH=8, hd=128, q and cache in bfloat16, window 4096) and whisper-small's
+    (H=KH=12, hd=64, float32) self and cross shapes."""
     # seeded per-row lengths: what 8 slots hold in the middle of the batch run
     lengths = np.random.default_rng(7).integers(16, 577, BATCH_SLOTS).tolist()
     llava = (BATCH_SLOTS, BATCH_MAX_LEN, 32, 8, 128)
@@ -813,7 +881,21 @@ def decode_batch_timing(torch, np, ops, ref, rows):
                              None, torch.float32, torch.float32, 50),
         "mixtral": decode_row(torch, ops, ref, "mixtral-8x22b batch width",
                               (BATCH_SLOTS, BATCH_MAX_LEN, 48, 8, 128), lengths, 4096,
-                              torch.bfloat16, torch.bfloat16, 40)}
+                              torch.bfloat16, torch.bfloat16, 40),
+        # whisper-small, every decode attention of its paths: self over the
+        # endpoints' 2,048-row cache (serve and audio, B=1, the middle of
+        # positions 440-447) and the batcher's (B=8, the llava lengths);
+        # cross over the serve part's 8 rows of zero memory, the audio
+        # part's 1,500 encoded rows (B=1) and the batch step's 1,500 (B=8)
+        **{label: decode_row(torch, ops, ref, f"whisper-small {label[8:]}", (B, S, 12, 12, 64),
+                             lens, None, torch.float32, torch.float32, seed, n=n)
+           for label, (B, S, lens, seed, n) in {
+               "whisper_self_b1": (1, WHISPER_CACHE, [WHISPER_PROMPT + 3], 80, 16),
+               "whisper_cross_b1_8": (1, 8, [7], 100, 16),
+               "whisper_cross_b1": (1, WHISPER_FRAMES, [WHISPER_FRAMES - 1], 120, 16),
+               "whisper_self_b8": (BATCH_SLOTS, BATCH_MAX_LEN, lengths, 140, 8),
+               "whisper_cross_b8": (BATCH_SLOTS, WHISPER_FRAMES,
+                                    [WHISPER_FRAMES - 1] * BATCH_SLOTS, 160, 8)}.items()}}
 
 
 def decode_row(torch, ops, ref, label, shape, lengths, window, q_dtype, cache_dtype, seed, n=8):
@@ -823,7 +905,8 @@ def decode_row(torch, ops, ref, label, shape, lengths, window, q_dtype, cache_dt
     call's with the per-row mask on a copy of the cache in q's dtype (the
     library yardstick; it takes no fp8), from CUDA graphs over ``n`` caches in
     turn (L2 cold); bound from the bytes of the live rows at the cache's
-    element size.  Returns the row for the kernels line."""
+    element size.  Returns the row for the kernels line, with ``key``: the
+    call's shape as the wrapper counts it (``ops.shape_key``)."""
     F = torch.nn.functional
     B, S, H, KH, hd = shape
     valid = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
@@ -858,7 +941,7 @@ def decode_row(torch, ops, ref, label, shape, lengths, window, q_dtype, cache_dt
         f"on a copy in q's dtype {lib_ms:.4f} ms (max abs diff {lib_err:.2e}), bound "
         f"{b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {nops / 1e6:.2f} MFLOP)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, key=ops.shape_key(q, *caches[0], window))
 
 
 def latent_counts(H, dc, dr, lengths, S, q_elem, cache_elem):
@@ -1044,16 +1127,16 @@ def trace_sched(torch, np, core):
         log(f"[sched trace]   {self_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
-def serve(torch, np, eng, prefix, vocab, label, order=None):
-    """Submit the 8 requests of ``ORDER`` (1,024-token seeded prompts,
-    gen_len 8) to ``eng``'s endpoints ``prefix0..2``, or one request to each
-    endpoint name of ``order``; check cold then warm on the same worker.
-    Returns (worker of the first request, its prompt, the number of
+def serve(torch, np, eng, prefix, vocab, label, order=None, prompt_len=1024):
+    """Submit the 8 requests of ``ORDER`` (seeded prompts of ``prompt_len``
+    tokens, gen_len 8) to ``eng``'s endpoints ``prefix0..2``, or one request
+    to each endpoint name of ``order``; check cold then warm on the same
+    worker.  Returns (worker of the first request, its prompt, the number of
     requests, the number of cold starts: each captures the decode step after
     one eager call of it)."""
     rng = np.random.default_rng(4)
     order = order or [f"{prefix}{i}" for i in ORDER]
-    prompts = [torch.from_numpy(rng.integers(0, vocab, (1, 1024)).astype(np.int32))
+    prompts = [torch.from_numpy(rng.integers(0, vocab, (1, prompt_len)).astype(np.int32))
                for _ in order]
     first = {}
     for func, tok in zip(order, prompts):
@@ -1066,7 +1149,7 @@ def serve(torch, np, eng, prefix, vocab, label, order=None):
             fail(f"repeat request to {func} was cold or left its warm worker")
     cold = [r.latency_ms for r in eng.records if r.cold]
     warm = [r.latency_ms for r in eng.records if not r.cold]
-    log(f"[{label}] {len(order)} requests, 1024-token prompts, gen_len 8: cold "
+    log(f"[{label}] {len(order)} requests, {prompt_len}-token prompts, gen_len 8: cold "
         f"{statistics.median(cold):.1f} ms (median of {len(cold)}), warm "
         f"{statistics.median(warm):.1f} ms (median of {len(warm)}), scheduler overhead "
         f"{eng.summary()['sched_overhead_ms'] * 1e3:.1f} us; workers "
@@ -1086,8 +1169,8 @@ def generate_with_logits(torch, inst, prompt, gen_len):
     also returning each step's logits."""
     model = inst.model
     prompt = prompt.to(inst.device)
-    cache = model.init_cache(1, inst.endpoint.max_cache_len, dtype=inst.endpoint.param_dtype)
-    _, lg = model.prefill(inst.params, {"tokens": prompt})
+    cache = inst.decode_cache(1)
+    _, lg = model.prefill(inst.params, inst.prefill_batch(prompt))
     logits, out = [lg], [lg.argmax(-1)]
     idx = min(prompt.shape[1], inst.endpoint.max_cache_len - gen_len - 1)
     for i in range(gen_len - 1):
@@ -1135,10 +1218,10 @@ def profile_warm_request(torch, eng, wid, func, prompt, label):
     from torch.profiler import ProfilerActivity, profile
 
     inst = eng.workers[wid].idle[func][0]
-    tok = prompt.to(inst.device)
+    batch = inst.prefill_batch(prompt.to(inst.device))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    inst.model.prefill(inst.params, {"tokens": tok})
+    inst.model.prefill(inst.params, batch)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
@@ -1149,7 +1232,7 @@ def profile_warm_request(torch, eng, wid, func, prompt, label):
         inst.generate(prompt, 8)
         traced_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_prefill:
-        inst.model.prefill(inst.params, {"tokens": tok})
+        inst.model.prefill(inst.params, batch)
         torch.cuda.synchronize()
     self_us = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731
     tag = f"[profile {label}]"
@@ -1164,7 +1247,8 @@ def profile_warm_request(torch, eng, wid, func, prompt, label):
             log(f"{tag}   prefill {self_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:80]}")
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(self_us(e) for e in kern) / 1e3
-    log(f"{tag} warm request (1,024-token prefill + 7 decode steps): {request_ms:.1f} ms, "
+    log(f"{tag} warm request ({prompt.shape[1]:,}-token prefill + 7 decode steps): "
+        f"{request_ms:.1f} ms, "
         f"of which prefill {prefill_ms:.1f} ms (host clock)")
     if busy_ms == 0:
         log(f"{tag} device time: not measured (the profiler saw no kernel time)")
@@ -1274,9 +1358,9 @@ def check_batch_step(torch, ops, ref, moe, b, snap, kernel="decode_attention"):
             return b.model.decode_step(b.params, b.step_tokens.clone(), _clone(snap),
                                        b.step_lengths.clone())[0]
 
-    counts = dict(ops.LAUNCHES)
+    counts = ops.launch_counts()
     eager = step(both, recorder(moe.route, routes))
-    ops.LAUNCHES.update(counts)
+    ops.restore_launches(counts)
     if not torch.equal(eager, b.logits):
         fail(f"batch step {b.steps}: the replayed logits differ from the eager step's by "
              f"{max_abs(eager, b.logits):.3e}")
@@ -1340,15 +1424,14 @@ def run_batcher(torch, np, ops, ref, moe, serving, model, params, dtype, reqs, t
                 kernel="decode_attention"):
     """``reqs`` through a ``ContinuousBatcher`` of 8 slots x 1,024 positions
     with a ``dtype`` cache, each step one replay of the captured step, then 16
-    traced steps with every slot busy.  Checks one launch of the decode
-    kernel ``kernel`` (``decode_attention``, or MLA's
-    ``decode_attention_latent``) per attention layer in the captured step,
-    one replay per step,
+    traced steps with every slot busy.  Checks ``decode_attention_calls()`` of
+    the decode kernel ``kernel`` (``decode_attention``, or MLA's
+    ``decode_attention_latent``) in the captured step, one replay per step,
     every request complete with its token count, and step 200 against the
     plain per-row path (``check_batch_step``); prints steps/s, tokens/s, ms a
     step and the traced idle share.  Returns ({request: tokens}, the cache's
     bytes, the replays made)."""
-    L = model.cfg.n_layers
+    L = model.decode_attention_calls()
     t0 = time.perf_counter()
     b = serving.ContinuousBatcher(model, params, n_slots=BATCH_SLOTS, max_len=BATCH_MAX_LEN,
                                   dtype=dtype)
@@ -1585,6 +1668,108 @@ def check_mla_against_cpu(torch, np, Model, moe, inst, label):
         f"one CPU prefill {cpu_s:.1f} s")
 
 
+def greedy_decode(torch, model, params, cache, first, idx, steps):
+    """``steps`` greedy ``decode_step``s from ``first`` (B,) at positions
+    ``idx, idx + 1, ...`` on ``cache``: (tokens (B, steps + 1), each step's
+    logits), on the host."""
+    out, logits = [first], []
+    for i in range(steps):
+        lg, cache = model.decode_step(params, out[-1][:, None], cache, idx + i)
+        logits.append(lg.cpu())
+        out.append(lg.argmax(-1))
+    return torch.stack(out, 1).cpu(), logits
+
+
+def whisper_audio(torch, np, Model, frontends, inst, label):
+    """whisper-small at its own shape, on the serve part's weights: seeded
+    ``synth_audio_frames`` of T = 1,500 (30 s of audio) through
+    ``Model.prefill`` with decoder prompts of S = 4 (the start sequence) and
+    S = 440 (which the 8 decode steps take to the text context's 448
+    positions), so that cross-attention runs with Sk != S;
+    then 8 greedy ``decode_step``s from ``init_cache(1, 2048,
+    memory_t=1500)`` holding the prefill's memory, enc_pos and self-attention
+    rows [0, S), so that decode cross-attends to the encoded audio.  Each
+    against the same weights' plain path on the CPU: the prefill's last
+    logits and every step's within TOL_LOGITS, and the same tokens up to a
+    near tie (as ``check_serve_against_cpu``).  Then the device time of one
+    prefill at B=8 (T = 1,500, S = 440) from ``torch.profiler``.  Returns
+    (prefills, decode steps) made on the card."""
+    model, params, cfg = inst.model, inst.params, inst.model.cfg
+    T, steps = WHISPER_FRAMES, 8
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    frames = frontends.synth_audio_frames(gen, 8, T, cfg.d_model)
+    rng = np.random.default_rng(12)
+    t0 = time.perf_counter()
+    cpu_params = _to_cpu(params)
+    cpu = Model(cfg, device="cpu")
+    copy_s = time.perf_counter() - t0
+    n_prefill = n_steps = 0
+    if WHISPER_PROMPT + steps > WHISPER_TEXT:
+        fail(f"{label} decodes past whisper's {WHISPER_TEXT} text positions")
+    for S in (4, WHISPER_PROMPT):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S)).astype(np.int32))
+        runs = []
+        for m, p, dev in ((model, params, DEVICE), (cpu, cpu_params, "cpu")):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                pre, last = m.prefill(p, {"frames": frames[:1].to(dev), "tokens": tokens.to(dev)})
+                cache = m.init_cache(1, WHISPER_CACHE, torch.float32, memory_t=T)
+                cache["memory"].copy_(pre["memory"])
+                cache["enc_pos"].copy_(pre["enc_pos"])
+                for a, b in zip(cache["stack"], pre["stack"]):
+                    a[:, :, :S] = b
+                del pre
+                toks, logits = greedy_decode(torch, m, p, cache, last.argmax(-1), S, steps)
+            runs.append((toks, [last.cpu()] + logits, time.perf_counter() - t0))
+        n_prefill, n_steps = n_prefill + 1, n_steps + steps
+        (toks, logits, card_s), (want_toks, want, cpu_s) = runs
+        agree = steps + 1
+        if not torch.equal(toks, want_toks):
+            agree = int((toks != want_toks).int().argmax())
+            top2 = want[agree].topk(2).values[0]
+            if float(top2[0] - top2[1]) > 2 * TOL_LOGITS["atol"]:
+                fail(f"{label} S={S}: tokens differ from the CPU plain path at step {agree}: "
+                     f"{toks.tolist()} vs {want_toks.tolist()}")
+        errs = [max_abs(a, b) for a, b in zip(logits[:agree + 1], want[:agree + 1])]
+        if not all(torch.isfinite(a).all() and torch.allclose(a, b, **TOL_LOGITS)
+                   for a, b in zip(logits[:agree + 1], want[:agree + 1])):
+            fail(f"{label} S={S}: logits differ from the CPU plain path: max abs errs {errs}")
+        log(f"{label} T={T} frames, S={S} tokens: prefill + {steps} decode steps over the encoded "
+            f"memory, card vs CPU plain path on the same weights: logits max abs err "
+            f"{max(errs):.3e} over {len(errs)} steps (atol 1e-3, rtol 1e-3), tokens equal for "
+            f"{min(agree, steps + 1)}/{steps + 1} {toks.tolist()[0]}; card {card_s:.2f} s, CPU "
+            f"{cpu_s:.1f} s (host clock; weights copied to the host in {copy_s:.1f} s)")
+    del cpu_params
+
+    # the device time of one prefill at B=8: 8 x 30 s of audio, 440 tokens each
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {"frames": frames, "tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (8, WHISPER_PROMPT)).astype(np.int32)).to(DEVICE)}
+    with torch.no_grad():
+        model.prefill(params, batch)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.prefill(params, batch)
+            torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    n_prefill += 2
+    self_us = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(self_us(e) for e in dev) / 1e3
+    if busy_ms == 0:
+        log(f"{label} B=8 prefill device time: not measured (the profiler saw no kernel time)")
+    else:
+        log(f"{label} one prefill at B=8, T={T}, S={WHISPER_PROMPT}: traced {traced_ms:.1f} ms, "
+            f"device busy {busy_ms:.2f} ms ({100 * busy_ms / traced_ms:.1f}%), "
+            f"{sum(e.count for e in dev)} kernel launches")
+        for e in sorted(dev, key=self_us, reverse=True)[:8]:
+            log(f"{label}   {self_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return n_prefill, n_steps
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -1645,7 +1830,7 @@ def main(argv=None) -> int:
     rows = {}
     phase_kernels(torch, np, build, ops, ref, rows)
     phase_attention(torch, np, ops, ref, rows)
-    launches, path_launches = {}, {}
+    launches, path_launches, path_shapes = {}, {}, {}
 
     def counted(path, kernels, fn):
         """Drive one main path with the counters at 0 just before it and read
@@ -1657,6 +1842,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         got = captured.launches()
         path_launches[path] = (dict(ops.LAUNCHES), dict(captured.REPLAYED))
+        path_shapes[path] = captured.launches_by_shape()
         log(f"[{path}] launches {got} (of which by {captured.REPLAYED['steps']} replays of "
             f"captured steps: { {k: v for k, v in captured.REPLAYED.items() if k != 'steps'} })")
         for name in kernels:
@@ -1830,12 +2016,92 @@ def main(argv=None) -> int:
     del x_eng, inst
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
-    # each row of the kernels line, and the launches of the path its shape is on
+    # whisper-small whole (12 encoder and 12 decoder layers) in float32: three
+    # endpoints behind hiku (zero frames of the prompt's length, decode over 8
+    # rows of zero memory, as the reference's Instance), then its own shape on
+    # the first endpoint's weights (30 s of audio), then the batcher over the
+    # reference's default 1,500 rows of zero memory
+    wcfg = full_width(get_config, "whisper_small", WHISPER_WIDTH)
+    w_eps = [Endpoint(f"whisper{i}", wcfg, seed=i, max_cache_len=WHISPER_CACHE)
+             for i in range(3)]
+    w_eng = ServingEngine(w_eps, n_workers=2, scheduler="hiku", mem_pool_bytes=32 * 2**30)
+    w_wid, w_prompt, w_reqs, w_cold = counted(
+        "whisper", ("flash_attention", "decode_attention"),
+        lambda: serve(torch, np, w_eng, "whisper", wcfg.vocab,
+                      f"whisper whisper-small {wcfg.n_encoder_layers}+{wcfg.n_layers}L "
+                      f"d{wcfg.d_model} vocab {wcfg.vocab}", prompt_len=WHISPER_PROMPT))
+    E, L = wcfg.n_encoder_layers, wcfg.n_layers
+    per_prefill = E + 2 * L
+    w_inst = w_eng.workers[w_wid].idle["whisper0"][0]
+    per_step = w_inst.model.decode_attention_calls()
+    eager, replayed = path_launches["whisper"]
+    if (eager["flash_attention"] != per_prefill * w_reqs
+            or eager["decode_attention"] != per_step * w_cold or replayed["steps"] != 7 * w_reqs
+            or replayed["decode_attention"] != per_step * 7 * w_reqs):
+        fail(f"whisper path launched flash {eager['flash_attention']}, decode "
+             f"{eager['decode_attention']} eagerly and {replayed['decode_attention']} in "
+             f"{replayed['steps']} replays, for {w_reqs} requests of 7 decode steps and "
+             f"{w_cold} cold starts")
+    log(f"[whisper] {wcfg.n_params() / 1e6:.1f} M parameters by n_params, "
+        f"{sum(t.numel() * t.element_size() for t in captured.tree_leaves(w_inst.params)) / 1e9:.3f}"
+        f" GB in float32 an endpoint (position tables of {WHISPER_CACHE} rows); {w_reqs} "
+        f"requests, {w_cold} cold starts: flash_attention {per_prefill} a prefill ({E} encoder, "
+        f"{L} self, {L} cross) x {w_reqs}; decode_attention {per_step} a step ({L} self, {L} "
+        f"cross) x {w_cold} eager (each capture's first call) + x 7 x {w_reqs} in "
+        f"{replayed['steps']} replays, as expected; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    check_serve_against_cpu(torch, Instance, w_eng, w_wid, "whisper0", w_prompt, "whisper")
+    profile_warm_request(torch, w_eng, w_wid, "whisper0", w_prompt, "whisper-small")
+    from repro_torch.models import frontends
+
+    n_prefill, n_steps = counted(
+        "whisper_audio", ("flash_attention", "decode_attention"),
+        lambda: whisper_audio(torch, np, Model, frontends, w_inst, "[whisper audio]"))
+    eager, replayed = path_launches["whisper_audio"]
+    if (eager["flash_attention"] != per_prefill * n_prefill
+            or eager["decode_attention"] != per_step * n_steps or replayed["steps"]):
+        fail(f"whisper audio path launched flash {eager['flash_attention']}, decode "
+             f"{eager['decode_attention']} ({replayed['steps']} replays), for {n_prefill} "
+             f"prefills and {n_steps} decode steps")
+    log(f"[whisper audio] flash_attention {per_prefill} x {n_prefill} prefills, "
+        f"decode_attention {per_step} x {n_steps} steps, as expected; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    _, _, w_replays = counted(
+        "whisper_batch", ("decode_attention",),
+        lambda: run_batcher(torch, np, ops, ref, moe, serving, w_inst.model, w_inst.params,
+                            torch.float32, batch_requests(np, wcfg.vocab),
+                            f"[whisper] whisper-small batch, {WHISPER_FRAMES} memory rows, f32"))
+    eager, replayed = path_launches["whisper_batch"]
+    if (eager["decode_attention"] != per_step or replayed["steps"] != w_replays
+            or replayed["decode_attention"] != per_step * w_replays
+            or eager["flash_attention"] or replayed["flash_attention"]):
+        fail(f"whisper batch path launched decode {eager['decode_attention']} eagerly and "
+             f"{replayed['decode_attention']} in {replayed['steps']} replays, for one capture "
+             f"and {w_replays} replays of {per_step}")
+    log(f"[whisper] batch: decode_attention {per_step} x 1 eager + {per_step} x {w_replays} "
+        f"replays, as expected; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del w_eng, w_inst
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # each row of the kernels line, and the launches of the path its shape is
+    # on: a ``batch`` or ``whisper_*`` row's are those at its own shape
     path = {p: {k: e[k] + r[k] for k in e} for p, (e, r) in path_launches.items()}
+    at_shape = {}
+    for by_shape in path_shapes.values():
+        for key, n in by_shape.items():
+            at_shape[key] = at_shape.get(key, 0) + n
+    whisper_keys = {key for p in ("whisper", "whisper_audio", "whisper_batch")
+                    for key in path_shapes[p]}
     batch = rows.pop("decode_attention_batch")
-    for c in batch:
-        batch[c]["launches"] = LLAVA_WIDTH[0] * sum(made[c])
+    for c, sub in batch.items():
+        sub["launches"] = at_shape.get(("decode_attention", *sub.pop("key")), 0)
+        if sub["launches"] != LLAVA_WIDTH[0] * sum(made[c]):
+            fail(f"the batch path launched decode_attention {sub['launches']} times at the "
+                 f"{c} row's shape, not {LLAVA_WIDTH[0]} x {sum(made[c])} steps")
     rows["decode_attention"]["batch"] = batch
     rows["decode_attention"]["shapes"] = rows.pop("decode_attention_shapes")
     own = {"ssd_scan": ("serve", {"zamba2": "hybrid"}),
@@ -1854,9 +2120,15 @@ def main(argv=None) -> int:
             loss[name] = events[name] * (row["ms"] - row["bound_ms"]) / SCHED_CHUNK
         else:
             main_path, shape_paths = own[name]
-            for label, p in shape_paths.items():
-                p, key = p if isinstance(p, tuple) else (p, name)
-                row["shapes"][label]["launches"] = path[p][key]
+            for label, sub in row["shapes"].items():
+                key = sub.pop("key", None)
+                if label.startswith("whisper_"):
+                    sub["launches"] = at_shape.get((name, *key), 0)
+                    whisper_keys.discard((name, *key))
+                    continue
+                p, key = shape_paths[label] if isinstance(shape_paths[label], tuple) \
+                    else (shape_paths[label], name)
+                sub["launches"] = path[p][key]
             subs = [dict(launches=path[main_path][name], ms=row["ms"], bound_ms=row["bound_ms"]),
                     *row.get("batch", {}).values(), *row["shapes"].values()]
             loss[name] = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in subs)
@@ -1864,6 +2136,8 @@ def main(argv=None) -> int:
                                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms", "burst", "ns_per_event",
                                             "ms_4096", "batch", "shapes") if k in row})
+    if whisper_keys:
+        fail(f"the whisper paths launched at shapes that no whisper_* row holds: {whisper_keys}")
     log("[done] time over the bound on the main paths: " + ", ".join(
         f"{name} {ms:.2f} ms" for name, ms in sorted(loss.items(), key=lambda kv: -kv[1])))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -2,12 +2,12 @@
 
 ``ModelConfig`` covers every family the reference supports, so that a config
 reads the same in both packages and ``reduced()`` / ``n_params()`` give the
-same numbers.  The ``ssm`` family (mamba2-130m), the ``dense`` family
-(minicpm-2b, gemma3-4b, command-r-35b, command-r-plus-104b), the ``vlm``
-backbone (llava-next-mistral-7b), the ``hybrid`` family (zamba2-2.7b) and
-the ``moe`` family (mixtral-8x22b, and deepseek-v3-671b with MLA and MTP)
-have a model in this package so far; ``get_config`` names the ROADMAP item
-for the one left (whisper-small, an encoder-decoder).
+same numbers.  Every architecture of ``ARCH_IDS`` has a module here and a
+model in this package: the ``ssm`` family (mamba2-130m), the ``dense``
+family (minicpm-2b, gemma3-4b, command-r-35b, command-r-plus-104b), the
+``vlm`` backbone (llava-next-mistral-7b), the ``hybrid`` family
+(zamba2-2.7b), the ``moe`` family (mixtral-8x22b, and deepseek-v3-671b with
+MLA and MTP) and the ``audio`` encoder-decoder (whisper-small).
 """
 
 from __future__ import annotations
@@ -192,8 +192,7 @@ class ModelConfig:
         return dataclasses.replace(self, name=self.name + "-reduced", **kw)
 
 
-#: every architecture of the reference; only those with a module in this
-#: package load (see ``get_config``)
+#: every architecture of the reference, each with a module in this package
 ARCH_IDS = [
     "gemma3_4b",
     "command_r_35b",
@@ -222,10 +221,5 @@ def get_config(name: str) -> ModelConfig:
         try:
             importlib.import_module(f"{__package__}.{key}")
         except ModuleNotFoundError:
-            if key in ARCH_IDS:
-                raise NotImplementedError(
-                    f"{key} is not ported yet: encoder-decoder models are ROADMAP "
-                    "Queue 1 item 7"
-                ) from None
             raise KeyError(f"unknown config {name!r}") from None
     return _REGISTRY[key]

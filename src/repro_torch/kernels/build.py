@@ -108,7 +108,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ssd_scan_max_chunk.argtypes = []
         lib.ssd_scan_max_chunk.restype = i
     elif name == "flash_attention":
-        lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 11 + [p]
+        lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 12 + [p]
         lib.flash_attention_launch.restype = i
     elif name == "decode_attention":
         lib.decode_attention_launch.argtypes = [p] * 7 + [i] * 12 + [p]

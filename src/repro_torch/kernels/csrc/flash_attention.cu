@@ -2,9 +2,13 @@
 //
 // Replaces the Pallas TPU kernel of the JAX package's
 // kernels/flash_attention.py (flash_attention, body _fa_kernel).  For query
-// q_i of head h and the keys k_j, values v_j of kv head h / (H / KH):
+// q_i of head h (i < S) and the keys k_j, values v_j of kv head h / (H / KH)
+// (j < Sk):
 //   out_i = sum_j softmax_j(q_i . k_j / sqrt(hd)) v_j   over the live j,
-// where j is live when j <= i (causal) and i - j < window (window set).  Same
+// where j is live when j <= i (causal) and i - j < window (window set).  Sk
+// is S for self-attention; whisper's cross-attention runs S decoder queries
+// over Sk = T encoded frames (1,500 for 30 s of audio) with neither mask,
+// which the TPU kernel did not take (it asserted one length).  Same
 // function as kernels/ref.py::flash_attention_ref: masked logits never count,
 // the running (m, l, acc) are float32, out = acc / max(l, 1e-30) in q's type.
 // The value head dim HDV may differ from the q/k head dim HD: MLA's prefill
@@ -32,7 +36,7 @@
 //     hd=64, against 2 with scalar reads of a 4 x 4 tile).  A lane's keys
 //     are strided by TC, so the float4 reads of K rows fall in distinct banks;
 //   - cp.async: K and V tiles are copied 16 bytes at a time straight to
-//     shared memory (cp.async.cg, zero-filled past S), K_{j+1} while P.V of
+//     shared memory (cp.async.cg, zero-filled past Sk), K_{j+1} while P.V of
 //     tile j runs and V_{j+1} while the scores of tile j+1 run, so one K and
 //     one V buffer overlap every copy with math; bf16 stays bf16 in shared
 //     memory and is converted when read;
@@ -40,8 +44,9 @@
 //   - the q tiles launch last-first, so under the causal mask the longest
 //     CTAs start first and the tail is short; at 1,024 tokens, 64-row tiles
 //     give 576 CTAs at minicpm-2b width, three per SM.
-// Masks are per element, so any S works (the TPU kernel asserted
-// S % block == 0).  q, k and v must be 16-byte aligned (the wrapper checks).
+// Masks are per element, so any S and Sk work (the TPU kernel asserted
+// S % block == 0): a key tile stops at Sk, its rows past Sk are zero-filled
+// and masked.  q, k and v must be 16-byte aligned (the wrapper checks).
 //
 // At MLA's (192, 128) the work is 4 x 160 operations a live pair against 1.3
 // KB of q/k/v a row: in bfloat16 at deepseek-v3 prefill (S=1024, 128 heads)
@@ -114,7 +119,8 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 
 // rows [row0, row0 + R) of head `head` of a (B, S, heads, HD) tensor whose
 // heads lie ld elements apart (ld = HD when contiguous) into a (R, row_ld)
-// tile; rows at or past S are zero-filled
+// tile; rows at or past S are zero-filled (S: the tensor's own length, S for
+// q, Sk for k and v)
 template <typename T, int HD, int R, int NT>
 __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int b, int row0,
                                           int S, int heads, int head, int ld) {
@@ -133,7 +139,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int
 template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(threads<HD>(), Cfg<HD>::MinB)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       T* __restrict__ o, int S, int H, int KH, int ldk, int ldv,
+                       T* __restrict__ o, int S, int Sk, int H, int KH, int ldk, int ldv,
                        float scale_log2, int causal, int window) {
   using C = Cfg<HD>;
   constexpr int BQ = C::BQ, BK = C::BK, RM = C::RM, TC = C::TC;
@@ -158,15 +164,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   const int tid = threadIdx.x, ty = tid / TC, tx = tid % TC;
   const int q_end = min(q0 + BQ, S);
 
-  // live keys of this q tile: [k_lo, k_hi)
+  // live keys of this q tile: [k_lo, k_hi) (causal and window only where
+  // Sk == S, which the wrapper checks)
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? q_end : S;
+  const int k_hi = causal ? q_end : Sk;
   const int k_start = (k_lo / BK) * BK;
 
   load_tile<T, HD, BQ, NT>(Qs, q, b, q0, S, H, h, HD);
-  load_tile<T, HD, BK, NT>(Ks, k, b, k_start, S, KH, kh, ldk);
+  load_tile<T, HD, BK, NT>(Ks, k, b, k_start, Sk, KH, kh, ldk);
   cp_async_commit();
-  load_tile<T, HDV, BK, NT>(Vs, v, b, k_start, S, KH, kh, ldv);
+  load_tile<T, HDV, BK, NT>(Vs, v, b, k_start, Sk, KH, kh, ldv);
   cp_async_commit();
 
   float m[RM], l[RM], acc[RM][4 * GPL];
@@ -209,7 +216,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 #pragma unroll
       for (int c = 0; c < CM; ++c) {
         const int kj = k0 + tx + TC * c;
-        ok[c] = kj < S && (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
+        ok[c] = kj < Sk && (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
         s[r][c] *= scale_log2;
         if (ok[c]) mt = fmaxf(mt, s[r][c]);
       }
@@ -233,7 +240,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
       for (int j = 0; j < 4 * GPL; ++j) acc[r][j] *= alpha;
     }
     __syncthreads();  // K_j is free and P is visible
-    if (more) load_tile<T, HD, BK, NT>(Ks, k, b, k0 + BK, S, KH, kh, ldk);
+    if (more) load_tile<T, HD, BK, NT>(Ks, k, b, k0 + BK, Sk, KH, kh, ldk);
     cp_async_commit();
     cp_async_wait<1>();  // V_j has landed (K_{j+1} may be in flight)
     __syncthreads();
@@ -260,7 +267,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
       }
     }
     __syncthreads();  // V_j and P are free
-    if (more) load_tile<T, HDV, BK, NT>(Vs, v, b, k0 + BK, S, KH, kh, ldv);
+    if (more) load_tile<T, HDV, BK, NT>(Vs, v, b, k0 + BK, Sk, KH, kh, ldv);
     cp_async_commit();
   }
   cp_async_wait<0>();  // no copy outlives the CTA
@@ -279,8 +286,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 }
 
 template <typename T, int HD, int HDV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                   int KH, int ldk, int ldv, int causal, int window, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Sk,
+                   int H, int KH, int ldk, int ldv, int causal, int window,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, HD, HDV>();
   static bool opted_in = false;  // the attribute is set once per instantiation
   if (smem > 48 * 1024 && !opted_in) {
@@ -295,18 +303,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid(H, B, (S + Cfg<HD>::BQ - 1) / Cfg<HD>::BQ);
   flash_attention_kernel<T, HD, HDV><<<grid, threads<HD>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, KH, ldk, ldv, (1.0f / sqrtf((float)HD)) * kLog2e, causal,
+      static_cast<T*>(o), S, Sk, H, KH, ldk, ldv, (1.0f / sqrtf((float)HD)) * kLog2e, causal,
       window);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                     int KH, int hd, int hd_v, int ldk, int ldv, int causal, int window,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int Sk,
+                     int H, int KH, int hd, int hd_v, int ldk, int ldv, int causal, int window,
                      cudaStream_t s) {
 #define REPRO_FLASH_CASE(D, DV)                                                             \
   if (hd == D && hd_v == DV)                                                                \
-    return launch<T, D, DV>(q, k, v, o, B, S, H, KH, ldk, ldv, causal, window, s)
+    return launch<T, D, DV>(q, k, v, o, B, S, Sk, H, KH, ldk, ldv, causal, window, s)
   REPRO_FLASH_CASE(16, 16);
   REPRO_FLASH_CASE(32, 32);
   REPRO_FLASH_CASE(64, 64);
@@ -320,21 +328,24 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
 
 }  // namespace
 
-// q: (B, S, H, hd), o: (B, S, H, hd_v), both contiguous; k: (B, S, KH, hd)
-// and v: (B, S, KH, hd_v) with their heads ldk and ldv elements apart (the
+// q: (B, S, H, hd), o: (B, S, H, hd_v), both contiguous; k: (B, Sk, KH, hd)
+// and v: (B, Sk, KH, hd_v) with their heads ldk and ldv elements apart (the
 // head dim when contiguous; each a multiple of 16 bytes); all 16-byte
 // aligned, float32 or (when is_bf16) bfloat16.  H % KH == 0; (hd, hd_v) with
 // hd_v == hd one of 16, 32, 64, 80, 128, 256, or (192, 128); window <= 0
-// means no window.
+// means no window; causal or a window only with Sk == S.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
-                                      int S, int H, int KH, int hd, int hd_v, int ldk, int ldv,
-                                      int causal, int window, int is_bf16, void* stream) {
-  if (B < 1 || S < 1 || KH < 1 || H % KH != 0 || B > 65535) return (int)cudaErrorInvalidValue;
+                                      int S, int Sk, int H, int KH, int hd, int hd_v, int ldk,
+                                      int ldv, int causal, int window, int is_bf16,
+                                      void* stream) {
+  if (B < 1 || S < 1 || Sk < 1 || KH < 1 || H % KH != 0 || B > 65535 ||
+      (Sk != S && (causal || window > 0)))
+    return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KH, hd, hd_v, ldk, ldv,
-                                                 causal, window, s)
-                       : dispatch<float>(q, k, v, o, B, S, H, KH, hd, hd_v, ldk, ldv, causal,
-                                         window, s));
+  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, S, Sk, H, KH, hd, hd_v, ldk,
+                                                 ldv, causal, window, s)
+                       : dispatch<float>(q, k, v, o, B, S, Sk, H, KH, hd, hd_v, ldk, ldv,
+                                         causal, window, s));
 }

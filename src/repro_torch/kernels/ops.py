@@ -5,7 +5,8 @@ A tensor on the card goes to the kernel (built at first use by
 plain version in ``kernels/ref.py``.  There is no other fallback.  Each
 wrapper checks device, dtype, shape and contiguity, allocates the outputs,
 launches on PyTorch's current stream, raises if the launch returned a CUDA
-error, and adds one to ``LAUNCHES[name]``, only where it launches.  A call
+error, and adds one to ``LAUNCHES[name]``, only where it launches; the same
+launch counts in ``SHAPE_LAUNCHES`` under the call's shape.  A call
 recorded into a CUDA graph counts too; its replays do not pass through the
 wrapper (``serving/captured.py`` counts them).
 
@@ -66,9 +67,41 @@ FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float8_e4m3f
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
+#: the same launches by the call's shape: ``(name, *shape_key(args))`` ->
+#: launches, so that calls of one kernel at different shapes count apart
+SHAPE_LAUNCHES: Dict[tuple, int] = {}
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPE_LAUNCHES.clear()
+
+
+def launch_counts() -> Tuple[Dict[str, int], Dict[tuple, int]]:
+    """Copies of ``LAUNCHES`` and ``SHAPE_LAUNCHES``, for ``restore_launches``."""
+    return dict(LAUNCHES), dict(SHAPE_LAUNCHES)
+
+
+def restore_launches(counts: Tuple[Dict[str, int], Dict[tuple, int]]) -> None:
+    """Set both counters back to ``launch_counts()``'s copies."""
+    LAUNCHES.update(counts[0])
+    SHAPE_LAUNCHES.clear()
+    SHAPE_LAUNCHES.update(counts[1])
+
+
+def shape_key(*args) -> tuple:
+    """The shape of a call, by which ``SHAPE_LAUNCHES`` counts it: each
+    tensor argument's shape and dtype, any other argument as it is (the
+    wrappers leave out ``valid_len``, which is data)."""
+    return tuple((tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def _launched(name: str, *args) -> None:
+    """Count one launch of ``name``: by name, and by the shape of ``args``."""
+    LAUNCHES[name] += 1
+    key = (name, *shape_key(*args))
+    SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -150,7 +183,7 @@ def sched_events(kinds, funcs, workers, idle, conns):
     if not _on_cuda(kinds, funcs, workers, idle, conns):
         return ref.sched_events_ref(kinds, funcs, workers, idle, conns)
     out = _sched_launch(kinds, funcs, workers, idle, conns, arrival_only=False)
-    LAUNCHES["sched_events"] += 1
+    _launched("sched_events", kinds, funcs, workers, idle, conns)
     return out
 
 
@@ -161,7 +194,7 @@ def sched_step(funcs, idle, conns):
         a, warm, i2, c2 = ref.sched_step_ref(funcs, idle, conns)
         return a, warm.to(torch.int32), i2, c2
     out = _sched_launch(None, funcs, None, idle, conns, arrival_only=True)
-    LAUNCHES["sched_step"] += 1
+    _launched("sched_step", funcs, idle, conns)
     return out
 
 
@@ -221,7 +254,7 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tens
             Bsz, Sp, H, G, P, N, chunk, _Q_CODES[x.dtype], _stream(x),
         )
     _raise_on(err, "ssd_scan")
-    LAUNCHES["ssd_scan"] += 1
+    _launched("ssd_scan", x, dt, A, Bm, Cm, chunk, init_state)
     return (y[:, :S] if pad else y), st
 
 
@@ -257,26 +290,30 @@ def _head_stride(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[in
 
 
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None):
-    """Attention over a whole sequence (prefill).  q (B,S,H,hd); k (B,S,KH,hd);
-    v (B,S,KH,hd_v) with hd_v == hd, or (hd, hd_v) one of
+    """Attention of a whole query sequence over a whole key sequence
+    (prefill; cross-attention).  q (B,S,H,hd); k (B,Sk,KH,hd); v
+    (B,Sk,KH,hd_v) with hd_v == hd, or (hd, hd_v) one of
     ``FLASH_SPLIT_DIMS`` (MLA); each in any of ``FLOAT_DTYPES``: float32 or
     bfloat16 alike run as they are, any other mix is cast to float32 first
     and the output cast back to q's dtype.  Query head h reads kv head
     h // (H/KH).  Key j is live for query i when ``j <= i`` (causal) and
     ``i - j < window`` (window set): the kernel takes positions from row and
-    column indices, so callers' positions must be ``arange(S)``.  The logits
-    are scaled by ``1/sqrt(hd)``, the q/k head dim (the Pallas kernel's).
-    Any S.  On the card q must be contiguous; k and v may also
-    be a slice of the last dim of a contiguous tensor (read in place, at
-    their head stride); all 16-byte aligned.  Returns (B,S,H,hd_v) in q's
-    dtype."""
+    column indices, so callers' positions must be ``arange(S)``.  Sk is S
+    for self-attention; keys of another length (whisper's decoder over the
+    encoded audio) take neither mask and are all live, and a causal mask or
+    a window with Sk != S raises.  The logits are scaled by ``1/sqrt(hd)``,
+    the q/k head dim (the Pallas kernel's).  Any S and Sk.  On the card q
+    must be contiguous; k and v may also be a slice of the last dim of a
+    contiguous tensor (read in place, at their head stride); all 16-byte
+    aligned.  Returns (B,S,H,hd_v) in q's dtype."""
     _check_floats(q=q, k=k, v=v)
     if not (q.dtype in _Q_CODES and k.dtype == v.dtype == q.dtype):
         return flash_attention(q.float(), k.float(), v.float(), causal, window).to(q.dtype)
     if not _on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal, window)
     B, S, H, hd = q.shape
-    KH, hd_v = k.shape[2], v.shape[-1]
+    Sk, KH, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    ref.check_key_length(S, Sk, causal, window)
     if KH < 1 or H % KH:
         raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {KH}")
     if hd_v != hd and (hd, hd_v) not in FLASH_SPLIT_DIMS:
@@ -285,8 +322,8 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None):
     if hd_v == hd and hd not in ATTN_HEAD_DIMS:
         raise ValueError(f"attention kernels take head_dim in {ATTN_HEAD_DIMS}, got {hd}")
     _check("q", q, q.dtype, (B, S, H, hd))
-    ldk = _head_stride("k", k, q.dtype, (B, S, KH, hd))
-    ldv = _head_stride("v", v, q.dtype, (B, S, KH, hd_v))
+    ldk = _head_stride("k", k, q.dtype, (B, Sk, KH, hd))
+    ldv = _head_stride("v", v, q.dtype, (B, Sk, KH, hd_v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention kernel copies q, k and v 16 bytes at a time: "
                          "their storage must be 16-byte aligned")
@@ -296,11 +333,11 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None):
     lib = build.load("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, KH, hd, hd_v,
-            ldk, ldv, int(causal), window or 0, _Q_CODES[q.dtype], _stream(q),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Sk, H, KH, hd,
+            hd_v, ldk, ldv, int(causal), window or 0, _Q_CODES[q.dtype], _stream(q),
         )
     _raise_on(err, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    _launched("flash_attention", q, k, v, causal, window)
     return out
 
 
@@ -458,7 +495,7 @@ def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = Non
             _CACHE_CODES[k_cache.dtype], _stream(q),
         )
     _raise_on(err, "decode_attention")
-    LAUNCHES["decode_attention"] += 1
+    _launched("decode_attention", q, k_cache, v_cache, window)
     return out
 
 
@@ -539,5 +576,5 @@ def decode_attention_latent(q_lat, q_rope, c_cache, r_cache, valid_len, scale: f
             _LATENT_CACHE_CODES[c_cache.dtype], _stream(q_lat),
         )
     _raise_on(err, "decode_attention_latent")
-    LAUNCHES["decode_attention_latent"] += 1
+    _launched("decode_attention_latent", q_lat, q_rope, c_cache, r_cache, scale)
     return out

@@ -67,28 +67,43 @@ def attn_scale(hd: int) -> float:
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
                         window: Optional[int] = None) -> torch.Tensor:
-    """Attention over a whole sequence.  q (B,S,H,hd); k (B,S,KH,hd); v
-    (B,S,KH,hd_v), whose head dim may differ from q's and k's (MLA: 192 and
-    128); query head h reads kv head h // (H/KH).  Key j is live for query i
-    when ``j <= i`` (causal) and ``i - j < window`` (window set); the logits
-    are scaled by ``1/sqrt(hd)`` in float32, masked logits are -2e38, the softmax runs in float32 and its probabilities are
-    cast to ``q.dtype`` before the product with ``v``.  Returns
-    (B,S,H,hd_v)."""
+    """Attention of a whole query sequence over a whole key sequence.  q
+    (B,S,H,hd); k (B,Sk,KH,hd); v (B,Sk,KH,hd_v), whose head dim may differ
+    from q's and k's (MLA: 192 and 128); Sk is S for self-attention and any
+    length for cross-attention (whisper's decoder over the encoded audio);
+    query head h reads kv head h // (H/KH).  Key j is live for query i when
+    ``j <= i`` (causal) and ``i - j < window`` (window set); both masks
+    need Sk == S (``check_key_length``).  The logits are scaled by
+    ``1/sqrt(hd)`` in float32, masked logits are -2e38, the softmax runs in
+    float32 and its probabilities are cast to ``q.dtype`` before the product
+    with ``v``.  Returns (B,S,H,hd_v)."""
     B, S, H, hd = q.shape
-    KH = k.shape[2]
+    Sk, KH = k.shape[1], k.shape[2]
+    check_key_length(S, Sk, causal, window)
     G = H // KH
     qg = q.reshape(B, S, KH, G, hd)
     logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * attn_scale(hd)
-    pos = torch.arange(S, device=q.device)
-    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= pos[None, :] <= pos[:, None]
-    if window is not None:
-        ok &= (pos[:, None] - pos[None, :]) < window
-    logits = logits.masked_fill(~ok, _NEG_INF)
+    if causal or window is not None:
+        pos = torch.arange(S, device=q.device)
+        ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= pos[None, :] <= pos[:, None]
+        if window is not None:
+            ok &= (pos[:, None] - pos[None, :]) < window
+        logits = logits.masked_fill(~ok, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.to(q.dtype))
     return out.reshape(B, S, H, v.shape[-1])
+
+
+def check_key_length(S: int, Sk: int, causal: bool, window: Optional[int]) -> None:
+    """Keys of another length than the queries (cross-attention) are all
+    live: the causal mask and the window compare a query's index with a
+    key's, which means something only where Sk == S, so with Sk != S either
+    raises (the JAX package never makes such a call)."""
+    if Sk != S and (causal or window is not None):
+        raise ValueError(f"keys of length {Sk} against {S} queries take no causal mask and no "
+                         f"window (causal={causal}, window={window})")
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

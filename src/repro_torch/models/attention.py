@@ -4,13 +4,16 @@ with the absorbed decode (counterpart of the JAX package's
 ``models/attention.py``).
 
 ``attn_forward`` (prefill) calls ``kernels.ops.flash_attention`` and
-``attn_decode`` calls ``kernels.ops.decode_attention``; ``mla_forward`` calls
+``attn_decode`` calls ``kernels.ops.decode_attention``; whisper's
+cross-attention (``attn_forward`` with ``kv_memory``) calls
+``ops.flash_attention`` over the memory's keys for a query sequence and
+``ops.decode_attention`` for one query a row; ``mla_forward`` calls
 ``ops.flash_attention`` with q/k heads of nope + rope and v heads of
 ``v_head_dim``, and ``mla_decode`` calls ``ops.decode_attention_latent`` on
 the latent cache.  On the card those are the CUDA kernels, on the CPU their
 plain versions.  ``sdpa`` is the JAX package's einsum with an additive mask.
-On the CPU it also covers what the kernels do not: a logit softcap and
-cross-attention memory.  On the card each of these raises.
+On the CPU it also covers what the kernels do not: a logit softcap, which
+raises on the card.
 
 The kernels build their masks from row and column indices, the JAX functions
 from ``positions[0]``; the two agree because the model's positions are
@@ -146,27 +149,51 @@ def attn_forward(
     window: Optional[int] = None,   # None or GLOBAL_WINDOW -> full
     theta: Optional[float] = None,
     causal: bool = True,
-    kv_memory: Optional[KV] = None,  # cross-attention K/V source (CPU only)
+    kv_memory: Optional[KV] = None,  # cross-attention: (memory (B,T,d), its positions (B,T))
 ) -> Tuple[torch.Tensor, KV]:
     """Prefill/full-sequence attention.  Returns (y (B,S,d), (k, v)) with
-    k, v (B,S,KH,hd) for the cache."""
+    k, v (B,S,KH,hd) for the cache.
+
+    With ``kv_memory`` this is cross-attention, as in the JAX package: K and
+    V are projected from the memory (cast to x's dtype), with no rope and no
+    mask (every one of the T memory rows is live; ``positions``, ``window``,
+    ``theta`` and ``causal`` are not read), and (k, v) are (B,T,KH,hd).  A
+    query sequence goes to ``ops.flash_attention`` with keys of length T,
+    one query a row (decode) to ``ops.decode_attention`` over the T
+    projected rows with ``valid_len`` T-1, a Python int, so a decode step
+    that holds it can be captured in a CUDA graph.  It applies no logit
+    softcap: no encoder-decoder config sets one."""
     B, S, _ = x.shape
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    src = x if kv_memory is None else kv_memory[0]
-    q, k, v = _qkv(p, x, src)
-    if cfg.rope and kv_memory is None:
+    if kv_memory is not None:
+        return _cross_forward(p, x, cfg, kv_memory[0].to(x.dtype))
+    q, k, v = _qkv(p, x, x)
+    if cfg.rope:
         th = theta if theta is not None else cfg.rope_theta
         q = apply_rope(q, positions, th)
         k = apply_rope(k, positions, th)
     w = window if window is not None else GLOBAL_WINDOW
-    if kv_memory is None and not cfg.attn_logit_softcap:
+    if not cfg.attn_logit_softcap:
         out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal,
                                   _kernel_window(w))
     else:
-        _unsupported_on_card(x, "cross-attention memory" if kv_memory is not None else "softcap")
-        k_pos = positions[0] if kv_memory is None else kv_memory[1][0]
-        bias = _mask_bias(positions[0], k_pos, w, causal and kv_memory is None)[None, None, None]
+        _unsupported_on_card(x, "softcap")
+        bias = _mask_bias(positions[0], positions[0], w, causal)[None, None, None]
         out = sdpa(q.reshape(B, S, KH, H // KH, hd), k, v, bias, cfg.attn_logit_softcap)
+    return _out_proj(p, out.reshape(B, S, H, hd)), (k, v)
+
+
+def _cross_forward(p, x: torch.Tensor, cfg, memory: torch.Tensor) -> Tuple[torch.Tensor, KV]:
+    """``attn_forward``'s cross-attention over ``memory`` (B,T,d)."""
+    B, S, _ = x.shape
+    T = memory.shape[1]
+    H, hd = cfg.n_heads, cfg.head_dim_
+    q, k, v = _qkv(p, x, memory)
+    if S == 1:
+        out = ops.decode_attention(q.reshape(B, H, hd).contiguous(), k.contiguous(),
+                                   v.contiguous(), T - 1)
+    else:
+        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=False)
     return _out_proj(p, out.reshape(B, S, H, hd)), (k, v)
 
 

@@ -7,8 +7,11 @@ backbone (llava-next-mistral-7b, whose forward splices precomputed patch
 embeddings over the first token embeddings), the ``moe`` family
 (mixtral-8x22b; a stack of MoE blocks, or leading dense blocks and then MoE
 blocks, as deepseek-v3-671b has them, with MLA attention and a depth-1
-multi-token-prediction head) and the ``hybrid`` family (zamba2-2.7b: groups of Mamba2 layers,
-each followed by one application of a shared attention block):
+multi-token-prediction head), the ``hybrid`` family (zamba2-2.7b: groups of Mamba2 layers,
+each followed by one application of a shared attention block) and the
+encoder-decoder ``audio`` family (whisper-small: a bidirectional encoder over
+post-conv frames, learned positions, and a decoder whose blocks
+cross-attend to the encoded memory):
 ``init``, ``forward``, ``prefill``, ``decode_step`` and ``init_cache`` with
 the JAX package's signatures and parameter/cache layouts, so the two can be
 held against each other on the same weights.
@@ -24,11 +27,12 @@ from typing import Any, Dict, Optional
 import torch
 
 from .. import default_device
+from .attention import _positions
 from .layers import apply_norm, embed_tokens, init_embedding, init_norm, normal_param, unembed
 from .mamba import MambaState, init_mamba, init_mamba_state, mamba_decode, mamba_forward
 from .transformer import _index, block_forward, init_block, layer_meta, run_stack
 
-FAMILIES = ("ssm", "dense", "vlm", "moe", "hybrid")  # vlm: a dense backbone
+FAMILIES = ("ssm", "dense", "vlm", "moe", "hybrid", "audio")  # vlm: a dense backbone
 
 
 def build_model(cfg, param_dtype=torch.float32, device=None) -> "Model":
@@ -37,17 +41,14 @@ def build_model(cfg, param_dtype=torch.float32, device=None) -> "Model":
 
 class Model:
     def __init__(self, cfg, param_dtype=torch.float32, device=None):
-        if cfg.family not in FAMILIES or cfg.enc_dec:
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) is not ported yet: encoder-decoder models are "
-                "ROADMAP Queue 1 item 7"
-            )
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         self.cfg = cfg
         self.dtype = param_dtype
         self.device = default_device(device)
 
     # ================================================================ init
-    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+    def init(self, generator: torch.Generator, max_seq: int = 4096) -> Dict[str, Any]:
         """Random parameters on ``self.device`` from ``generator`` (which
         must live on that device), with the JAX package's tree and
         distributions: normal / sqrt(fan_in), embeddings x 0.02, ``conv_w`` x
@@ -56,7 +57,11 @@ class Model:
         A_log, D, dt_bias and norm in float32 whatever ``param_dtype`` is.
         Stacks are drawn layer by layer into tensors with a leading layer
         axis.  With ``mtp_depth`` the tree has ``mtp``: ``proj`` (2d, d), a
-        dense ``block`` and the norms ``norm_h`` and ``norm_e``."""
+        dense ``block`` and the norms ``norm_h`` and ``norm_e``.  An
+        encoder-decoder model has ``enc_pos`` and ``dec_pos`` (``max_seq``, d)
+        (normal x 0.02), the ``encoder`` stack, ``enc_norm`` and a decoder
+        ``stack`` with cross-attention; the other families ignore
+        ``max_seq``."""
         cfg, dev, dt = self.cfg, self.device, self.dtype
         p: Dict[str, Any] = {"embed": init_embedding(cfg, generator, dev, dt),
                              "final_norm": init_norm(cfg, dev)}
@@ -65,6 +70,12 @@ class Model:
                                   for _ in range(cfg.n_layers)])
         elif cfg.family == "hybrid":
             p.update(self._init_hybrid(generator))
+        elif cfg.enc_dec:
+            pos = lambda: normal_param((max_seq, cfg.d_model), generator, dev, 0.02, dt)  # noqa: E731
+            p.update(enc_pos=pos(), dec_pos=pos(),
+                     encoder=init_block(cfg, generator, dev, dt, layers=cfg.n_encoder_layers),
+                     enc_norm=init_norm(cfg, dev),
+                     stack=init_block(cfg, generator, dev, dt, layers=cfg.n_layers, cross=True))
         elif cfg.moe is not None and cfg.moe.n_dense_layers > 0:
             nd = cfg.moe.n_dense_layers
             p["dense_stack"] = init_block(cfg, generator, dev, dt, layers=nd)
@@ -108,8 +119,11 @@ class Model:
         ``mode="train"`` it is (that loss, the MTP head's hidden states (B,
         S, d)), as in the JAX package (the MTP loss is ROADMAP Queue 1 item
         8).  A vlm batch may carry ``patches`` (B, n_img, d): they replace the
-        first ``n_img`` token embeddings."""
+        first ``n_img`` token embeddings.  An encoder-decoder batch carries
+        ``frames`` (B, T, d) too (``_forward_encdec``)."""
         cfg = self.cfg
+        if cfg.enc_dec:
+            return self._forward_encdec(params, batch, mode)
         tokens = batch["tokens"]
         x = embed_tokens(params["embed"], tokens, cfg, self.dtype)
         if cfg.family == "vlm" and "patches" in batch:
@@ -145,6 +159,36 @@ class Model:
         B, S, _ = h.shape
         positions = torch.arange(S, device=h.device).expand(B, S)
         return block_forward(m["block"], h, cfg, positions, mode="train")[0]
+
+    def _forward_encdec(self, params, batch, mode):
+        """Whisper: ``enc_pos[:T]`` added to the frames, the encoder stack
+        (bidirectional) and ``enc_norm`` make the memory; ``dec_pos[:S]``
+        added to the token embeddings, the decoder stack cross-attends to
+        the memory.  Returns (logits, aux (a float32 0), caches): in
+        prefill ``stack`` (the self-attention (k, v) of (L,B,S,KH,hd)),
+        ``memory`` (B,T,d) and ``enc_pos`` (B,T), else None."""
+        cfg, dt = self.cfg, self.dtype
+        frames, tokens = batch["frames"], batch["tokens"]
+        B, T, _ = frames.shape
+        S = tokens.shape[1]
+        memory = frames.to(dt) + params["enc_pos"][:T].to(dt)
+        enc_pos = torch.arange(T, device=memory.device).expand(B, T)
+        w, t = layer_meta(cfg, cfg.n_encoder_layers)
+        memory, _, _ = run_stack(params["encoder"], memory, cfg, enc_pos, w, t, "train",
+                                 causal=False)
+        memory = apply_norm(params["enc_norm"], memory, cfg)
+        x = embed_tokens(params["embed"], tokens, cfg, dt)
+        x = x + params["dec_pos"][:S].to(x.dtype)
+        dec_pos = torch.arange(S, device=x.device).expand(B, S)
+        w, t = layer_meta(cfg)
+        x, c, _ = run_stack(params["stack"], x, cfg, dec_pos, w, t, mode,
+                            kv_memory=(memory, enc_pos))
+        logits = unembed(params["embed"], apply_norm(params["final_norm"], x, cfg), cfg)
+        caches = None
+        if mode == "prefill":
+            caches = {"stack": c, "memory": memory,
+                      "enc_pos": enc_pos.to(torch.int32).contiguous()}
+        return logits, torch.zeros((), device=x.device), caches
 
     def _run_lm_stacks(self, params, x, positions, mode, cache_index=None, caches=None):
         """The dense, vlm and moe stacks: ``stack``, or ``dense_stack`` then
@@ -238,10 +282,22 @@ class Model:
         tensor for the whole batch, or a (B,) tensor of per-slot positions;
         a tensor stays on the device (no host sync), so the step can be
         captured in a CUDA graph.  The K/V cache is written in place; the
-        SSM state comes back as new tensors and needs no position."""
+        SSM state comes back as new tensors and needs no position.  An
+        encoder-decoder model adds ``dec_pos`` at ``min(cache_index,
+        max_seq - 1)`` and its decoder cross-attends to ``cache["memory"]``,
+        projecting its K and V anew in every layer, as the JAX package
+        does."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg, self.dtype)
-        if cfg.family == "ssm":
+        if cfg.enc_dec:
+            dec_pos = params["dec_pos"]
+            _, idx_vec = _positions(cache_index, x.shape[0], x.device)
+            x = x + dec_pos[idx_vec.clamp(max=dec_pos.shape[0] - 1)][:, None].to(x.dtype)
+            w, t = layer_meta(cfg)
+            x, c, _ = run_stack(params["stack"], x, cfg, None, w, t, "decode", cache["stack"],
+                                cache_index, kv_memory=(cache["memory"], cache["enc_pos"]))
+            cache = {**cache, "stack": c}
+        elif cfg.family == "ssm":
             x, cache = self._run_ssm(params, x, "decode", states=cache)
         elif cfg.family == "hybrid":
             x, cache = self._run_hybrid(params, x, x, None, "decode", cache_index, cache)
@@ -250,7 +306,7 @@ class Model:
         x = apply_norm(params["final_norm"], x, cfg)
         return unembed(params["embed"], x, cfg)[:, 0], cache
 
-    def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16):
+    def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16, memory_t: int = 1500):
         """Zero decode state, one entry per layer stacked along axis 0: the
         attention families' (k, v) pair of (L, B, seq, KH, hd) (``dense`` and
         ``moe`` pairs for a MoE model with leading dense layers, the layout
@@ -258,7 +314,10 @@ class Model:
         state; the hybrid family's Mamba state (n_groups, every, B, ...) and
         one (k, v) pair of (n_groups, B, seq, KH, hd) for the shared block's
         applications; MLA's latent pair (c, r) of (L, B, seq, kv_lora) and
-        (L, B, seq, rope) in place of (k, v)."""
+        (L, B, seq, rope) in place of (k, v); for an encoder-decoder model
+        the decoder's (k, v) pair as ``stack``, ``memory`` (B, memory_t, d)
+        zeros in ``dtype`` and ``enc_pos`` (B, memory_t) int32 zeros (the
+        other families ignore ``memory_t``)."""
         cfg, dev = self.cfg, self.device
         tails = ((cfg.mla.kv_lora_rank,), (cfg.mla.qk_rope_head_dim,)) if cfg.mla is not None \
             else ((cfg.n_kv_heads, cfg.head_dim_),) * 2
@@ -275,7 +334,24 @@ class Model:
         if cfg.moe is not None and cfg.moe.n_dense_layers:
             nd = cfg.moe.n_dense_layers
             return {"dense": kv(nd), "moe": kv(cfg.n_layers - nd)}
+        if cfg.enc_dec:
+            return {"stack": kv(cfg.n_layers),
+                    "memory": torch.zeros((batch, memory_t, cfg.d_model), dtype=dtype, device=dev),
+                    "enc_pos": torch.zeros((batch, memory_t), dtype=torch.int32, device=dev)}
         return {"stack": kv(cfg.n_layers)}
+
+    def decode_attention_calls(self) -> int:
+        """Attention-kernel launches of one ``decode_step``: one an attention
+        layer (``decode_attention``, or MLA's ``decode_attention_latent``).
+        A hybrid model's attention layers are its shared-block applications,
+        one a group; an encoder-decoder's decoder layers attend twice, to
+        themselves and to the memory; an SSM has none."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return 0
+        if cfg.enc_dec:
+            return 2 * cfg.n_layers
+        return cfg.n_layers // cfg.hybrid.every if cfg.family == "hybrid" else cfg.n_layers
 
 
 def _stack(trees):

@@ -1,6 +1,6 @@
-"""Transformer blocks and the layer stacks of the dense, vlm, moe and hybrid
-families, with GQA or MLA attention (counterpart of the JAX package's
-``models/transformer.py``).
+"""Transformer blocks and the layer stacks of the dense, vlm, moe, hybrid and
+encoder-decoder families, with GQA or MLA attention (counterpart of the JAX
+package's ``models/transformer.py``).
 
 The JAX package scans a stack over parameters stacked on a leading layer
 axis; here ``run_stack`` loops over that axis in Python, as the ssm family's
@@ -8,7 +8,9 @@ axis; here ``run_stack`` loops over that axis in Python, as the ssm family's
 per-layer Python values from ``layer_meta`` (window ``GLOBAL_WINDOW`` means a
 global layer), so each layer passes its own window and rope theta.  A block
 of a MoE stack has ``moe`` (``models/moe.py``) in place of ``mlp``, and its
-load-balancing aux is summed over the stack.
+load-balancing aux is summed over the stack.  A block of whisper's decoder
+has ``ln_cross`` and ``cross``: cross-attention over the encoded memory
+after its self-attention, in every mode.
 """
 
 from __future__ import annotations
@@ -40,18 +42,19 @@ def layer_meta(cfg, n_layers: Optional[int] = None) -> Tuple[List[int], List[flo
 
 
 def init_block(cfg, generator: torch.Generator, device, dtype=torch.float32,
-               layers: int = 0, moe_layer: bool = False) -> Dict[str, Any]:
+               layers: int = 0, moe_layer: bool = False, cross: bool = False) -> Dict[str, Any]:
     """One block's parameters, or ``layers`` blocks stacked on a leading axis,
     with the JAX package's keys: ln1, attn (MLA's where ``cfg.mla`` is set),
+    with ``cross`` ``ln_cross`` and ``cross`` (a GQA attention's parameters),
     [ln2], then ``moe`` for a MoE layer, else ``mlp`` (of width
     ``moe.dense_dff`` in the leading dense layers of a MoE model that has
     them)."""
-    if cfg.enc_dec:
-        raise NotImplementedError("cross-attention blocks (encoder-decoder) are not ported yet: "
-                                  "ROADMAP Queue 1 item 7")
     init_attn = init_mla if cfg.mla is not None else init_attention
     p: Dict[str, Any] = {"ln1": init_norm(cfg, device, layers=layers),
                          "attn": init_attn(cfg, generator, device, dtype, layers)}
+    if cross:
+        p["ln_cross"] = init_norm(cfg, device, layers=layers)
+        p["cross"] = init_attention(cfg, generator, device, dtype, layers)
     if not cfg.parallel_block:
         p["ln2"] = init_norm(cfg, device, layers=layers)
     if moe_layer:
@@ -64,13 +67,17 @@ def init_block(cfg, generator: torch.Generator, device, dtype=torch.float32,
 
 def block_forward(p: Dict, x: torch.Tensor, cfg, positions: Optional[torch.Tensor],
                   window: Optional[int] = None, theta: Optional[float] = None,
-                  mode: str = "train", cache=None, cache_index=None):
+                  mode: str = "train", cache=None, cache_index=None, kv_memory=None,
+                  causal: bool = True):
     """Returns (x', cache entry, aux): the layer's (k, v) in prefill (MLA's
     (c_kv, k_rope)), its updated cache in decode; aux is the MoE
     load-balancing loss (a float32 0-d tensor) of a MoE block, else 0.0.
     Pre-norm residual block, or Cohere's parallel block ``x + (attn(n(x)) +
     mlp(n(x))) * depth_scale``; MiniCPM's ``depth_scale`` scales both
-    residual branches.  MLA takes no window and its own rope theta."""
+    residual branches.  MLA takes no window and its own rope theta.
+    ``causal=False`` makes the self-attention bidirectional (whisper's
+    encoder); a block with ``cross`` adds cross-attention over ``kv_memory``
+    (memory (B,T,d), its positions) after the self-attention."""
     ds = cfg.depth_scale
     h = apply_norm(p["ln1"], x, cfg)
     if cfg.mla is not None:
@@ -79,10 +86,14 @@ def block_forward(p: Dict, x: torch.Tensor, cfg, positions: Optional[torch.Tenso
     elif mode == "decode":
         a, new_cache = attn_decode(p["attn"], h, cache, cfg, cache_index, window, theta)
     else:
-        a, new_cache = attn_forward(p["attn"], h, cfg, positions, window, theta)
+        a, new_cache = attn_forward(p["attn"], h, cfg, positions, window, theta, causal)
     if cfg.parallel_block:
         return x + _scaled(a + apply_mlp(p["mlp"], h, cfg), ds), new_cache, 0.0
     x = x + _scaled(a, ds)
+    if "cross" in p:
+        hc = apply_norm(p["ln_cross"], x, cfg)
+        c, _ = attn_forward(p["cross"], hc, cfg, positions, kv_memory=kv_memory)
+        x = x + _scaled(c, ds)
     h2 = apply_norm(p["ln2"], x, cfg)
     aux = 0.0
     if "moe" in p:
@@ -98,18 +109,19 @@ def _scaled(t: torch.Tensor, s: float) -> torch.Tensor:
 
 def run_stack(stack: Dict, x: torch.Tensor, cfg, positions: Optional[torch.Tensor],
               windows: List[int], thetas: List[float], mode: str = "train", caches=None,
-              cache_index=None):
+              cache_index=None, kv_memory=None, causal: bool = True):
     """Run the layers of a stacked parameter tree in order.  Returns (x,
     caches, aux): in prefill the layers' (k, v) stacked to (L,B,S,KH,hd)
     each (MLA: (c_kv, k_rope) to (L,B,S,kv_lora) and (L,B,S,rope)); in
     decode ``caches`` itself, written in place; else None.  aux is the sum
-    of the blocks' MoE aux (0.0 for a stack without MoE)."""
+    of the blocks' MoE aux (0.0 for a stack without MoE).  ``kv_memory``
+    and ``causal`` go to every block (``block_forward``)."""
     ks, vs = [], []
     aux = 0.0
     for i, (w, th) in enumerate(zip(windows, thetas)):
         c_l = (caches[0][i], caches[1][i]) if mode == "decode" else None
         x, new_c, a = block_forward(_index(stack, i), x, cfg, positions, w, th, mode, c_l,
-                                    cache_index)
+                                    cache_index, kv_memory, causal)
         aux = aux + a
         if mode == "prefill":
             ks.append(new_c[0])

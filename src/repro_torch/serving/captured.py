@@ -12,7 +12,9 @@ so one capture serves every position and every mix of per-row lengths.
 ``ops.LAUNCHES`` counts the kernels a wrapper launches; a replay does not
 pass through the wrappers, so each ``CapturedStep`` records the launches of
 one replay when it is captured, and ``REPLAYED`` adds them up on every
-replay.  ``launches()`` is the sum of the two.
+replay, by kernel and (``REPLAYED_SHAPES``) by the call's shape, as
+``ops.SHAPE_LAUNCHES`` keys it.  ``launches()`` and ``launches_by_shape()``
+are the sums of the two.
 """
 
 from __future__ import annotations
@@ -26,17 +28,28 @@ from ..kernels import ops
 #: replays of captured steps (``"steps"``), and the kernel launches they
 #: made, by kernel, since the last ``reset_replays()``
 REPLAYED: Dict[str, int] = {"steps": 0, **dict.fromkeys(ops.LAUNCHES, 0)}
+#: the same launches by shape
+REPLAYED_SHAPES: Dict[tuple, int] = {}
 
 
 def reset_replays() -> None:
     for k in REPLAYED:
         REPLAYED[k] = 0
+    REPLAYED_SHAPES.clear()
 
 
 def launches() -> Dict[str, int]:
     """Kernel launches since the counters were last reset: the wrappers'
     own (``ops.LAUNCHES``) plus those of the replays (``REPLAYED``)."""
     return {k: n + REPLAYED[k] for k, n in ops.LAUNCHES.items()}
+
+
+def launches_by_shape() -> Dict[tuple, int]:
+    """``launches()`` by the call's shape (``ops.SHAPE_LAUNCHES``' keys)."""
+    out = dict(ops.SHAPE_LAUNCHES)
+    for k, n in REPLAYED_SHAPES.items():
+        out[k] = out.get(k, 0) + n
+    return out
 
 
 def tree_leaves(tree: Any) -> Iterator[torch.Tensor]:
@@ -75,13 +88,15 @@ class CapturedStep:
         with torch.cuda.stream(side):
             fn()
         torch.cuda.current_stream(device).wait_stream(side)
-        before = dict(ops.LAUNCHES)
+        before = ops.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.out = fn()
         # the capture recorded these launches; they run on each replay
-        self.launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
-        ops.LAUNCHES.update(before)
+        self.launches = {k: ops.LAUNCHES[k] - before[0][k] for k in before[0]}
+        self.shape_launches = {k: n - before[1].get(k, 0)
+                               for k, n in ops.SHAPE_LAUNCHES.items() if n != before[1].get(k, 0)}
+        ops.restore_launches(before)
         self.replays = 0
 
     def replay(self) -> None:
@@ -90,3 +105,5 @@ class CapturedStep:
         REPLAYED["steps"] += 1
         for k, n in self.launches.items():
             REPLAYED[k] += n
+        for k, n in self.shape_launches.items():
+            REPLAYED_SHAPES[k] = REPLAYED_SHAPES.get(k, 0) + n

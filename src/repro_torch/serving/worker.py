@@ -52,11 +52,10 @@ class _DecodeLoop:
     decodes one token, writes its argmax back as the next input token and
     advances the position."""
 
-    def __init__(self, model, params, batch: int, max_len: int, dtype: torch.dtype,
-                 device: torch.device):
+    def __init__(self, model, params, batch: int, cache, device: torch.device):
         self.tokens = torch.zeros((batch, 1), dtype=torch.long, device=device)
         self.index = torch.zeros((), dtype=torch.int32, device=device)
-        self.cache = model.init_cache(batch, max_len, dtype=dtype)
+        self.cache = cache
 
         def step():
             logits, new = model.decode_step(params, self.tokens, self.cache, self.index)
@@ -85,8 +84,10 @@ class Instance:
     card its captured decode loops, one per batch size (``prepare``).
 
     Parameters are drawn from a ``torch.Generator`` on the device seeded with
-    ``endpoint.seed``; pass ``params`` to use given ones instead (a test
-    hands in the JAX package's, converted by ``models.params_from_numpy``).
+    ``endpoint.seed`` (an encoder-decoder model's position tables with
+    ``endpoint.max_cache_len`` rows); pass ``params`` to use given ones
+    instead (a test hands in the JAX package's, converted by
+    ``models.params_from_numpy``).
     """
 
     __slots__ = ("endpoint", "device", "model", "params", "last_used", "_loops")
@@ -98,7 +99,7 @@ class Instance:
                                  device=self.device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(endpoint.seed)
-            params = self.model.init(gen)
+            params = self.model.init(gen, max_seq=endpoint.max_cache_len)
         self.params = params
         self._loops: Dict[int, _DecodeLoop] = {}
         _sync(self.device)
@@ -112,9 +113,26 @@ class Instance:
         the CPU, where ``generate`` runs eagerly."""
         if self.device.type == "cuda" and batch not in self._loops:
             self._loops[batch] = _DecodeLoop(self.model, self.params, batch,
-                                             self.endpoint.max_cache_len,
-                                             self.endpoint.param_dtype, self.device)
+                                             self.decode_cache(batch), self.device)
             _sync(self.device)
+
+    def prefill_batch(self, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``generate``'s prefill input: the tokens, and for an
+        encoder-decoder model zero frames (B, S, d) in the parameters' dtype,
+        as the JAX package's ``Instance`` feeds them."""
+        cfg = self.endpoint.cfg
+        if not cfg.enc_dec:
+            return {"tokens": tokens}
+        frames = torch.zeros((*tokens.shape, cfg.d_model), dtype=self.endpoint.param_dtype,
+                             device=tokens.device)
+        return {"frames": frames, "tokens": tokens}
+
+    def decode_cache(self, batch: int):
+        """``generate``'s zero decode cache for ``batch`` rows: the endpoint's
+        ``max_cache_len`` positions in the parameters' dtype, and for an
+        encoder-decoder model 8 rows of zero memory, as in the JAX package."""
+        return self.model.init_cache(batch, self.endpoint.max_cache_len,
+                                     dtype=self.endpoint.param_dtype, memory_t=8)
 
     @torch.no_grad()
     def generate(self, tokens: torch.Tensor, gen_len: int = 4) -> torch.Tensor:
@@ -122,21 +140,23 @@ class Instance:
 
         As in the JAX package, decoding starts from a zero cache: the cache
         that prefill builds is discarded, so the tokens after the first
-        depend only on the previous token (ROADMAP Queue 3).  Kept so that
-        the two packages generate the same tokens.  On the card each decode
-        step is one replay of the captured step; on the CPU it runs eagerly.
+        depend only on the previous token, and an encoder-decoder model
+        encodes zero frames and decodes over zero memory (ROADMAP Queue 3).
+        Kept so that the two packages generate the same tokens.  On the card
+        each decode step is one replay of the captured step; on the CPU it
+        runs eagerly.
         """
         model, ep = self.model, self.endpoint
         tokens = tokens.to(self.device)
         B, S = tokens.shape
-        _, last_logits = model.prefill(self.params, {"tokens": tokens})
+        _, last_logits = model.prefill(self.params, self.prefill_batch(tokens))
         out = [last_logits.argmax(-1)]
         idx = min(S, ep.max_cache_len - gen_len - 1)
         if self.device.type == "cuda":
             self.prepare(B)
             out = self._loops[B].run(out[0], idx, gen_len - 1)
         else:
-            cache = model.init_cache(B, ep.max_cache_len, dtype=ep.param_dtype)
+            cache = self.decode_cache(B)
             for i in range(gen_len - 1):
                 logits, cache = model.decode_step(self.params, out[-1][:, None], cache, idx + i)
                 out.append(logits.argmax(-1))

@@ -596,20 +596,11 @@ def _tiny_endpoint(name):
     return Endpoint(name, cfg, seed=3, max_cache_len=64)
 
 
-def _attention_layers(cfg):
-    """Attention layers a forward runs: one ``flash_attention`` a prefill and
-    one ``decode_attention`` a decode step each (a hybrid model's are its
-    shared-block applications, one a group)."""
-    if cfg.family == "ssm":
-        return 0
-    return cfg.n_layers // cfg.hybrid.every if cfg.family == "hybrid" else cfg.n_layers
-
-
 def _eager_generate(inst, tokens, gen_len):
     """``Instance.generate``'s loop, run eagerly on the card."""
     model, ep = inst.model, inst.endpoint
-    cache = model.init_cache(tokens.shape[0], ep.max_cache_len, dtype=ep.param_dtype)
-    _, lg = model.prefill(inst.params, {"tokens": tokens})
+    cache = inst.decode_cache(tokens.shape[0])
+    _, lg = model.prefill(inst.params, inst.prefill_batch(tokens))
     out = [lg.argmax(-1)]
     idx = min(tokens.shape[1], ep.max_cache_len - gen_len - 1)
     for i in range(gen_len - 1):
@@ -618,7 +609,8 @@ def _eager_generate(inst, tokens, gen_len):
     return torch.stack(out, 1)
 
 
-@pytest.mark.parametrize("name", ["mamba2_130m", "minicpm_2b", "zamba2_2p7b", "mixtral_8x22b"])
+@pytest.mark.parametrize("name", ["mamba2_130m", "minicpm_2b", "zamba2_2p7b", "mixtral_8x22b",
+                                  "whisper_small"])
 def test_generate_replays_the_captured_step(cuda, name):
     """``Instance.generate`` on the card replays one captured decode step a
     token: its tokens equal the eager loop's, twice over (the static cache
@@ -638,7 +630,7 @@ def test_generate_replays_the_captured_step(cuda, name):
         got = inst.generate(tokens, gen_len)
         assert torch.equal(got, want)
         assert captured.REPLAYED["steps"] == gen_len - 1
-        per_step = _attention_layers(inst.model.cfg)
+        per_step = inst.model.decode_attention_calls()
         assert captured.REPLAYED["decode_attention"] == per_step * (gen_len - 1)
         assert ops.LAUNCHES["decode_attention"] == 0
     assert sorted(inst._loops) == [1, 2]
@@ -711,7 +703,7 @@ def test_hybrid_and_moe_models_on_card_match_cpu(cuda, name):
     ops.reset_launches()
     logits_c, aux_c, _ = card.forward(params_card, {"tokens": tokens.to(cuda)}, mode="prefill")
     logits, aux, _ = cpu.forward(params, {"tokens": tokens}, mode="prefill")
-    assert ops.LAUNCHES["flash_attention"] == _attention_layers(cfg)
+    assert ops.LAUNCHES["flash_attention"] == card.decode_attention_calls()  # one a layer
     assert ops.LAUNCHES["ssd_scan"] == (cfg.n_layers if cfg.family == "hybrid" else 0)
     torch.testing.assert_close(logits_c.cpu(), logits, **TOL)
     torch.testing.assert_close(aux_c.cpu(), aux, **TOL)
@@ -723,7 +715,7 @@ def test_hybrid_and_moe_models_on_card_match_cpu(cuda, name):
         lp, kv = cpu.decode_step(params, tok, kv, idx)
         torch.testing.assert_close(lc.cpu(), lp, **TOL)
         tok = lp.argmax(-1, keepdim=True).to(torch.int32)
-    assert ops.LAUNCHES["decode_attention"] == 3 * _attention_layers(cfg)
+    assert ops.LAUNCHES["decode_attention"] == 3 * card.decode_attention_calls()
 
 
 def test_moe_decode_step_makes_no_host_sync(cuda):
@@ -794,7 +786,7 @@ def test_new_family_batcher_on_card_matches_cpu(cuda, name):
         logits.append(b.logits.float().cpu())
         if model is card:
             assert captured.REPLAYED["steps"] == b.steps
-            assert captured.REPLAYED["decode_attention"] == _attention_layers(cfg) * b.steps
+            assert captured.REPLAYED["decode_attention"] == card.decode_attention_calls() * b.steps
     assert outs[0] == outs[1]
     torch.testing.assert_close(logits[1], logits[0], **TOL)
 
@@ -1070,3 +1062,174 @@ def test_moe_top8_replay_equals_eager(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(graph.out, eager)
+
+
+# ---------------------------------------------- encoder-decoder (whisper-small)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Sk,H,KH,hd", [
+    (1, 4, 1500, 12, 12, 64),     # whisper's start sequence over 30 s of audio
+    (1, 448, 1500, 12, 12, 64),   # its text context over the same
+    (2, 130, 70, 4, 2, 32),       # fewer keys than queries, GQA, ragged tiles
+    (1, 1, 9, 4, 4, 80),          # one query, keys short of one tile
+    (3, 65, 200, 8, 8, 128),
+])
+def test_flash_kernel_other_key_length(cuda, B, S, Sk, H, KH, hd, dtype):
+    """Cross-attention: S queries over Sk keys, no mask, against the plain
+    version; one launch."""
+    q, k, v = _attn_inputs([(B, S, H, hd), (B, Sk, KH, hd), (B, Sk, KH, hd)], dtype, S + Sk,
+                           cuda)
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert out.dtype == dtype and out.shape == (B, S, H, hd)
+    torch.testing.assert_close(out.float(), want.float(), **TOL_ATTN[dtype])
+
+
+def test_flash_kernel_encoder_width(cuda):
+    """whisper's encoder: 1,500 frames, 12 heads of 64, bidirectional."""
+    q, k, v = _attn_inputs([(1, 1500, 12, 64)] * 3, torch.float32, 3, cuda)
+    out = ops.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(out, ref.flash_attention_ref(q, k, v, causal=False),
+                               **TOL_ATTN[torch.float32])
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 16)])
+def test_flash_kernel_other_key_length_takes_no_mask(cuda, causal, window):
+    q, k, v = _attn_inputs([(1, 5, 2, 64), (1, 24, 2, 64), (1, 24, 2, 64)], torch.float32, 0,
+                           cuda)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="no causal mask and no window"):
+        ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention"] == 0
+
+
+def _whisper_cfg(vocab=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper_small").reduced()
+    return dataclasses.replace(cfg, vocab=vocab) if vocab else cfg
+
+
+def test_whisper_model_on_card_matches_cpu(cuda):
+    """Reduced whisper on the card through both kernels, against the same
+    model on the CPU: ``forward("train")``; prefill with 37 frames and 9
+    tokens (3 flash_attention a layer: encoder, self, cross at Sk != S);
+    then the prefill's caches copied into ``init_cache(2, 24,
+    memory_t=37)`` and three decode steps (an int, a 0-d and a per-row
+    index; 2 decode_attention a layer: self, and cross over the memory)."""
+    from repro_torch.models import Model
+
+    cfg = _whisper_cfg()
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0), max_seq=64)
+    card = Model(cfg, device=cuda)
+    params_card = _tree_to(params, cuda)
+    rng = np.random.default_rng(1)
+    batch = {"frames": torch.from_numpy((rng.standard_normal((2, 37, cfg.d_model)) * 0.02)
+                                        .astype(np.float32)),
+             "tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9)).astype(np.int32))}
+    batch_c = _tree_to(batch, cuda)
+    torch.testing.assert_close(card.forward(params_card, batch_c)[0].cpu(),
+                               cpu.forward(params, batch)[0], **TOL)
+    ops.reset_launches()
+    cache_c, logits_c = card.prefill(params_card, batch_c)
+    cache, logits = cpu.prefill(params, batch)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_encoder_layers + 2 * cfg.n_layers
+    torch.testing.assert_close(logits_c.cpu(), logits, **TOL)
+    torch.testing.assert_close(cache_c["memory"].cpu(), cache["memory"], **TOL)
+    kv_c, kv = card.init_cache(2, 24, torch.float32, 37), cpu.init_cache(2, 24, torch.float32, 37)
+    for c, src in ((kv_c, cache_c), (kv, cache)):
+        c["memory"].copy_(src["memory"])
+        c["enc_pos"].copy_(src["enc_pos"])
+        for a, b in zip(c["stack"], src["stack"]):
+            a[:, :, :9] = b
+    tok = batch["tokens"][:, -1:]
+    for idx in (9, torch.tensor(10, dtype=torch.int32), torch.tensor([13, 30], dtype=torch.int32)):
+        lc, kv_c = card.decode_step(params_card, tok.to(cuda), kv_c,
+                                    idx.to(cuda) if isinstance(idx, torch.Tensor) else idx)
+        lp, kv = cpu.decode_step(params, tok, kv, idx)
+        torch.testing.assert_close(lc.cpu(), lp, **TOL)
+        tok = lp.argmax(-1, keepdim=True).to(torch.int32)
+    for a, b in zip(kv_c["stack"], kv["stack"]):
+        torch.testing.assert_close(a.cpu(), b, **TOL)
+    assert ops.LAUNCHES["decode_attention"] == 3 * 2 * cfg.n_layers
+
+
+def test_whisper_replay_equals_eager_step(cuda):
+    """A whisper decode step over 40 rows of encoded memory, captured in a
+    CUDA graph (the cross K/V projected from the static memory buffer on
+    every replay, no host copy inside the capture) and replayed with new
+    memory and positions, gives the eager step's logits bit for bit."""
+    from repro_torch.models import Model
+    from repro_torch.serving.captured import CapturedStep, copy_into, tree_leaves
+
+    cfg = _whisper_cfg()
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), max_seq=64)
+    B = 3
+    cache = model.init_cache(B, 32, torch.float32, memory_t=40)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=cuda)
+    lengths = torch.zeros((B,), dtype=torch.int32, device=cuda)
+
+    def step():
+        logits, new = model.decode_step(params, tok, cache, lengths)
+        copy_into(cache, new)
+        return logits
+
+    graph = CapturedStep(step, cuda)
+    assert graph.launches["decode_attention"] == 2 * cfg.n_layers
+    # by shape: n_layers over the 32-row self cache, n_layers over 40 memory rows
+    rows = {key[2][0][1]: n for key, n in graph.shape_launches.items()
+            if key[0] == "decode_attention"}
+    assert rows == {32: cfg.n_layers, 40: cfg.n_layers}
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for _ in range(3):
+        for t in tree_leaves(cache):
+            if t.is_floating_point():
+                t.copy_(torch.randn(t.shape, generator=gen, device=cuda))
+        tok.random_(0, cfg.vocab, generator=gen)
+        lengths.random_(0, 40, generator=gen)
+        snap = [t.clone() for t in tree_leaves(cache)]
+        eager, _ = model.decode_step(params, tok, cache, lengths)
+        for t, s in zip(tree_leaves(cache), snap):
+            t.copy_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(graph.out, eager)
+
+
+def test_whisper_batcher_on_card_matches_cpu(cuda):
+    """The whisper batcher on the card (one replay a step, 2 decode launches
+    a layer, over 1,500 rows of zero memory) gives the CPU batcher's tokens
+    for 7 requests through 3 slots."""
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousBatcher, GenRequest, captured
+
+    cfg = _whisper_cfg(vocab=64)
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(5), max_seq=64)
+    card = Model(cfg, device=cuda)
+    params_card = _tree_to(params, cuda)
+    rng = np.random.default_rng(2)
+    reqs = [(f"r{i}", [int(t) for t in rng.integers(0, cfg.vocab, rng.integers(1, 12))],
+             int(rng.integers(1, 9))) for i in range(7)]
+    outs, logits = [], []
+    for model, p in ((cpu, params), (card, params_card)):
+        b = ContinuousBatcher(model, p, n_slots=3, max_len=24)
+        for rid, prompt, n in reqs:
+            b.submit(GenRequest(rid, prompt, max_new_tokens=n))
+        captured.reset_replays()
+        outs.append(b.run_to_completion())
+        logits.append(b.logits.float().cpu())
+        if model is card:
+            assert captured.REPLAYED["steps"] == b.steps
+            assert captured.REPLAYED["decode_attention"] == card.decode_attention_calls() * b.steps
+            by_shape = {key[2][0][1]: n for key, n in captured.REPLAYED_SHAPES.items()
+                        if key[0] == "decode_attention"}
+            assert by_shape == {24: cfg.n_layers * b.steps, 1500: cfg.n_layers * b.steps}
+    assert outs[0] == outs[1]
+    torch.testing.assert_close(logits[1], logits[0], **TOL)

@@ -46,8 +46,10 @@ def test_config_copy_matches_jax():
     j, t = jax_get_config("mamba2_130m"), get_config("mamba2_130m")
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
     assert j.n_params() == t.n_params() and j.reduced().n_params() == t.reduced().n_params()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        get_config("whisper_small")
+    # whisper_small, the last architecture ported, is a copy too
+    jw, tw = jax_get_config("whisper_small"), get_config("whisper_small")
+    assert dataclasses.asdict(jw) == dataclasses.asdict(tw)
+    assert jw.n_params() == tw.n_params() and jw.reduced().n_params() == tw.reduced().n_params()
 
 
 @pytest.mark.parametrize("S", [40, 32])
@@ -110,5 +112,14 @@ def test_random_init_distributions():
     assert abs(float(m["in_proj"].std()) - cfg.d_model ** -0.5) < 0.01
     assert abs(float(m["conv_w"].std()) - 0.5) < 0.05
     assert torch.all(m["D"] == 1) and torch.all(m["A_log"] == 0) and torch.all(m["conv_b"] == 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Model(dataclasses.replace(cfg, enc_dec=True))
+    # and reduced whisper's encoder-decoder leaves
+    wcfg = get_config("whisper_small").reduced()
+    w = Model(wcfg, device="cpu").init(torch.Generator().manual_seed(0), max_seq=128)
+    for key in ("enc_pos", "dec_pos"):
+        assert w[key].shape == (128, wcfg.d_model)
+        assert abs(float(w[key].std()) - 0.02) < 0.002
+    cross = w["stack"]["cross"]
+    assert abs(float(cross["wk"].std()) - wcfg.d_model ** -0.5) < 0.02
+    assert torch.all(cross["bk"] == 0) and torch.all(cross["bo"] == 0)
+    assert torch.all(w["stack"]["ln_cross"]["scale"] == 1)
+    assert torch.all(w["stack"]["ln_cross"]["bias"] == 0)

@@ -248,16 +248,16 @@ def test_batcher_matches_jax_tokens():
 
 
 # ----------------------------------------------------------- leaf dtypes
-UNPORTED = ("whisper_small",)
+UNPORTED = ()
 PORTED = [n for n in ARCH_IDS if n not in UNPORTED]
 
 
 def test_ported_configs():
+    assert not UNPORTED and len(PORTED) == 10
     for name in PORTED:
         assert get_config(name).name == name
-    for name in UNPORTED:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            get_config(name)
+    with pytest.raises(KeyError):
+        get_config("not_an_architecture")
 
 
 def _dtypes(tree, prefix=""):
