@@ -180,8 +180,28 @@ line):
              and over 1,500 memory rows, and at B=8 over the batcher's
              1,024-row cache (seeded lengths) and 1,500 memory rows.
 
+13. train  — after the whisper model is freed: minicpm-2b at full width
+             (40 layers, d_model 2304, 36 heads of 64, vocab 122,753;
+             2.72 B parameters in float32 from a seeded generator) with
+             ``remat`` and AdamW, on one Markov-LM batch of 2 x 1,024 tokens
+             (``MarkovLM`` seed 0): the gradient through the kernels against
+             the plain path's (``ref.flash_attention_ref`` under autograd) on
+             the same weights, every leaf within a relative L2 of 1e-3; one
+             AdamW step from each (the loss and grad_norm within 1e-4, the
+             loss after the step within 1e-3); then the main path, 8 steps
+             on that batch (lr 5e-4, WSD, no warmup), the loss falling, with
+             exactly 80 ``flash_attention`` (forward and remat recompute)
+             and 40 ``flash_attention_bwd`` launches a step at one shape each;
+             ms a step, tokens/s, peak device memory, and one step traced
+             (busy and idle share).  Phase 2 also holds the forward with its
+             LSE and ``flash_attention_bwd`` at that shape (B=2, S=1,024,
+             causal; float32, and bfloat16) against their plain versions,
+             two backward runs bit for bit, each timed with SDPA (its
+             backward) beside, and the logit softcap (50) in the forward,
+             the backward and ``decode_attention``.
+
 The launch counters are set to 0 just before each main path (phases 3, 4,
-5, 8, 9, 10 and the parts of 11 and 12) and read just after: the wrappers' own launches plus, for each
+5, 8, 9, 10, 13 and the parts of 11 and 12) and read just after: the wrappers' own launches plus, for each
 replay of a captured step, the launches recorded when it was captured
 (``serving/captured.py``); launches made in phase 2 do not count.  Before the last line it prints one
 JSON line ``{"kernels": [...]}``, and the last line is
@@ -197,8 +217,8 @@ trees on one card, copy this script into a checkout of the other tree (a
 ``git archive`` unpacked under ``build/``) and run it there and here, in
 turns, with ``--sched-only``.
 
-In the ``{"kernels": [...]}`` line the ``ssd_scan``, ``flash_attention``
-and ``decode_attention`` rows carry ``shapes``: the same numbers at the
+In the ``{"kernels": [...]}`` line the ``ssd_scan``, ``flash_attention``,
+``flash_attention_bwd`` and ``decode_attention`` rows carry ``shapes``: the same numbers at the
 hybrid, moe, mla and whisper paths' shapes, each with the launches of its
 own path (``decode_attention``'s ``batch`` holds the llava-width rows, its
 ``mla_b1`` and ``mla_b8`` the latent entry's, counted under
@@ -254,6 +274,16 @@ TOL_BF16 = dict(atol=5e-2, rtol=5e-2)
 TOL_LOGITS = dict(atol=1e-3, rtol=1e-3)  # 24-40 layers of float32 matmuls, card vs CPU order
 TOL_ATTN = dict(atol=2e-5, rtol=2e-5)    # float32, as tests/test_kernels.py
 TOL_ATTN_BF16 = dict(atol=2e-2, rtol=2e-2)
+TOL_BWD = dict(atol=1e-4, rtol=1e-3)     # float32 gradients, sums over up to S queries
+TOL_GRAD_REL = 1e-3    # each gradient leaf, kernel path vs plain path (relative L2)
+TOL_STEP_REL = 1e-4    # loss and grad_norm of one step: 40 float32 layers, other sum orders
+# loss after one AdamW step: the first step moves a weight by ~lr * sign(g), so
+# where g is ~0 the two paths' weights may differ by 2 * lr
+TOL_AFTER_REL = 1e-3
+
+TRAIN_BATCH, TRAIN_SEQ = 2, 1024  # the train phase's batch: 2 sequences of 1,024 tokens
+TRAIN_STEPS = 8
+TRAIN_LR = 5e-4
 
 
 def log(*a):
@@ -758,6 +788,19 @@ def phase_attention(torch, np, ops, ref, rows):
                           torch.bfloat16, torch.bfloat16, 60, n=16),
         mla_b8=latent_row(torch, ops, ref, "deepseek-v3 batch", BATCH_SLOTS, BATCH_MAX_LEN,
                           lengths, torch.bfloat16, torch.bfloat16, 70))
+    # training at minicpm-2b's width: the forward with its LSE written, and
+    # the backward, in float32 (the train phase's) and in bfloat16
+    shape = (TRAIN_BATCH, TRAIN_SEQ, 36, 36, 64)
+    rows["flash_attention"]["shapes"]["train"] = flash_lse_row(
+        torch, ops, ref, "minicpm-2b train", shape, f32)
+    rows["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        # no TPU kernel: the JAX package differentiates its einsum attention
+        replaces="src/repro/models/attention.py:84",
+        **flash_bwd_row(torch, ops, ref, "minicpm-2b train", shape, f32),
+        shapes={"bf16": flash_bwd_row(torch, ops, ref, "minicpm-2b train", shape, bf16)})
+    softcap_checks(torch, ops, ref)
 
 
 def flash_row(torch, ops, ref, label, shape, window, dtype, hd_v=None, causal=True, Sk=None):
@@ -1769,6 +1812,291 @@ def whisper_audio(torch, np, Model, frontends, inst, label):
             log(f"{label}   {self_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
     return n_prefill, n_steps
 
+# ------------------------------------------------------------------ training
+def flash_bwd_counts(B, S, H, KH, hd, causal, window, elem, Sk=None):
+    """q, k, v, out and dout read once with the forward's lse, dq, dk and dv
+    written once; five products of 2*hd operations per live pair (the
+    scores again, since P is not kept; dO.v; dv, dq and dk): the least
+    work of the gradient (the kernel does seven, recomputing P twice)."""
+    Sk = Sk or S
+    nbytes = (4 * B * S * H * hd + 4 * B * Sk * KH * hd) * elem + B * H * S * 4
+    return nbytes, 10 * hd * B * H * live_pairs(S, causal, window, Sk)
+
+
+def flash_bwd_row(torch, ops, ref, label, shape, dtype, causal=True):
+    """``flash_attention_bwd`` at ``shape`` (B, S, H, KH, hd) in ``dtype``,
+    from the forward kernel's output and LSE: the LSE against its plain
+    version, the gradients against ``flash_attention_bwd_ref`` (the dtype's
+    tolerance) and bit for bit across two runs; then its time, the plain
+    version's and the backward of one ``scaled_dot_product_attention`` call
+    (the library yardstick, never called by the port), each in CUDA events
+    around back-to-back calls (the autograd backward cannot be captured in a
+    graph); the bound at the peak for the inputs' type.  Returns the row."""
+    F = torch.nn.functional
+    B, S, H, KH, hd = shape
+    q, k, v, do = (t.to(dtype) for t in attn_inputs(
+        torch, [(B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd), (B, S, H, hd)], 11))
+    out, lse = ops._flash_forward(q, k, v, causal, None, None, want_lse=True)
+    lse_err = max_abs(lse, ref.flash_attention_lse_ref(q, k, causal))
+    if not torch.allclose(lse, ref.flash_attention_lse_ref(q, k, causal), **TOL_ATTN):
+        fail(f"flash_attention's LSE {label}: max abs err {lse_err:.3e}")
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+    tol = TOL_BWD if dtype == torch.float32 else TOL_BF16
+    err = 0.0
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.equal(g, a):
+            fail(f"flash_attention_bwd {label}: {name} differs between two runs")
+        if g.dtype != dtype or not torch.allclose(g.float(), w.float(), **tol):
+            fail(f"flash_attention_bwd {label}: {name} max abs err {max_abs(g, w):.3e} ({tol})")
+        err = max(err, max_abs(g, w))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                       **(dict(enable_gqa=True) if H != KH else {}))
+    dot = do.transpose(1, 2)
+    lib_err = max(max_abs(g.transpose(1, 2), w) for g, w in zip(
+        torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), want))
+    ms = time_cuda(torch, lambda: ops.flash_attention_bwd(q, k, v, out, lse, do, causal), 5,
+                   calls=10)
+    plain_ms = time_cuda(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                                    causal), 3, calls=3)
+    lib_ms = time_cuda(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                                          retain_graph=True), 5, calls=10)
+    nbytes, nops = flash_bwd_counts(B, S, H, KH, hd, causal, None, q.element_size())
+    b_ms, b_by = bound(nbytes, nops, peak_ops(torch, dtype))
+    log(f"[kernels] flash_attention_bwd {label} B={B} S={S} H={H} KH={KH} hd={hd} "
+        f"{'causal' if causal else 'bidirectional'} {str(dtype)[6:]}: max abs err {err:.3e} "
+        f"(LSE {lse_err:.2e}; two runs bit for bit); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa backward {lib_ms:.4f} ms (max abs diff {lib_err:.2e}), bound {b_ms:.4f} ms "
+        f"({b_by}: {nops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; the kernel does "
+        f"{nops * 7 / 5 / 1e9:.3f} GFLOP, {nops * 7 / 5 / ms / 1e9:.1f} TFLOP/s)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, key=ops.shape_key(q, k, v, causal, None))
+
+
+def flash_lse_row(torch, ops, ref, label, shape, dtype):
+    """``flash_attention``'s forward as training runs it (causal, the LSE
+    written for the backward), against its plain version: out and LSE, then
+    its time from a CUDA graph of back-to-back calls as ``flash_row``'s."""
+    F = torch.nn.functional
+    B, S, H, KH, hd = shape
+    q, k, v = (t.to(dtype) for t in attn_inputs(
+        torch, [(B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)], 7))
+    out, lse = ops._flash_forward(q, k, v, True, None, None, want_lse=True)
+    err = max(check_close(torch, f"flash_attention {label}", out,
+                          ref.flash_attention_ref(q, k, v, True), dtype),
+              check_close(torch, f"flash_attention {label} LSE", lse,
+                          ref.flash_attention_lse_ref(q, k, True), torch.float32))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = time_graph(torch, [lambda: ops._flash_forward(q, k, v, True, None, None, True)] * 10)
+    plain_ms = time_graph(torch, [lambda: (ref.flash_attention_ref(q, k, v, True),
+                                           ref.flash_attention_lse_ref(q, k, True))] * 3)
+    lib_ms = time_graph(torch, [lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                       is_causal=True)] * 10)
+    nbytes, nops = flash_counts(B, S, H, KH, hd, True, None, q.element_size())
+    nbytes += B * H * S * 4
+    b_ms, b_by = bound(nbytes, nops, peak_ops(torch, dtype))
+    log(f"[kernels] flash_attention {label} B={B} S={S} H={H} KH={KH} hd={hd} causal, LSE "
+        f"written, {str(dtype)[6:]}: max abs err {err:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"(with its LSE), sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{nops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, key=ops.shape_key(q, k, v, True, None))
+
+
+def softcap_checks(torch, ops, ref):
+    """The logit softcap (cap = 50) in both attention kernels and the
+    backward, against their plain versions at minicpm-2b's head shape."""
+    cap = 50.0
+    q, k, v, do = attn_inputs(torch, [(1, 512, 8, 64), (1, 512, 4, 64), (1, 512, 4, 64),
+                                      (1, 512, 8, 64)], 13)
+    q = q * 8  # logits of ~+-60, where the cap bends them
+    out, lse = ops._flash_forward(q, k, v, True, None, cap, want_lse=True)
+    err = max(check_close(torch, "flash_attention softcap", out,
+                          ref.flash_attention_ref(q, k, v, True, None, cap), torch.float32),
+              max_abs(lse, ref.flash_attention_lse_ref(q, k, True, None, cap)))
+    for name, g, w in zip(("dq", "dk", "dv"),
+                          ops.flash_attention_bwd(q, k, v, out, lse, do, True, None, cap),
+                          ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True, None, cap)):
+        if not torch.allclose(g, w, **TOL_BWD):
+            fail(f"flash_attention_bwd softcap: {name} max abs err {max_abs(g, w):.3e}")
+        err = max(err, max_abs(g, w))
+    err = max(err, check_close(torch, "decode_attention softcap",
+                               ops.decode_attention(q[:, 300].contiguous(), k, v, 300, None, cap),
+                               ref.decode_attention_ref(q[:, 300], k, v, 300, None, cap),
+                               torch.float32))
+    log(f"[kernels] softcap 50 (S=512, H=8, KH=4, hd=64, causal): flash forward, LSE, "
+        f"backward and decode against their plain versions, max abs err {err:.3e}")
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def phase_train(torch, np, ops, ref, cfg, Model, training, data, counted, path_shapes):
+    """The training path: ``cfg`` (minicpm-2b at full width, float32) with
+    ``remat`` and AdamW, on one seeded Markov-LM batch of TRAIN_BATCH x
+    TRAIN_SEQ tokens.  (1) the kernel path's gradient and the plain path's
+    (``ref.flash_attention_ref`` under autograd in place of the kernels) on
+    the same weights, every leaf within TOL_GRAD_REL relative L2; (2) one
+    AdamW step from each, from the same weights and a zero state: the loss
+    and grad_norm the steps report and the loss after them; (3) the main
+    path, counted: TRAIN_STEPS steps on that batch, the loss falling, each
+    attention launch counted by shape; then one step traced.  Returns
+    (losses, ms a step)."""
+    from contextlib import nullcontext
+
+    tag = "[train]"
+    model = Model(cfg, device=DEVICE, remat=True)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    n_params = sum(t.numel() for _, t in _named_leaves(params))
+    lm = data.MarkovLM(data.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH, seed=0))
+    batch = data.device_put_batch(lm.batch_at(0), device=DEVICE)
+    plain = lambda: swapped(ops, ref.flash_attention_ref, "flash_attention")  # noqa: E731
+    log(f"{tag} {cfg.name} {cfg.n_layers}L d{cfg.d_model} {cfg.n_heads} heads of "
+        f"{cfg.head_dim_} vocab {cfg.vocab}: {n_params / 1e9:.3f} B parameters in float32, "
+        f"remat; batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens (MarkovLM seed 0)")
+
+    # (1) gradients: kernel path against plain path, on the card
+    loss_k, _, g_k = training.loss_and_grads(model, params, batch)
+    with plain():
+        loss_p, _, g_p = training.loss_and_grads(model, params, batch)
+    worst = max(((name, float(torch.linalg.vector_norm(a - b)
+                               / torch.linalg.vector_norm(b).clamp(min=1e-30)))
+                  for (name, a), (_, b) in zip(_named_leaves(g_k), _named_leaves(g_p))),
+                key=lambda t: t[1])
+    gn_k, gn_p = training.global_norm(g_k), training.global_norm(g_p)
+    log(f"{tag} gradient, kernel path vs plain path: loss {float(loss_k):.6f} vs "
+        f"{float(loss_p):.6f}, grad_norm {float(gn_k):.6f} vs {float(gn_p):.6f}; worst leaf "
+        f"{worst[0]}: relative L2 {worst[1]:.3e} (limit {TOL_GRAD_REL:g}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if worst[1] > TOL_GRAD_REL or not torch.isfinite(gn_k):
+        fail(f"train gradient: leaf {worst[0]} relative L2 {worst[1]:.3e} > {TOL_GRAD_REL}")
+    del g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) one AdamW step from each path, from the same weights and a zero state
+    opt_cfg = training.OptConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=TRAIN_STEPS,
+                                 schedule=cfg.lr_schedule)
+    step, evaluate = training.make_train_step(model, opt_cfg), training.make_eval_step(model)
+    host = [t.to("cpu", copy=True) for _, t in _named_leaves(params)]
+
+    def from_start():
+        for (_, t), h in zip(_named_leaves(params), host):
+            t.copy_(h)
+        return training.init_opt_state(params)
+
+    got = {}
+    for route, ctx in (("kernel", nullcontext), ("plain", plain)):
+        opt = from_start()
+        with ctx():
+            params, opt, m = step(params, opt, batch)
+            got[route] = (float(m["loss"]), float(m["grad_norm"]),
+                          float(evaluate(params, batch)["loss"]))
+        del opt  # the moments (twice the parameters) go before the next state is made
+    (lk, gk, ak), (lp, gp, ap) = got["kernel"], got["plain"]
+    log(f"{tag} one AdamW step (lr {TRAIN_LR:g}) from each path: loss {lk:.6f} vs {lp:.6f}, "
+        f"grad_norm {gk:.6f} vs {gp:.6f}, loss after the step {ak:.6f} vs {ap:.6f}")
+    if abs(lk - lp) > TOL_STEP_REL * abs(lp) or abs(gk - gp) > TOL_STEP_REL * abs(gp):
+        fail(f"train step: loss {lk} vs {lp}, grad_norm {gk} vs {gp} (relative {TOL_STEP_REL})")
+    if abs(ak - ap) > TOL_AFTER_REL * abs(ap):
+        fail(f"train step: loss after one step {ak} vs {ap} (relative {TOL_AFTER_REL})")
+
+    # (3) the main path: TRAIN_STEPS steps on the batch, counted
+    opt = from_start()
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+
+    def run():
+        nonlocal params, opt
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))  # waits for the step
+            times.append((time.perf_counter() - t0) * 1e3)
+
+    counted("train", ("flash_attention", "flash_attention_bwd"), run)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_ops = 8 * n_params * tokens  # 6 x parameters x tokens, and the remat forward
+    log(f"{tag} {TRAIN_STEPS} steps on one batch, lr {TRAIN_LR:g} ({cfg.lr_schedule}, no "
+        f"warmup): losses {', '.join(f'{x:.4f}' for x in losses)}")
+    log(f"{tag} step times {', '.join(f'{t:.1f}' for t in times)} ms; median of steps 2-"
+        f"{TRAIN_STEPS} {ms:.1f} ms, {tokens / ms * 1e3:.0f} tokens/s; peak device memory "
+        f"{peak:.1f} GiB; bound {n_ops / 1e12:.1f} TFLOP at {PEAK_F32_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s = {n_ops / PEAK_F32_OPS_PER_S * 1e3:.0f} ms a step (achieved "
+        f"{n_ops / ms / 1e9:.1f} TFLOP/s)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    L = cfg.n_layers
+    want = {("flash_attention", *ops.shape_key(*_train_qkv(torch, cfg), True, None)):
+            2 * L * TRAIN_STEPS,
+            ("flash_attention_bwd", *ops.shape_key(*_train_qkv(torch, cfg), True, None)):
+            L * TRAIN_STEPS}
+    if path_shapes["train"] != want:
+        fail(f"train path launched {path_shapes['train']}, not {want} ({2 * L} forward (with "
+             f"the remat recompute) and {L} backward launches a step)")
+    log(f"{tag} launches: flash_attention {2 * L} a step (forward and the remat recompute), "
+        f"flash_attention_bwd {L} a step, at one shape each, as expected")
+    # where the peak falls: one more step, its two halves measured apart
+    torch.cuda.reset_peak_memory_stats()
+    _, _, grads = training.loss_and_grads(model, params, batch)
+    peak_grad = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, _ = training.adamw_update(grads, opt, params, opt_cfg)
+    del grads
+    log(f"{tag} peak device memory in the gradient {peak_grad:.1f} GiB, in the AdamW update "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB (parameters "
+        f"{n_params * 4 / 2**30:.1f} GiB, moments twice that)")
+    trace_train_step(torch, lambda: step(params, opt, batch))
+    return losses, ms
+
+
+def _train_qkv(torch, cfg):
+    """Tensors of the shape and dtype of a training step's q, k and v (on
+    the meta device: only their shape key is read)."""
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.head_dim_)
+    kv = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_kv_heads, cfg.head_dim_)
+    return (torch.empty(shape, device="meta"), torch.empty(kv, device="meta"),
+            torch.empty(kv, device="meta"))
+
+
+def trace_train_step(torch, fn):
+    """One train step under ``torch.profiler``: the device's busy and idle
+    share of its wall time, and the device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    self_us = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(self_us(e) for e in kern) / 1e3
+    if busy_ms == 0:
+        log("[train] traced step: device time not measured (the profiler saw no kernel time)")
+        return
+    log(f"[train] traced step {wall_ms:.1f} ms: device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%, "
+        f"{sum(e.count for e in kern)} kernel launches")
+    for e in sorted(kern, key=self_us, reverse=True)[:10]:
+        log(f"[train]   {self_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
 
 def _to_cpu(tree):
     if isinstance(tree, dict):
@@ -1814,6 +2142,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.models import Model, moe
     from repro_torch.serving import Endpoint, Instance, ServingEngine, captured
+    from repro_torch import training
+    from repro_torch.training import data as train_data
 
     if args.sched_only:
         card = phase_device(torch, build, ("sched",))
@@ -2086,6 +2416,13 @@ def main(argv=None) -> int:
     del w_eng, w_inst
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # training: minicpm-2b at full width in float32, remat and AdamW
+    phase_train(torch, np, ops, ref, full_width(get_config, "minicpm_2b", DENSE_WIDTH), Model,
+                training, train_data, counted, path_shapes)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # each row of the kernels line, and the launches of the path its shape is
     # on: a ``batch`` or ``whisper_*`` row's are those at its own shape
@@ -2105,12 +2442,15 @@ def main(argv=None) -> int:
     rows["decode_attention"]["batch"] = batch
     rows["decode_attention"]["shapes"] = rows.pop("decode_attention_shapes")
     own = {"ssd_scan": ("serve", {"zamba2": "hybrid"}),
-           "flash_attention": ("dense", {"zamba2": "hybrid", "mixtral": "moe", "mla": "mla"}),
+           "flash_attention": ("dense", {"zamba2": "hybrid", "mixtral": "moe", "mla": "mla",
+                                         "train": "train"}),
+           "flash_attention_bwd": ("train", {"bf16": None}),
            "decode_attention": ("dense", {"zamba2": "hybrid", "mixtral": "moe",
                                           "mla_b1": ("mla", "decode_attention_latent"),
                                           "mla_b8": ("mla_batch", "decode_attention_latent")})}
     kernels, loss = [], {}
-    for name in ("sched_events", "sched_step", "ssd_scan", "flash_attention", "decode_attention"):
+    for name in ("sched_events", "sched_step", "ssd_scan", "flash_attention",
+                 "flash_attention_bwd", "decode_attention"):
         row = rows[name]
         row["launches"] = launches[name]
         # time lost on the main paths beyond the bound: per event for the
@@ -2128,7 +2468,7 @@ def main(argv=None) -> int:
                     continue
                 p, key = shape_paths[label] if isinstance(shape_paths[label], tuple) \
                     else (shape_paths[label], name)
-                sub["launches"] = path[p][key]
+                sub["launches"] = path[p][key] if p else 0  # None: a shape no path runs
             subs = [dict(launches=path[main_path][name], ms=row["ms"], bound_ms=row["bound_ms"]),
                     *row.get("batch", {}).values(), *row["shapes"].values()]
             loss[name] = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in subs)

@@ -5,8 +5,8 @@ Same hyperparameters as the JAX package's ``configs/minicpm_2b.py``.
 WSD schedule, llama-like. [arXiv:2404.06395; hf]
 Derived: head_dim=64, SwiGLU, RMSNorm, RoPE; MiniCPM mup-style knobs:
 scale_emb=12, depth-scaled residual 1.4/sqrt(40), tied embeddings.
-``lr_schedule="wsd"`` names the warmup-stable-decay schedule of the JAX
-package's trainer; the port serves the model and has no trainer.
+``lr_schedule="wsd"`` names the warmup-stable-decay schedule that
+``training.make_train_step`` takes by default for it.
 """
 
 import math

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sched", "ssd_scan", "flash_attention", "decode_attention")
+SOURCES = ("sched", "ssd_scan", "flash_attention", "flash_attention_bwd", "decode_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -108,10 +108,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ssd_scan_max_chunk.argtypes = []
         lib.ssd_scan_max_chunk.restype = i
     elif name == "flash_attention":
-        lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 12 + [p]
+        lib.flash_attention_launch.argtypes = [p] * 5 + [i] * 12 + [f, p]
         lib.flash_attention_launch.restype = i
+    elif name == "flash_attention_bwd":
+        lib.flash_attention_bwd_launch.argtypes = [p] * 10 + [i] * 9 + [f, p]
+        lib.flash_attention_bwd_launch.restype = i
     elif name == "decode_attention":
-        lib.decode_attention_launch.argtypes = [p] * 7 + [i] * 12 + [p]
+        lib.decode_attention_launch.argtypes = [p] * 7 + [i] * 12 + [f, p]
         lib.decode_attention_launch.restype = i
         lib.decode_attention_max_group.argtypes = []
         lib.decode_attention_max_group.restype = i

@@ -14,7 +14,9 @@
 // live position, as the Pallas kernel writes).  q is float32 or bfloat16;
 // the cache is float32, bfloat16 or float8_e4m3fn, read in its own type and
 // converted to float32 in registers (fp8 through cuda_fp8.h, which converts
-// exactly), as _dec_kernel upcasts each tile.
+// exactly), as _dec_kernel upcasts each tile.  A logit softcap (softcap > 0)
+// replaces each scaled logit u by softcap * tanh(u / softcap) before the mask,
+// as the JAX package's sdpa does.
 //
 // What bounds it on this card: bytes, at the cache's element size.  Each
 // live K/V row is read once and used for 4 x G x hd operations, so at
@@ -146,7 +148,7 @@ __global__ void __launch_bounds__(Cfg<TC, HD>::THREADS, 16 / Cfg<TC, HD>::WARPS)
 decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc, const TC* __restrict__ vc,
               TQ* __restrict__ out, float* __restrict__ part, int* __restrict__ tickets,
               const int* __restrict__ valid_dev, int valid_stride, int valid_host, int S,
-              int KH, int G, int window, float scale_log2) {
+              int KH, int G, int window, float scale_log2, float cap_in, float cap_out) {
   using C = Cfg<TC, HD>;
   constexpr int VEC = C::VEC, CH = C::CH, LPR = C::LPR, NCH = C::NCH, RPW = C::RPW;
   constexpr int GB = C::GB, U = C::U, WARPS = C::WARPS, THREADS = C::THREADS;
@@ -261,7 +263,7 @@ decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc, const TC* __r
         float mn = m[g];
 #pragma unroll
         for (int s = 0; s < U; ++s) {
-          d[s] *= scale_log2;
+          d[s] = cap_out > 0.f ? cap_out * tanhf(d[s] * cap_in) : d[s] * scale_log2;
           if (ok[s]) mn = fmaxf(mn, d[s]);
         }
         const float al = exp2f(m[g] - mn);
@@ -435,27 +437,30 @@ decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc, const TC* __r
 template <typename TQ, typename TC, int HD>
 cudaError_t launch(const void* q, const void* kc, const void* vc, void* out, float* part,
                    int* tickets, const int* valid_dev, int valid_stride, int valid_host, int B,
-                   int S, int H, int KH, int window, int gb, int splits, cudaStream_t stream) {
+                   int S, int H, int KH, int window, float softcap, int gb, int splits,
+                   cudaStream_t stream) {
   using C = Cfg<TC, HD>;
   const int G = H / KH;
   if (gb != C::GB) return cudaErrorInvalidValue;
   const int n_hg = (G + C::GB - 1) / C::GB;
+  const float scale = 1.0f / sqrtf((float)HD);
   decode_kernel<TQ, TC, HD><<<dim3(splits, KH * n_hg, B), C::THREADS, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TC*>(kc), static_cast<const TC*>(vc),
       static_cast<TQ*>(out), part, tickets, valid_dev, valid_stride, valid_host, S, KH, G,
-      window, 1.0f / sqrtf((float)HD) * kLog2e);
+      window, scale * kLog2e, softcap > 0.f ? scale / softcap : 0.f,
+      softcap > 0.f ? softcap * kLog2e : 0.f);
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TC>
 cudaError_t dispatch(const void* q, const void* kc, const void* vc, void* out, float* part,
                      int* tickets, const int* valid_dev, int valid_stride, int valid_host, int B,
-                     int S, int H, int KH, int hd, int window, int gb, int splits,
+                     int S, int H, int KH, int hd, int window, float softcap, int gb, int splits,
                      cudaStream_t s) {
 #define REPRO_DECODE_CASE(D)                                                                 \
   case D:                                                                                    \
     return launch<TQ, TC, D>(q, kc, vc, out, part, tickets, valid_dev, valid_stride,        \
-                             valid_host, B, S, H, KH, window, gb, splits, s)
+                             valid_host, B, S, H, KH, window, softcap, gb, splits, s)
   switch (hd) {
     REPRO_DECODE_CASE(16);
     REPRO_DECODE_CASE(32);
@@ -472,16 +477,17 @@ template <typename TQ>
 cudaError_t dispatch_cache(int cache_code, const void* q, const void* kc, const void* vc,
                            void* out, float* part, int* tickets, const int* valid_dev,
                            int valid_stride, int valid_host, int B, int S, int H, int KH, int hd,
-                           int window, int gb, int splits, cudaStream_t s) {
+                           int window, float softcap, int gb, int splits, cudaStream_t s) {
   switch (cache_code) {
     case 0: return dispatch<TQ, float>(q, kc, vc, out, part, tickets, valid_dev, valid_stride,
-                                       valid_host, B, S, H, KH, hd, window, gb, splits, s);
+                                       valid_host, B, S, H, KH, hd, window, softcap, gb, splits,
+                                       s);
     case 1: return dispatch<TQ, __nv_bfloat16>(q, kc, vc, out, part, tickets, valid_dev,
                                                valid_stride, valid_host, B, S, H, KH, hd,
-                                               window, gb, splits, s);
+                                               window, softcap, gb, splits, s);
     case 2: return dispatch<TQ, __nv_fp8_e4m3>(q, kc, vc, out, part, tickets, valid_dev,
                                                valid_stride, valid_host, B, S, H, KH, hd,
-                                               window, gb, splits, s);
+                                               window, softcap, gb, splits, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -873,23 +879,26 @@ extern "C" int decode_attention_max_group() { return kMaxG; }
 // * (hd + 2); tickets, int32, one per unit (units = B * KH * ceil(G / gb)),
 // zero before the first call and left zero by every call.  Calls that share
 // tickets must not overlap in time.  G = H / KH at most
-// decode_attention_max_group(); hd one of 16, 32, 64, 80, 128, 256.
+// decode_attention_max_group(); hd one of 16, 32, 64, 80, 128, 256.  softcap
+// > 0 caps each scaled logit u to softcap * tanh(u / softcap) before the mask;
+// 0 means none.
 extern "C" int decode_attention_launch(const void* q, const void* kc, const void* vc, void* out,
                                        float* part, int* tickets, const int* valid_dev,
                                        int valid_stride, int valid_host, int B, int S, int H,
                                        int KH, int hd, int window, int gb, int splits,
-                                       int q_code, int cache_code, void* stream) {
+                                       int q_code, int cache_code, float softcap, void* stream) {
   if (B < 1 || S < 1 || KH < 1 || H % KH != 0 || H / KH > kMaxG || window < 0 || gb < 1 ||
-      splits < 1 || splits > kMaxSplits || valid_stride < 0 || valid_stride > 1)
+      splits < 1 || splits > kMaxSplits || valid_stride < 0 || valid_stride > 1 ||
+      !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (q_code) {
     case 0: return (int)dispatch_cache<float>(cache_code, q, kc, vc, out, part, tickets,
                                               valid_dev, valid_stride, valid_host, B, S, H, KH,
-                                              hd, window, gb, splits, s);
+                                              hd, window, softcap, gb, splits, s);
     case 1: return (int)dispatch_cache<__nv_bfloat16>(cache_code, q, kc, vc, out, part, tickets,
                                                       valid_dev, valid_stride, valid_host, B, S,
-                                                      H, KH, hd, window, gb, splits, s);
+                                                      H, KH, hd, window, softcap, gb, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,6 +11,13 @@
 // which the TPU kernel did not take (it asserted one length).  Same
 // function as kernels/ref.py::flash_attention_ref: masked logits never count,
 // the running (m, l, acc) are float32, out = acc / max(l, 1e-30) in q's type.
+// A logit softcap (gemma-style, softcap > 0) replaces each scaled logit u by
+// softcap * tanh(u / softcap) before the mask, as the JAX package's sdpa
+// does.  When the caller wants a gradient it passes lse, and the kernel
+// writes each row's log-sum-exp of the live logits there, (B, H, S) float32
+// in natural-log units: ln l + m.  flash_attention_bwd.cu recomputes the
+// probabilities from it; lse is null on the serving path, which writes
+// nothing more than before.
 // The value head dim HDV may differ from the q/k head dim HD: MLA's prefill
 // (deepseek-v3) attends with q/k heads of 192 (nope 128 + rope 64) and value
 // heads of 128, instantiated as (192, 128).  K and V are read at a head
@@ -61,6 +68,7 @@ namespace {
 
 constexpr float kNegInf = -2.0e38f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // BQ query rows per CTA, BK keys per tile, RM rows and TC lanes per row group
 template <int HD> struct Cfg;
@@ -136,11 +144,14 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int
   }
 }
 
-template <typename T, int HD, int HDV>
+// CAP: the logit softcap, a template parameter so that the serving path's
+// score loop carries no branch for it
+template <typename T, int HD, int HDV, bool CAP>
 __global__ void __launch_bounds__(threads<HD>(), Cfg<HD>::MinB)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       T* __restrict__ o, int S, int Sk, int H, int KH, int ldk, int ldv,
-                       float scale_log2, int causal, int window) {
+                       T* __restrict__ o, float* __restrict__ lse, int S, int Sk, int H,
+                       int KH, int ldk, int ldv, float scale_log2, float cap_in, float cap_out,
+                       int causal, int window) {
   using C = Cfg<HD>;
   constexpr int BQ = C::BQ, BK = C::BK, RM = C::RM, TC = C::TC;
   constexpr int NT = threads<HD>();
@@ -217,7 +228,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
       for (int c = 0; c < CM; ++c) {
         const int kj = k0 + tx + TC * c;
         ok[c] = kj < Sk && (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
-        s[r][c] *= scale_log2;
+        if constexpr (CAP) {
+          s[r][c] = cap_out * tanhf(s[r][c] * cap_in);
+        } else {
+          s[r][c] *= scale_log2;
+        }
         if (ok[c]) mt = fmaxf(mt, s[r][c]);
       }
 #pragma unroll
@@ -277,6 +292,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     const int qi = q0 + ty * RM + r;
     if (qi >= S) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[((size_t)b * H + h) * S + qi] = (m[r] + log2f(l[r])) * kLn2;
     T* out = o + (((size_t)b * S + qi) * H + h) * HDV;
 #pragma unroll
     for (int g = 0; g < GPL; ++g)
@@ -285,14 +301,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   }
 }
 
-template <typename T, int HD, int HDV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Sk,
-                   int H, int KH, int ldk, int ldv, int causal, int window,
-                   cudaStream_t stream) {
+template <typename T, int HD, int HDV, bool CAP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int S, int Sk, int H, int KH, int ldk, int ldv, int causal, int window,
+                   float softcap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, HD, HDV>();
   static bool opted_in = false;  // the attribute is set once per instantiation
   if (smem > 48 * 1024 && !opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HD, HDV>,
+    const cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HD, HDV, CAP>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  (int)smem);
     if (err != cudaSuccess) return err;
@@ -301,20 +317,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   if (ldk < HD || ldv < HDV || (ldk * sizeof(T)) % 16 || (ldv * sizeof(T)) % 16)
     return cudaErrorInvalidValue;
   const dim3 grid(H, B, (S + Cfg<HD>::BQ - 1) / Cfg<HD>::BQ);
-  flash_attention_kernel<T, HD, HDV><<<grid, threads<HD>(), smem, stream>>>(
+  const float scale = 1.0f / sqrtf((float)HD);
+  flash_attention_kernel<T, HD, HDV, CAP><<<grid, threads<HD>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, Sk, H, KH, ldk, ldv, (1.0f / sqrtf((float)HD)) * kLog2e, causal,
-      window);
+      static_cast<T*>(o), lse, S, Sk, H, KH, ldk, ldv, scale * kLog2e,
+      CAP ? scale / softcap : 0.f, CAP ? softcap * kLog2e : 0.f, causal, window);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int Sk,
-                     int H, int KH, int hd, int hd_v, int ldk, int ldv, int causal, int window,
-                     cudaStream_t s) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                     int S, int Sk, int H, int KH, int hd, int hd_v, int ldk, int ldv, int causal,
+                     int window, float softcap, cudaStream_t s) {
 #define REPRO_FLASH_CASE(D, DV)                                                             \
   if (hd == D && hd_v == DV)                                                                \
-    return launch<T, D, DV>(q, k, v, o, B, S, Sk, H, KH, ldk, ldv, causal, window, s)
+    return softcap > 0.f                                                                    \
+               ? launch<T, D, DV, true>(q, k, v, o, lse, B, S, Sk, H, KH, ldk, ldv, causal, \
+                                        window, softcap, s)                                 \
+               : launch<T, D, DV, false>(q, k, v, o, lse, B, S, Sk, H, KH, ldk, ldv, causal,\
+                                         window, softcap, s)
   REPRO_FLASH_CASE(16, 16);
   REPRO_FLASH_CASE(32, 32);
   REPRO_FLASH_CASE(64, 64);
@@ -333,19 +354,20 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
 // head dim when contiguous; each a multiple of 16 bytes); all 16-byte
 // aligned, float32 or (when is_bf16) bfloat16.  H % KH == 0; (hd, hd_v) with
 // hd_v == hd one of 16, 32, 64, 80, 128, 256, or (192, 128); window <= 0
-// means no window; causal or a window only with Sk == S.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
-                                      int S, int Sk, int H, int KH, int hd, int hd_v, int ldk,
-                                      int ldv, int causal, int window, int is_bf16,
-                                      void* stream) {
+// means no window; causal or a window only with Sk == S; softcap <= 0 means
+// none.  lse: null, or (B, H, S) float32 for the rows' log-sum-exp.
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
+                                      float* lse, int B, int S, int Sk, int H, int KH, int hd,
+                                      int hd_v, int ldk, int ldv, int causal, int window,
+                                      int is_bf16, float softcap, void* stream) {
   if (B < 1 || S < 1 || Sk < 1 || KH < 1 || H % KH != 0 || B > 65535 ||
-      (Sk != S && (causal || window > 0)))
+      (Sk != S && (causal || window > 0)) || !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, S, Sk, H, KH, hd, hd_v, ldk,
-                                                 ldv, causal, window, s)
-                       : dispatch<float>(q, k, v, o, B, S, Sk, H, KH, hd, hd_v, ldk, ldv,
-                                         causal, window, s));
+  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, B, S, Sk, H, KH, hd, hd_v,
+                                                 ldk, ldv, causal, window, softcap, s)
+                       : dispatch<float>(q, k, v, o, lse, B, S, Sk, H, KH, hd, hd_v, ldk, ldv,
+                                         causal, window, softcap, s));
 }

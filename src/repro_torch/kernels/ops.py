@@ -10,6 +10,17 @@ launch counts in ``SHAPE_LAUNCHES`` under the call's shape.  A call
 recorded into a CUDA graph counts too; its replays do not pass through the
 wrapper (``serving/captured.py`` counts them).
 
+Gradients.  On the card ``flash_attention`` is a ``torch.autograd.Function``
+when grad mode is on and an input requires a gradient: its forward launches
+the same kernel, which then also writes the rows' log-sum-exp, and its
+backward launches ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``).
+With no gradient wanted the call is exactly the serving path's.  The
+wrappers that have no backward kernel (``ssd_scan``, ``decode_attention``,
+``decode_attention_latent``, and ``flash_attention`` at split head dims or
+with v read at a head stride) raise ``NotImplementedError`` on the card under
+autograd, so no gradient is cut silently; on the CPU the plain versions are
+torch operations and differentiate as they are.
+
 The model kernels take their inputs in any of ``FLOAT_DTYPES``, as the
 Pallas kernels cast each tile to float32: the combinations a kernel is
 instantiated for run as they are, any other is cast to float32 first and
@@ -29,8 +40,8 @@ from . import build, ref
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"sched_events": 0, "sched_step": 0, "ssd_scan": 0,
-                            "flash_attention": 0, "decode_attention": 0,
-                            "decode_attention_latent": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0,
+                            "decode_attention": 0, "decode_attention_latent": 0}
 
 #: head dims the attention kernels are instantiated for (the repo's attention
 #: configs, plus 16 and 32 for the tiny serving and test configs)
@@ -131,6 +142,22 @@ def _check_floats(**tensors: Optional[torch.Tensor]) -> None:
             raise TypeError(f"{name}: expected one of {FLOAT_DTYPES}, got {t.dtype}")
 
 
+def _wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _no_backward(name: str, lifted_by: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name} has no backward kernel: on the card it does not run under autograd, so that no "
+        f"gradient is cut silently ({lifted_by})")
+
+
+def _softcap_arg(softcap: Optional[float]) -> float:
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    return float(softcap or 0.0)
+
+
 def _raise_on(err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
@@ -221,6 +248,9 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tens
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     on_cuda = _on_cuda(*(t for t in (x, dt, A, Bm, Cm, init_state) if t is not None))
+    if on_cuda and _wants_grad(x, dt, A, Bm, Cm, init_state):
+        raise _no_backward("ssd_scan", "ROADMAP Queue 1 item 8b: the ssd_scan backward kernel, "
+                                       "with mamba2-130m and zamba2-2.7b training")
     pad = (-S) % chunk
     if pad:
         x, dt, Bm, Cm = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in (x, dt, Bm, Cm))
@@ -289,9 +319,10 @@ def _head_stride(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[in
     return ld
 
 
-def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None):
+def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None):
     """Attention of a whole query sequence over a whole key sequence
-    (prefill; cross-attention).  q (B,S,H,hd); k (B,Sk,KH,hd); v
+    (prefill, training; cross-attention).  q (B,S,H,hd); k (B,Sk,KH,hd); v
     (B,Sk,KH,hd_v) with hd_v == hd, or (hd, hd_v) one of
     ``FLASH_SPLIT_DIMS`` (MLA); each in any of ``FLOAT_DTYPES``: float32 or
     bfloat16 alike run as they are, any other mix is cast to float32 first
@@ -302,15 +333,32 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None):
     for self-attention; keys of another length (whisper's decoder over the
     encoded audio) take neither mask and are all live, and a causal mask or
     a window with Sk != S raises.  The logits are scaled by ``1/sqrt(hd)``,
-    the q/k head dim (the Pallas kernel's).  Any S and Sk.  On the card q
-    must be contiguous; k and v may also be a slice of the last dim of a
-    contiguous tensor (read in place, at their head stride); all 16-byte
-    aligned.  Returns (B,S,H,hd_v) in q's dtype."""
+    the q/k head dim (the Pallas kernel's), and with ``softcap`` capped to
+    ``softcap * tanh(logit / softcap)`` before the mask.  Any S and Sk.  On
+    the card q must be contiguous; k and v may also be a slice of the last
+    dim of a contiguous tensor (read in place, at their head stride); all
+    16-byte aligned.  Returns (B,S,H,hd_v) in q's dtype.
+
+    Under autograd on the card (grad mode on, an input requiring a
+    gradient) the call is ``_FlashAttention``: equal head dims and
+    contiguous k and v only, else ``NotImplementedError``."""
     _check_floats(q=q, k=k, v=v)
     if not (q.dtype in _Q_CODES and k.dtype == v.dtype == q.dtype):
-        return flash_attention(q.float(), k.float(), v.float(), causal, window).to(q.dtype)
+        return flash_attention(q.float(), k.float(), v.float(), causal, window,
+                               softcap).to(q.dtype)
     if not _on_cuda(q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal, window)
+        return ref.flash_attention_ref(q, k, v, causal, window, softcap)
+    if _wants_grad(q, k, v):
+        if v.shape[-1] != q.shape[-1] or not (k.is_contiguous() and v.is_contiguous()):
+            raise _no_backward("flash_attention at split head dims or with v read at a head "
+                               "stride", "ROADMAP Queue 1 item 8c: MLA and MoE training")
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _flash_forward(q, k, v, causal, window, softcap, want_lse=False)[0]
+
+
+def _flash_forward(q, k, v, causal: bool, window: Optional[int], softcap: Optional[float],
+                   want_lse: bool):
+    """The forward kernel's launch: (out, lse (B,H,S) float32 or None)."""
     B, S, H, hd = q.shape
     Sk, KH, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     ref.check_key_length(S, Sk, causal, window)
@@ -329,16 +377,84 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None):
                          "their storage must be 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
+    cap = _softcap_arg(softcap)
     out = torch.empty((B, S, H, hd_v), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if want_lse else None
     lib = build.load("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Sk, H, KH, hd,
-            hd_v, ldk, ldv, int(causal), window or 0, _Q_CODES[q.dtype], _stream(q),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None, B, S, Sk, H, KH, hd, hd_v, ldk, ldv,
+            int(causal), window or 0, _Q_CODES[q.dtype], cap, _stream(q),
         )
     _raise_on(err, "flash_attention")
-    _launched("flash_attention", q, k, v, causal, window)
-    return out
+    _launched("flash_attention", q, k, v, causal, window, *((cap,) if cap else ()))
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient on the card: the forward kernel
+    also writes the rows' log-sum-exp, saved with q, k, v and the output
+    (``torch.utils.checkpoint`` recomputes all of them with the forward), and
+    the backward is ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = _flash_forward(q, k, v, causal, window, softcap, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.to(q.dtype).contiguous(),
+                                         *ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
+                        window: Optional[int] = None, softcap: Optional[float] = None):
+    """The gradient of ``flash_attention`` with equal head dims: (dq, dk, dv)
+    in the dtypes of q, k and v, from the forward's output ``out``
+    (B,S,H,hd) and rows' log-sum-exp ``lse`` (B,H,S) float32, and the
+    output's gradient ``dout``; masks and softcap as the forward's.  On the
+    card q, k, v, out and dout are contiguous, float32 or bfloat16 alike,
+    16-byte aligned, with hd in ``ATTN_HEAD_DIMS``; the kernel runs in three
+    launches (D = rowsum(dout * out) into float32 scratch allocated here, dk
+    and dv, dq), counted as one.  On the CPU this is
+    ``ref.flash_attention_bwd_ref``."""
+    if not _on_cuda(q, k, v, out, lse, dout):
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal, window, softcap)
+    B, S, H, hd = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    if q.dtype not in _Q_CODES:
+        raise TypeError(f"q: expected one of {tuple(_Q_CODES)}, got {q.dtype}")
+    ref.check_key_length(S, Sk, causal, window)
+    _attn_checks(q, k, v, (B, S, H, hd), (B, Sk, KH, hd))
+    _check("out", out, q.dtype, (B, S, H, hd))
+    _check("dout", dout, q.dtype, (B, S, H, hd))
+    _check("lse", lse, torch.float32, (B, H, S))
+    if k.dtype != q.dtype:
+        raise TypeError(f"k, v: expected {q.dtype}, got {k.dtype}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError("flash_attention_bwd kernel copies q, k, v and dout 16 bytes at a "
+                         "time: their storage must be 16-byte aligned")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    cap = _softcap_arg(softcap)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = build.load("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, S, Sk, H, KH, hd, int(causal), window or 0, _Q_CODES[q.dtype], cap, _stream(q),
+        )
+    _raise_on(err, "flash_attention_bwd")
+    _launched("flash_attention_bwd", q, k, v, causal, window, *((cap,) if cap else ()))
+    return dq, dk, dv
 
 
 def decode_heads_per_pass(hd: int, elem: int) -> int:
@@ -438,7 +554,8 @@ def _valid_len_args(valid_len, q: torch.Tensor, B: int, S: int, window: Optional
     return None, valid_host
 
 
-def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = None):
+def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = None,
+                     softcap: Optional[float] = None):
     """One new token per sequence against a cache.  q (B,H,hd); caches
     (B,S,KH,hd).  The kernel is instantiated for q in float32 or bfloat16
     and both caches in float32, bfloat16 or float8_e4m3fn: it reads the
@@ -451,7 +568,9 @@ def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = Non
     (each row its own), which the kernel reads on the card (no host sync; a
     captured call replays with the tensor's new values).  An int with no
     live position raises; a tensor row with none gives zeros, as the Pallas
-    kernel does.  Returns (B,H,hd) in q's dtype.
+    kernel does.  With ``softcap`` the scaled logits are capped to ``softcap
+    * tanh(logit / softcap)`` before the mask.  Returns (B,H,hd) in q's
+    dtype.  It has no backward: under autograd on the card it raises.
 
     On the card this is one launch of ``decode_geometry``'s grid, from the
     shapes and the cache's element size: each CTA takes its share of its
@@ -463,9 +582,13 @@ def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = Non
     if not (q.dtype in _Q_CODES and k_cache.dtype == v_cache.dtype
             and k_cache.dtype in _CACHE_CODES):
         return decode_attention(q.float(), k_cache.float(), v_cache.float(), valid_len,
-                                window).to(q.dtype)
+                                window, softcap).to(q.dtype)
     if not _on_cuda(q, k_cache, v_cache):
-        return ref.decode_attention_ref(q, k_cache, v_cache, valid_len, window)
+        return ref.decode_attention_ref(q, k_cache, v_cache, valid_len, window, softcap)
+    if _wants_grad(q, k_cache, v_cache):
+        raise _no_backward("decode_attention", "ROADMAP Queue 1 item 8: no train step decodes; "
+                                               "training attends through flash_attention")
+    cap = _softcap_arg(softcap)
     B, S, KH, hd = k_cache.shape
     H = q.shape[1]
     _attn_checks(q, k_cache, v_cache, (B, H, hd), (B, S, KH, hd))
@@ -492,10 +615,10 @@ def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = Non
             valid_dev.data_ptr() if valid_dev is not None else None,
             valid_dev.ndim if valid_dev is not None else 0, valid_host,
             B, S, H, KH, hd, window or 0, gb, splits, _Q_CODES[q.dtype],
-            _CACHE_CODES[k_cache.dtype], _stream(q),
+            _CACHE_CODES[k_cache.dtype], cap, _stream(q),
         )
     _raise_on(err, "decode_attention")
-    _launched("decode_attention", q, k_cache, v_cache, window)
+    _launched("decode_attention", q, k_cache, v_cache, window, *((cap,) if cap else ()))
     return out
 
 
@@ -541,6 +664,10 @@ def decode_attention_latent(q_lat, q_rope, c_cache, r_cache, valid_len, scale: f
                                        r_cache.float(), valid_len, scale).to(q_lat.dtype)
     if not _on_cuda(q_lat, q_rope, c_cache, r_cache):
         return ref.decode_attention_latent_ref(q_lat, q_rope, c_cache, r_cache, valid_len, scale)
+    if _wants_grad(q_lat, q_rope, c_cache, r_cache):
+        raise _no_backward("decode_attention_latent", "ROADMAP Queue 1 item 8: no train step "
+                                                      "decodes; training attends through "
+                                                      "flash_attention")
     B, S, dc = c_cache.shape
     H, dr = q_lat.shape[1], r_cache.shape[-1]
     if (dc, dr) not in LATENT_DIMS:

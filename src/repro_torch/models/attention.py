@@ -11,9 +11,8 @@ cross-attention (``attn_forward`` with ``kv_memory``) calls
 ``ops.flash_attention`` with q/k heads of nope + rope and v heads of
 ``v_head_dim``, and ``mla_decode`` calls ``ops.decode_attention_latent`` on
 the latent cache.  On the card those are the CUDA kernels, on the CPU their
-plain versions.  ``sdpa`` is the JAX package's einsum with an additive mask.
-On the CPU it also covers what the kernels do not: a logit softcap, which
-raises on the card.
+plain versions.  A logit softcap (``cfg.attn_logit_softcap``) goes to both
+kernels, which apply it as the JAX package's ``sdpa`` does.
 
 The kernels build their masks from row and column indices, the JAX functions
 from ``positions[0]``; the two agree because the model's positions are
@@ -30,7 +29,6 @@ from ..kernels import ops
 from ..kernels.ref import attn_scale
 from .layers import apply_rope, rmsnorm, stacked_normal
 
-_NEG_INF = -2.0e38
 GLOBAL_WINDOW = 2**30  # "window" value meaning full attention
 
 KV = Tuple[torch.Tensor, torch.Tensor]
@@ -78,35 +76,6 @@ def init_mla(cfg, generator: torch.Generator, device, dtype=torch.float32,
 
 
 # -------------------------------------------------------------------- core
-def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int, causal: bool) -> torch.Tensor:
-    """(Sq, Sk) additive mask; ``window == GLOBAL_WINDOW`` is full attention."""
-    dq, dk = q_pos[:, None], k_pos[None, :]
-    ok = (dq - dk) < window
-    if causal:
-        ok &= dk <= dq
-    return torch.where(ok, 0.0, _NEG_INF)
-
-
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor],
-         softcap: Optional[float] = None) -> torch.Tensor:
-    """Grouped-query attention without repeating K/V.  q (B,Sq,KH,G,hd);
-    k, v (B,Sk,KH,hd); bias broadcastable to (B,KH,G,Sq,Sk).  Logits and
-    softmax in float32, probabilities cast to ``q.dtype``."""
-    scale = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32))
-    logits = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
-    if softcap:
-        logits = softcap * torch.tanh(logits / softcap)
-    if bias is not None:
-        logits = logits + bias
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bkgqs,bskh->bqkgh", probs, v.to(q.dtype))
-
-
-def _unsupported_on_card(x: torch.Tensor, what: str) -> None:
-    if x.is_cuda:
-        raise NotImplementedError(f"{what} is not in the attention kernels; it runs on the CPU only")
-
-
 def _kernel_window(window: int) -> Optional[int]:
     return None if window >= GLOBAL_WINDOW else int(window)
 
@@ -162,9 +131,12 @@ def attn_forward(
     one query a row (decode) to ``ops.decode_attention`` over the T
     projected rows with ``valid_len`` T-1, a Python int, so a decode step
     that holds it can be captured in a CUDA graph.  It applies no logit
-    softcap: no encoder-decoder config sets one."""
+    softcap: no encoder-decoder config sets one.
+
+    In train mode under autograd the gradient goes through
+    ``ops.flash_attention``'s backward kernel on the card."""
     B, S, _ = x.shape
-    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    H, hd = cfg.n_heads, cfg.head_dim_
     if kv_memory is not None:
         return _cross_forward(p, x, cfg, kv_memory[0].to(x.dtype))
     q, k, v = _qkv(p, x, x)
@@ -173,13 +145,8 @@ def attn_forward(
         q = apply_rope(q, positions, th)
         k = apply_rope(k, positions, th)
     w = window if window is not None else GLOBAL_WINDOW
-    if not cfg.attn_logit_softcap:
-        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal,
-                                  _kernel_window(w))
-    else:
-        _unsupported_on_card(x, "softcap")
-        bias = _mask_bias(positions[0], positions[0], w, causal)[None, None, None]
-        out = sdpa(q.reshape(B, S, KH, H // KH, hd), k, v, bias, cfg.attn_logit_softcap)
+    out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                              _kernel_window(w), cfg.attn_logit_softcap)
     return _out_proj(p, out.reshape(B, S, H, hd)), (k, v)
 
 
@@ -218,7 +185,7 @@ def attn_decode(
     the CPU the cache is cast to q's dtype first, as the JAX function does.
     Returns (y (B,1,d), cache)."""
     B = x.shape[0]
-    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    H, hd = cfg.n_heads, cfg.head_dim_
     k_cache, v_cache = cache
     S = k_cache.shape[1]
     cache_index, idx_vec = _positions(cache_index, B, x.device)
@@ -232,15 +199,8 @@ def attn_decode(
     v_cache[rows, wr] = v_new[:, 0].to(v_cache.dtype)
     w = window if window is not None else GLOBAL_WINDOW
     kc, vc = (k_cache, v_cache) if x.is_cuda else (k_cache.to(q.dtype), v_cache.to(q.dtype))
-    if not cfg.attn_logit_softcap:
-        out = ops.decode_attention(q.reshape(B, H, hd).contiguous(), kc, vc, cache_index,
-                                   _kernel_window(w))
-    else:
-        _unsupported_on_card(x, "softcap")
-        k_pos = torch.arange(S, device=x.device)
-        valid = (k_pos[None, :] <= idx_vec[:, None]) & ((idx_vec[:, None] - k_pos[None, :]) < w)
-        bias = torch.where(valid, 0.0, _NEG_INF)[:, None, None, None, :]
-        out = sdpa(q.reshape(B, 1, KH, H // KH, hd), kc, vc, bias, cfg.attn_logit_softcap)
+    out = ops.decode_attention(q.reshape(B, H, hd).contiguous(), kc, vc, cache_index,
+                               _kernel_window(w), cfg.attn_logit_softcap)
     return _out_proj(p, out.reshape(B, 1, H, hd)), (k_cache, v_cache)
 
 

@@ -6,6 +6,8 @@ each leaf gives plain arrays.  ``params_from_numpy`` turns that tree of
 numpy arrays into the port's parameters: the same nested dict, each leaf a
 tensor on ``device``.  The layouts already agree (layer-stacked leading
 axis, ``(in, out)`` projection matrices), so nothing is transposed.
+``opt_state_from_numpy`` carries an optimizer state (``m``, ``v``, ``step``)
+across the same way.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..training.optimizer import OptState
 
 #: leaves that the JAX init makes in float32 whatever ``param_dtype`` is (and
 #: the port's ``Model.init`` too): norm scales and biases (``scale``,
@@ -33,6 +36,16 @@ def params_from_numpy(tree: Any, device=None, dtype: torch.dtype | None = None) 
     ``FLOAT32_LEAVES`` stay float32, so the result has the leaf dtypes of
     ``Model(cfg, param_dtype=dtype).init``."""
     return _to_tensors(tree, default_device(device), dtype, None)
+
+
+def opt_state_from_numpy(m: Any, v: Any, step, device=None) -> OptState:
+    """The port's ``OptState`` from the JAX package's moments ``m`` and
+    ``v`` (trees of numpy arrays, float32) and ``step``: the moments as
+    tensors on ``device`` (the card unless ``device="cpu"``), the step a 0-d
+    int32 tensor there."""
+    device = default_device(device)
+    return OptState(m=_to_tensors(m, device, None, None), v=_to_tensors(v, device, None, None),
+                    step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device))
 
 
 def _to_tensors(tree: Any, device: torch.device, dtype: torch.dtype | None, key) -> Any:

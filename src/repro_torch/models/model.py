@@ -12,9 +12,9 @@ each followed by one application of a shared attention block) and the
 encoder-decoder ``audio`` family (whisper-small: a bidirectional encoder over
 post-conv frames, learned positions, and a decoder whose blocks
 cross-attend to the encoded memory):
-``init``, ``forward``, ``prefill``, ``decode_step`` and ``init_cache`` with
-the JAX package's signatures and parameter/cache layouts, so the two can be
-held against each other on the same weights.
+``init``, ``forward``, ``loss``, ``prefill``, ``decode_step`` and
+``init_cache`` with the JAX package's signatures and parameter/cache
+layouts, so the two can be held against each other on the same weights.
 Parameters are a nested dict of tensors whose per-layer entries are stacked
 along a leading layer axis, as in the JAX value tree; the layers run in a
 Python loop over that axis.
@@ -22,7 +22,7 @@ Python loop over that axis.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -30,22 +30,29 @@ from .. import default_device
 from .attention import _positions
 from .layers import apply_norm, embed_tokens, init_embedding, init_norm, normal_param, unembed
 from .mamba import MambaState, init_mamba, init_mamba_state, mamba_decode, mamba_forward
-from .transformer import _index, block_forward, init_block, layer_meta, run_stack
+from .transformer import _index, block_forward, init_block, layer_meta, remat_call, run_stack
 
 FAMILIES = ("ssm", "dense", "vlm", "moe", "hybrid", "audio")  # vlm: a dense backbone
 
 
-def build_model(cfg, param_dtype=torch.float32, device=None) -> "Model":
-    return Model(cfg, param_dtype, device)
+def build_model(cfg, param_dtype=torch.float32, device=None, remat: bool = True) -> "Model":
+    return Model(cfg, param_dtype, device, remat)
 
 
 class Model:
-    def __init__(self, cfg, param_dtype=torch.float32, device=None):
+    """``remat`` (on by default, as in the JAX package) runs each layer body
+    of a train-mode forward under autograd through ``torch.utils.checkpoint``
+    (``transformer.remat_call``): the backward pass recomputes the layer's
+    activations, so only each layer's input is kept; the gradients are the
+    same either way."""
+
+    def __init__(self, cfg, param_dtype=torch.float32, device=None, remat: bool = True):
         if cfg.family not in FAMILIES:
             raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         self.cfg = cfg
         self.dtype = param_dtype
         self.device = default_device(device)
+        self.remat = remat
 
     # ================================================================ init
     def init(self, generator: torch.Generator, max_seq: int = 4096) -> Dict[str, Any]:
@@ -117,9 +124,9 @@ class Model:
         is the MoE load-balancing loss summed over the layers (a float32 0-d
         tensor, zero for the families without MoE); with ``mtp_depth`` and
         ``mode="train"`` it is (that loss, the MTP head's hidden states (B,
-        S, d)), as in the JAX package (the MTP loss is ROADMAP Queue 1 item
-        8).  A vlm batch may carry ``patches`` (B, n_img, d): they replace the
-        first ``n_img`` token embeddings.  An encoder-decoder batch carries
+        S, d)), as in the JAX package, which ``loss`` reads.  A vlm batch may
+        carry ``patches`` (B, n_img, d): they replace the first ``n_img``
+        token embeddings.  An encoder-decoder batch carries
         ``frames`` (B, T, d) too (``_forward_encdec``)."""
         cfg = self.cfg
         if cfg.enc_dec:
@@ -175,14 +182,14 @@ class Model:
         enc_pos = torch.arange(T, device=memory.device).expand(B, T)
         w, t = layer_meta(cfg, cfg.n_encoder_layers)
         memory, _, _ = run_stack(params["encoder"], memory, cfg, enc_pos, w, t, "train",
-                                 causal=False)
+                                 causal=False, remat=self.remat)
         memory = apply_norm(params["enc_norm"], memory, cfg)
         x = embed_tokens(params["embed"], tokens, cfg, dt)
         x = x + params["dec_pos"][:S].to(x.dtype)
         dec_pos = torch.arange(S, device=x.device).expand(B, S)
         w, t = layer_meta(cfg)
         x, c, _ = run_stack(params["stack"], x, cfg, dec_pos, w, t, mode,
-                            kv_memory=(memory, enc_pos))
+                            kv_memory=(memory, enc_pos), remat=self.remat)
         logits = unembed(params["embed"], apply_norm(params["final_norm"], x, cfg), cfg)
         caches = None
         if mode == "prefill":
@@ -204,7 +211,8 @@ class Model:
         for name, key, n in parts:
             w, t = layer_meta(cfg, n)
             x, out[key], a = run_stack(params[name], x, cfg, positions, w, t, mode,
-                                       caches[key] if caches else None, cache_index)
+                                       caches[key] if caches else None, cache_index,
+                                       remat=self.remat)
             aux = aux + a
         return x, aux, (out if mode in ("prefill", "decode") else None)
 
@@ -214,6 +222,10 @@ class Model:
         convs, ssms = [], []
         for i in range(cfg.n_layers):
             p_l = _index(layers, i)
+            if mode == "train":
+                x = remat_call(self.remat, lambda x, p_l=p_l: x + mamba_forward(
+                    p_l["mamba"], apply_norm(p_l["ln"], x, cfg), cfg)[0], x)
+                continue
             hn = apply_norm(p_l["ln"], x, cfg)
             if mode == "decode":
                 st = MambaState(states["layers"].conv[i], states["layers"].ssm[i])
@@ -232,34 +244,29 @@ class Model:
     def _run_hybrid(self, params, x, x_emb, positions, mode, cache_index=None, caches=None):
         """Zamba2: for each group, ``every`` Mamba2 layers, then shared block
         ``g % n_shared_blocks`` applied to ``[hidden, x_emb] @ proj`` and its
-        delta added to the hidden state.  Returns (x, caches in prefill and
-        decode, else None): ``mamba`` states stacked (n_groups, every, B,
-        ...), new tensors, and ``shared_kv``, one (k, v) cache per group
-        application (n_groups, B, S, KH, hd), written in place in decode."""
+        delta added to the hidden state (``_hybrid_group``; in train mode
+        through ``remat_call``).  Returns (x, caches in prefill and decode,
+        else None): ``mamba`` states stacked (n_groups, every, B, ...), new
+        tensors, and ``shared_kv``, one (k, v) cache per group application
+        (n_groups, B, S, KH, hd), written in place in decode."""
         cfg = self.cfg
         h = cfg.hybrid
         convs, ssms, ks, vs = [], [], [], []
         for g in range(cfg.n_layers // h.every):
             pg = _index(params["mamba_groups"], g)
-            for e in range(h.every):
-                p_l = _index(pg, e)
-                hn = apply_norm(p_l["ln"], x, cfg)
-                if mode == "decode":
-                    st = MambaState(caches["mamba"].conv[g, e], caches["mamba"].ssm[g, e])
-                    y, new_st = mamba_decode(p_l["mamba"], hn, cfg, st)
-                else:
-                    y, new_st = mamba_forward(p_l["mamba"], hn, cfg)
-                x = x + y
-                convs.append(new_st.conv)
-                ssms.append(new_st.ssm)
             sb = _index(params["shared_blocks"], g % h.n_shared_blocks)
-            inp = torch.cat([x, x_emb], dim=-1) if h.concat_embedding else x
-            hb = inp @ sb["proj"]
-            kv = (caches["shared_kv"][0][g], caches["shared_kv"][1][g]) if mode == "decode" \
-                else None
-            yb, kv, _ = block_forward(sb["block"], hb, cfg, positions, mode=mode, cache=kv,
-                                      cache_index=cache_index)
-            x = x + (yb - hb)  # the block returns hb + delta; add only the delta
+            if mode == "train":
+                x = remat_call(self.remat, lambda x, pg=pg, sb=sb: self._hybrid_group(
+                    pg, sb, x, x_emb, positions, mode)[0], x)
+                continue
+            states = kv = None
+            if mode == "decode":
+                states = MambaState(caches["mamba"].conv[g], caches["mamba"].ssm[g])
+                kv = (caches["shared_kv"][0][g], caches["shared_kv"][1][g])
+            x, new_states, kv = self._hybrid_group(pg, sb, x, x_emb, positions, mode,
+                                                   cache_index, states, kv)
+            convs += [st.conv for st in new_states]
+            ssms += [st.ssm for st in new_states]
             if mode == "prefill":
                 ks.append(kv[0])
                 vs.append(kv[1])
@@ -269,6 +276,69 @@ class Model:
         mamba = MambaState(*(torch.stack(t).reshape(shape + t[0].shape) for t in (convs, ssms)))
         kv = caches["shared_kv"] if mode == "decode" else (torch.stack(ks), torch.stack(vs))
         return x, {"mamba": mamba, "shared_kv": kv}
+
+    def _hybrid_group(self, pg, sb, x, x_emb, positions, mode, cache_index=None, states=None,
+                      kv=None):
+        """One zamba2 group: (x, the Mamba2 layers' new states, the shared
+        block's (k, v)); in decode ``states`` (every, B, ...) and ``kv`` are
+        the group's caches."""
+        cfg = self.cfg
+        new_states = []
+        for e in range(cfg.hybrid.every):
+            p_l = _index(pg, e)
+            hn = apply_norm(p_l["ln"], x, cfg)
+            if mode == "decode":
+                y, st = mamba_decode(p_l["mamba"], hn, cfg,
+                                     MambaState(states.conv[e], states.ssm[e]))
+            else:
+                y, st = mamba_forward(p_l["mamba"], hn, cfg)
+            x = x + y
+            new_states.append(st)
+        inp = torch.cat([x, x_emb], dim=-1) if cfg.hybrid.concat_embedding else x
+        hb = inp @ sb["proj"]
+        yb, kv, _ = block_forward(sb["block"], hb, cfg, positions, mode=mode, cache=kv,
+                                  cache_index=cache_index)
+        return x + (yb - hb), new_states, kv  # the block returns hb + delta; add only the delta
+
+    # ================================================================ loss
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The JAX package's training loss: next-token cross-entropy over
+        ``forward("train")``'s logits (the last position, and a vlm batch's
+        image positions but the last, carry no loss), plus
+        ``router_aux_weight * moe_aux / n_layers`` for a MoE model and ``0.1
+        * mtp_ce`` (tokens two ahead) with ``mtp_depth``.  Returns (total,
+        metrics: ``ce``, ``moe_aux`` and ``mtp_ce`` where they apply,
+        ``loss``), 0-d float32 tensors in the autograd graph."""
+        cfg = self.cfg
+        logits, aux, _ = self.forward(params, batch, mode="train")
+        tokens = batch["tokens"].long()
+        labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+        mask[:, -1] = 0.0
+        if cfg.family == "vlm" and "patches" in batch:
+            mask[:, : batch["patches"].shape[1] - 1] = 0.0  # no loss on image positions
+        ce = _xent(logits, labels, mask)
+        metrics = {"ce": ce}
+        total = ce
+        if cfg.moe is not None:
+            moe_aux = aux[0] if isinstance(aux, tuple) else aux
+            total = total + cfg.moe.router_aux_weight * moe_aux / max(cfg.n_layers, 1)
+            metrics["moe_aux"] = moe_aux
+        if cfg.mtp_depth and isinstance(aux, tuple):
+            mtp_ce = self._mtp_loss(params, aux[1], tokens)
+            total = total + 0.1 * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        metrics["loss"] = total
+        return total, metrics
+
+    def _mtp_loss(self, params, h_mtp, tokens):
+        """Cross-entropy of the MTP head's logits against the tokens two
+        ahead; the last two positions carry no loss."""
+        logits = unembed(params["embed"], h_mtp, self.cfg)
+        labels = torch.cat([tokens[:, 2:], tokens[:, -1:], tokens[:, -1:]], dim=1)
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+        mask[:, -2:] = 0.0
+        return _xent(logits, labels, mask)
 
     # ============================================================ serving
     def prefill(self, params, batch):
@@ -352,6 +422,15 @@ class Model:
         if cfg.enc_dec:
             return 2 * cfg.n_layers
         return cfg.n_layers // cfg.hybrid.every if cfg.family == "hybrid" else cfg.n_layers
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean cross-entropy in float32: (logsumexp - gold logit) over
+    the positions where ``mask`` is 1, divided by their count (at least 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    return ((lse - gold) * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 def _stack(trees):

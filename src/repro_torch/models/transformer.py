@@ -10,7 +10,9 @@ global layer), so each layer passes its own window and rope theta.  A block
 of a MoE stack has ``moe`` (``models/moe.py``) in place of ``mlp``, and its
 load-balancing aux is summed over the stack.  A block of whisper's decoder
 has ``ln_cross`` and ``cross``: cross-attention over the encoded memory
-after its self-attention, in every mode.
+after its self-attention, in every mode.  With ``remat`` a stack's blocks run
+in train mode through ``torch.utils.checkpoint`` (``remat_call``), the
+counterpart of the JAX package's ``jax.checkpoint`` around its scan body.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (GLOBAL_WINDOW, attn_decode, attn_forward, init_attention, init_mla,
                         mla_decode, mla_forward)
@@ -107,20 +110,40 @@ def _scaled(t: torch.Tensor, s: float) -> torch.Tensor:
     return t * s if s != 1.0 else t
 
 
+def remat_call(enabled: bool, fn, *args):
+    """``fn(*args)``; with ``enabled`` and grad mode on, through
+    ``torch.utils.checkpoint`` (non-reentrant): the backward pass recomputes
+    ``fn``'s activations instead of keeping them, with the same gradients."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def run_stack(stack: Dict, x: torch.Tensor, cfg, positions: Optional[torch.Tensor],
               windows: List[int], thetas: List[float], mode: str = "train", caches=None,
-              cache_index=None, kv_memory=None, causal: bool = True):
+              cache_index=None, kv_memory=None, causal: bool = True, remat: bool = False):
     """Run the layers of a stacked parameter tree in order.  Returns (x,
     caches, aux): in prefill the layers' (k, v) stacked to (L,B,S,KH,hd)
     each (MLA: (c_kv, k_rope) to (L,B,S,kv_lora) and (L,B,S,rope)); in
     decode ``caches`` itself, written in place; else None.  aux is the sum
     of the blocks' MoE aux (0.0 for a stack without MoE).  ``kv_memory``
-    and ``causal`` go to every block (``block_forward``)."""
+    and ``causal`` go to every block (``block_forward``).  With ``remat``
+    each block runs in train mode through ``remat_call``."""
     ks, vs = [], []
     aux = 0.0
+    layers = _unstack(stack, len(windows))
     for i, (w, th) in enumerate(zip(windows, thetas)):
+        if mode == "train":
+            def body(x, p=layers[i], w=w, th=th):
+                y, _, a = block_forward(p, x, cfg, positions, w, th, mode, kv_memory=kv_memory,
+                                        causal=causal)
+                return y, a
+
+            x, a = remat_call(remat, body, x)
+            aux = aux + a
+            continue
         c_l = (caches[0][i], caches[1][i]) if mode == "decode" else None
-        x, new_c, a = block_forward(_index(stack, i), x, cfg, positions, w, th, mode, c_l,
+        x, new_c, a = block_forward(layers[i], x, cfg, positions, w, th, mode, c_l,
                                     cache_index, kv_memory, causal)
         aux = aux + a
         if mode == "prefill":
@@ -129,6 +152,18 @@ def run_stack(stack: Dict, x: torch.Tensor, cfg, positions: Optional[torch.Tenso
     if mode == "prefill":
         return x, (torch.stack(ks), torch.stack(vs)), aux
     return x, (caches if mode == "decode" else None), aux
+
+
+def _unstack(tree, n: int) -> List[Dict]:
+    """The ``n`` per-layer trees of a stacked parameter tree, from one
+    ``torch.unbind`` of each leaf: views, as ``_index`` gives, but under
+    autograd the layers' gradients go back into a stacked leaf in one
+    ``stack``, where indexing it layer by layer writes a whole zero leaf and
+    adds it into the gradient once a layer."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree)[:n])
 
 
 def _index(tree, i: int):

@@ -218,8 +218,9 @@ def test_attn_decode_matches_jax(cache_index, window):
 
 
 def test_softcap_runs_the_plain_path_on_cpu():
-    """A logit softcap is not in the kernels; on the CPU ``sdpa`` takes it
-    and matches the JAX package."""
+    """A logit softcap: on the CPU the attention kernels' plain versions
+    apply it and match the JAX package (the kernels on the card are held to
+    them in ``test_torch_gpu.py``)."""
     jcfg = _cfg(jax_get_config, attn_logit_softcap=0.5)
     tcfg = _cfg(get_config, attn_logit_softcap=0.5)
     p = _params(jcfg, seed=2)

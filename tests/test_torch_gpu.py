@@ -250,6 +250,8 @@ def test_each_wrapper_call_counts_one_launch(cuda):
     calls = {
         "ssd_scan": lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=128),
         "flash_attention": lambda: ops.flash_attention(q, k, v),
+        "flash_attention_bwd": lambda: ops.flash_attention_bwd(
+            q, k, v, q, torch.zeros((1, 2, 64), device=cuda), v),
         "decode_attention": lambda: ops.decode_attention(q[:, 0], k, v, 40),
         "decode_attention_latent": lambda: ops.decode_attention_latent(
             *_latent_inputs(1, 64, 16, torch.float32, torch.float32, 2, cuda), 40, 0.1),
@@ -444,9 +446,13 @@ def test_dense_model_on_card_matches_cpu(cuda):
     for a, b in zip(kv_c["stack"], kv["stack"]):
         torch.testing.assert_close(a.cpu(), b, **TOL)
     assert ops.LAUNCHES["decode_attention"] == 4 * cfg.n_layers
-    with pytest.raises(NotImplementedError):  # no softcap in the kernels
-        Model(dataclasses.replace(cfg, attn_logit_softcap=50.0), device=cuda).prefill(
-            params_card, {"tokens": tokens.to(cuda)})
+    # a logit softcap goes through both kernels too
+    capped = dataclasses.replace(cfg, attn_logit_softcap=50.0)
+    ops.reset_launches()
+    _, lc = Model(capped, device=cuda).prefill(params_card, {"tokens": tokens.to(cuda)})
+    _, lp = Model(capped, device="cpu").prefill(params, {"tokens": tokens})
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(lc.cpu(), lp, **TOL)
 
 
 def _tree_to(tree, device):
@@ -1233,3 +1239,154 @@ def test_whisper_batcher_on_card_matches_cpu(cuda):
             assert by_shape == {24: cfg.n_layers * b.steps, 1500: cfg.n_layers * b.steps}
     assert outs[0] == outs[1]
     torch.testing.assert_close(logits[1], logits[0], **TOL)
+
+
+# ------------------------------------------------------------ training
+BWD_SHAPES = [
+    (1, 128, 4, 4, 64, True, None, None),
+    (2, 256, 8, 2, 64, True, None, None),     # GQA 4:1
+    (1, 300, 4, 1, 128, True, 64, None),      # ragged, GQA, window
+    (2, 130, 4, 4, 32, False, None, None),    # bidirectional
+    (1, 200, 4, 2, 80, True, None, None),
+    (1, 100, 4, 4, 16, False, 40, None),      # bidirectional window
+    (1, 257, 4, 2, 256, True, None, None),
+    (2, 64, 4, 4, 64, False, None, 300),      # keys of another length (cross-attention)
+    (1, 1024, 36, 36, 64, True, None, None),  # minicpm-2b width
+]
+
+
+def _bwd_inputs(B, S, H, KH, hd, Sk, dtype, seed, cuda):
+    Sk = Sk or S
+    return _attn_inputs([(B, S, H, hd), (B, Sk, KH, hd), (B, Sk, KH, hd), (B, S, H, hd)], dtype,
+                        seed, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KH,hd,causal,window,Sk", BWD_SHAPES)
+def test_flash_bwd_kernel_matches_plain(cuda, B, S, H, KH, hd, causal, window, Sk, dtype):
+    """The forward kernel's LSE and the backward kernel's dq, dk, dv against
+    ``flash_attention_lse_ref`` and ``flash_attention_bwd_ref`` on the same
+    out and lse; two runs bit for bit (no atomics)."""
+    q, k, v, do = _bwd_inputs(B, S, H, KH, hd, Sk, dtype, S + hd, cuda)
+    out, lse = ops._flash_forward(q, k, v, causal, window, None, want_lse=True)
+    torch.testing.assert_close(lse, ref.flash_attention_lse_ref(q, k, causal, window),
+                               atol=2e-5, rtol=2e-5)
+    ops.reset_launches()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == 2
+    tol = TOL_ATTN[torch.float32] if dtype == torch.float32 else dict(atol=5e-2, rtol=5e-2)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape and torch.equal(g, a)
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48), (False, None)])
+def test_softcap_kernels_match_plain(cuda, causal, window, dtype):
+    """cap = 50: the forward, its LSE, the backward and ``decode_attention``
+    against their plain versions."""
+    cap = 50.0
+    q, k, v, do = _bwd_inputs(1, 200, 4, 2, 64, None, dtype, 5, cuda)
+    q = q * 8  # logits of ~+-60, where the cap bends them
+    out, lse = ops._flash_forward(q, k, v, causal, window, cap, want_lse=True)
+    tol = TOL_ATTN[dtype]
+    torch.testing.assert_close(out.float(), ref.flash_attention_ref(q, k, v, causal, window, cap)
+                               .float(), **tol)
+    torch.testing.assert_close(lse, ref.flash_attention_lse_ref(q, k, causal, window, cap),
+                               atol=1e-4, rtol=2e-5)
+    for g, w in zip(ops.flash_attention_bwd(q, k, v, out, lse, do, causal, window, cap),
+                    ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window, cap)):
+        torch.testing.assert_close(g.float(), w.float(), **(
+            TOL_ATTN[torch.float32] if dtype == torch.float32 else dict(atol=5e-2, rtol=5e-2)))
+    kc, vc = k.contiguous(), v.contiguous()
+    for valid in (100, torch.tensor([150], device=cuda)):
+        torch.testing.assert_close(
+            ops.decode_attention(q[:, 150], kc, vc, valid, window, cap).float(),
+            ref.decode_attention_ref(q[:, 150], kc, vc, valid, window, cap).float(), **tol)
+
+
+@pytest.mark.parametrize("B,S,H,KH,hd,causal,window,Sk", BWD_SHAPES[:4])
+def test_flash_autograd_matches_plain_autograd(cuda, B, S, H, KH, hd, causal, window, Sk):
+    """``ops.flash_attention`` under autograd on the card (one forward and
+    one backward launch) against ``torch.autograd`` through the plain
+    version; with no gradient wanted, the serving path's launch alone."""
+    q, k, v, do = _bwd_inputs(B, S, H, KH, hd, Sk, torch.float32, 3, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launches()
+    ops.flash_attention(*leaves, causal, window).backward(do)
+    ref.flash_attention_ref(*plain, causal, window).backward(do)
+    assert ops.LAUNCHES["flash_attention"] == 1 and ops.LAUNCHES["flash_attention_bwd"] == 1
+    for a, b in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, b.grad, **TOL_ATTN[torch.float32])
+    ops.reset_launches()
+    with torch.no_grad():
+        ops.flash_attention(*leaves, causal, window)
+    assert ops.LAUNCHES["flash_attention"] == 1 and ops.LAUNCHES["flash_attention_bwd"] == 0
+    assert list(ops.SHAPE_LAUNCHES) == [("flash_attention", *ops.shape_key(q, k, v, causal,
+                                                                            window))]
+
+
+def test_kernels_without_backward_raise_under_autograd(cuda):
+    """No silent gradient: the wrappers with no backward kernel raise on the
+    card under autograd, and run as before without it."""
+    x, dt, A, Bm, Cm = (t.to(cuda) for t in _ssd_inputs(1, 256, 4, 16, 16))
+    q, kc, vc = _attn_inputs([(1, 4, 64), (1, 32, 2, 64), (1, 32, 2, 64)], torch.float32, 0, cuda)
+    lat = _latent_inputs(1, 64, 16, torch.float32, torch.float32, 2, cuda)
+    qs, ks, kv = _attn_inputs([(1, 64, 4, 192), (1, 64, 4, 192), (1, 64, 4, 256)],
+                              torch.float32, 1, cuda)
+    calls = {
+        "ssd_scan": lambda g: ops.ssd_scan(x.requires_grad_(g), dt, A, Bm, Cm, chunk=128),
+        "decode_attention": lambda g: ops.decode_attention(q.requires_grad_(g), kc, vc, 20),
+        "decode_attention_latent": lambda g: ops.decode_attention_latent(
+            lat[0].requires_grad_(g), *lat[1:], 40, 0.1),
+        "flash_attention": lambda g: ops.flash_attention(qs.requires_grad_(g), ks,
+                                                         kv[..., 128:]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call(True)
+        with torch.no_grad():
+            call(True)
+        call(False)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of reduced minicpm-2b (with remat) on the card, its
+    attention through both flash kernels, against the CPU's: the loss, the
+    metrics, every gradient leaf, and the parameters after the step."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.training import OptConfig, init_opt_state, loss_and_grads, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = get_config("minicpm_2b").reduced()
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device=cuda)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    params_card = _tree_to(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 64))
+                              .astype(np.int32))
+    ops.reset_launches()
+    loss_c, _, grads_c = loss_and_grads(card, params_card, {"tokens": tokens.to(cuda)})
+    assert ops.LAUNCHES["flash_attention"] == 2 * cfg.n_layers  # forward and remat recompute
+    assert ops.LAUNCHES["flash_attention_bwd"] == cfg.n_layers
+    loss, _, grads = loss_and_grads(cpu, params, {"tokens": tokens})
+    torch.testing.assert_close(loss_c.cpu(), loss, **TOL)
+    for a, b in zip(tree_leaves(grads_c), tree_leaves(grads)):
+        torch.testing.assert_close(a.cpu(), b, **TOL)
+    opt = OptConfig(lr=1e-3, warmup_steps=0)
+    p_c, _, m_c = make_train_step(card, opt)(params_card, init_opt_state(params_card),
+                                             {"tokens": tokens.to(cuda)})
+    p, _, m = make_train_step(cpu, opt)(copy.deepcopy(params), init_opt_state(params),
+                                        {"tokens": tokens})
+    for key in ("loss", "ce", "grad_norm", "lr"):
+        torch.testing.assert_close(m_c[key].cpu(), m[key], **TOL)
+    # step 1 of AdamW moves each weight by ~lr * sign(g): compare where |g| is not tiny
+    for a, b, g in zip(tree_leaves(p_c), tree_leaves(p), tree_leaves(grads)):
+        big = g.abs() > 1e-3 * g.abs().max()
+        torch.testing.assert_close(a.cpu()[big], b[big], atol=1e-5, rtol=1e-5)

@@ -16,8 +16,8 @@ llava).  Held in float32 to ``atol=1e-4, rtol=1e-3``:
 And ``Model.decode_attention_calls()`` against the decode-kernel calls that
 one decode step makes.
 
-The loss and its gradient (the other half of ``test_models_smoke.py``) wait
-for the port's trainer (ROADMAP Queue 1 item 8).
+The loss and its gradient (the other half of ``test_models_smoke.py``) are
+held against ``jax.value_and_grad`` in ``test_torch_loss.py``.
 """
 
 import jax
