@@ -20,6 +20,13 @@ line):
              chunk=256) in float32 to atol=1e-4, rtol=1e-3 and in bfloat16
              to atol=rtol=5e-2, and with ngroups G=2 in float32, and at
              zamba2-2.7b width (H=80, P=64, N=64) in float32;
+             ``ssd_scan_bwd`` from the forward kernel's scratch at the train
+             shape (B=2, S=1,024) of mamba2-130m and of zamba2-2.7b, each in
+             float32 (atol=1e-4, rtol=1e-3) and bfloat16 (5e-2), and at G=2
+             with an initial state and a final state's gradient, against
+             ``ssd_scan_bwd_ref`` and bit for bit across two runs, timed in
+             CUDA events around back-to-back calls (no library call computes
+             it);
              ``flash_attention`` at minicpm-2b prefill
              (B=1, S=1024, H=KH=36, hd=64, causal) and gemma3-4b width
              (S=2048, H=8, KH=4, hd=256, causal, with and without window
@@ -180,28 +187,39 @@ line):
              and over 1,500 memory rows, and at B=8 over the batcher's
              1,024-row cache (seeded lengths) and 1,500 memory rows.
 
-13. train  — after the whisper model is freed: minicpm-2b at full width
-             (40 layers, d_model 2304, 36 heads of 64, vocab 122,753;
-             2.72 B parameters in float32 from a seeded generator) with
-             ``remat`` and AdamW, on one Markov-LM batch of 2 x 1,024 tokens
-             (``MarkovLM`` seed 0): the gradient through the kernels against
-             the plain path's (``ref.flash_attention_ref`` under autograd) on
-             the same weights, every leaf within a relative L2 of 1e-3; one
-             AdamW step from each (the loss and grad_norm within 1e-4, the
-             loss after the step within 1e-3); then the main path, 8 steps
-             on that batch (lr 5e-4, WSD, no warmup), the loss falling, with
-             exactly 80 ``flash_attention`` (forward and remat recompute)
-             and 40 ``flash_attention_bwd`` launches a step at one shape each;
-             ms a step, tokens/s, peak device memory, and one step traced
-             (busy and idle share).  Phase 2 also holds the forward with its
-             LSE and ``flash_attention_bwd`` at that shape (B=2, S=1,024,
-             causal; float32, and bfloat16) against their plain versions,
-             two backward runs bit for bit, each timed with SDPA (its
-             backward) beside, and the logit softcap (50) in the forward,
-             the backward and ``decode_attention``.
+13. train  — after the whisper model is freed, three models at full
+             width in float32, each freed before the next, with ``remat``
+             and AdamW on one Markov-LM batch of 2 x 1,024 tokens
+             (``MarkovLM`` seed 0; lr 5e-4, the model's schedule, no
+             warmup), weights from a seeded generator: minicpm-2b (40
+             layers, d_model 2304, 36 heads of 64, vocab 122,753; 2.72 B
+             parameters), mamba2-130m whole (24 layers, d_model 768, vocab
+             50,280) and zamba2-2.7b whole (54 Mamba2 layers, 2 shared
+             blocks of 32 heads x 80 applied 9 times, vocab 32,000; 2.47 B
+             parameters).  For each: the gradient through the kernels
+             against the plain path's (every kernel the model reaches under
+             autograd as its plain version: ``ref.flash_attention_ref``, and
+             ``ssd_chunked`` for ``ssd_scan``) on the same weights, every
+             leaf within a relative L2 of 1e-3; one AdamW step from each
+             (the loss and grad_norm within 1e-4, the loss after the step
+             within 1e-3); then the main path (``train``, ``train_mamba``,
+             ``train_zamba``), 8 steps on that batch, the loss falling, with
+             each layer's forward kernel launched twice a step (forward and
+             remat recompute) and its backward once, at one shape each:
+             minicpm-2b 80 ``flash_attention`` and 40 ``flash_attention_bwd``;
+             mamba2-130m 48 ``ssd_scan`` and 24 ``ssd_scan_bwd``; zamba2 108
+             and 54, and 18 and 9; ms a step, tokens/s, peak device memory,
+             and one step traced (busy and idle share).  Phase 2 also holds
+             the forward with its LSE and ``flash_attention_bwd`` at
+             minicpm-2b's shape (B=2, S=1,024, causal; float32, and
+             bfloat16) and the backward at zamba2's (32 heads of 80,
+             float32) against their plain versions, two backward runs bit
+             for bit, each timed with SDPA (its backward) beside, and the
+             logit softcap (50) in the forward, the backward and
+             ``decode_attention``.
 
 The launch counters are set to 0 just before each main path (phases 3, 4,
-5, 8, 9, 10, 13 and the parts of 11 and 12) and read just after: the wrappers' own launches plus, for each
+5, 8, 9, 10, the three of 13 and the parts of 11 and 12) and read just after: the wrappers' own launches plus, for each
 replay of a captured step, the launches recorded when it was captured
 (``serving/captured.py``); launches made in phase 2 do not count.  Before the last line it prints one
 JSON line ``{"kernels": [...]}``, and the last line is
@@ -217,10 +235,11 @@ trees on one card, copy this script into a checkout of the other tree (a
 ``git archive`` unpacked under ``build/``) and run it there and here, in
 turns, with ``--sched-only``.
 
-In the ``{"kernels": [...]}`` line the ``ssd_scan``, ``flash_attention``,
-``flash_attention_bwd`` and ``decode_attention`` rows carry ``shapes``: the same numbers at the
-hybrid, moe, mla and whisper paths' shapes, each with the launches of its
-own path (``decode_attention``'s ``batch`` holds the llava-width rows, its
+In the ``{"kernels": [...]}`` line the ``ssd_scan``, ``ssd_scan_bwd``,
+``flash_attention``, ``flash_attention_bwd`` and ``decode_attention`` rows
+carry ``shapes``: the same numbers at the hybrid, moe, mla, whisper and
+train paths' shapes (``ssd_scan_bwd``'s main row is mamba2-130m's train
+shape, ``zamba2`` zamba2-2.7b's), each with the launches of its own path (``decode_attention``'s ``batch`` holds the llava-width rows, its
 ``mla_b1`` and ``mla_b8`` the latent entry's, counted under
 ``decode_attention_latent``).  A ``batch`` or ``whisper_*`` row's launches
 are those the wrappers counted at its own shape (``ops.SHAPE_LAUNCHES``,
@@ -240,6 +259,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import ExitStack, contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -420,13 +440,13 @@ def sched_stream(np, n, F, W, seed):
     return np.stack([kinds, funcs, workers], 1).astype(np.int32)
 
 
-def ssd_inputs(torch, B, S, H=24, P=64, N=128, seed=0):
+def ssd_inputs(torch, B, S, H=24, P=64, N=128, seed=0, G=1):
     g = torch.Generator(device="cpu").manual_seed(seed)
     x = torch.randn(B, S, H, P, generator=g) * 0.5
     dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g))
     A = -torch.exp(torch.randn(H, generator=g) * 0.3)
-    Bm = torch.randn(B, S, 1, N, generator=g) * 0.3
-    Cm = torch.randn(B, S, 1, N, generator=g) * 0.3
+    Bm = torch.randn(B, S, G, N, generator=g) * 0.3
+    Cm = torch.randn(B, S, G, N, generator=g) * 0.3
     return [t.to(DEVICE) for t in (x, dt, A, Bm, Cm)]
 
 
@@ -439,6 +459,25 @@ def ssd_counts(B, S, H, P, N, Q, elem):
     ops = B * nc * (2 * tri * N + H * (2 * tri * P + 4 * Q * N * P))
     nbytes = (2 * B * S * H * P * elem + 2 * B * S * N * elem + B * S * H * 4 + H * 4
               + B * H * P * N * 4)
+    return nbytes, ops
+
+
+def ssd_bwd_counts(B, S, H, P, N, G, Q, elem, d_final=False):
+    """The gradient's least work, counted once: x, dy, B, C, dt, A read with
+    the forward's scratch the backward starts from (the chunk cumsums, the
+    states entering the chunks, C.B^T on and below the diagonal) and
+    d_final_state where given; dx, dB, dC, ddt, dA and d_init_state written.
+    Operations, per chunk: each head's dh = exp(cs) dy^T C, its carried dC
+    = exp(cs) dy h, G B^T (dx's state term and dw), dB's state term w x^T G
+    (each Q P N), D = dy x^T and dx's quadratic term (each Q(Q+1)/2 P); each
+    group's dC and dB from dCB (each Q(Q+1)/2 N); two operations each."""
+    Sp = -(-S // Q) * Q
+    nc = Sp // Q
+    tri = Q * (Q + 1) // 2
+    ops = 2 * B * nc * (H * (4 * Q * P * N + 2 * tri * P) + G * 2 * tri * N)
+    nbytes = (3 * B * Sp * H * P * elem + 4 * B * Sp * G * N * elem + 2 * B * Sp * H * 4
+              + 2 * H * 4 + B * nc * H * (Q + N * P) * 4 + B * nc * G * tri * 4
+              + (2 if d_final else 1) * B * H * P * N * 4)
     return nbytes, ops
 
 
@@ -617,14 +656,36 @@ def phase_kernels(torch, np, build, ops, ref, rows):
     log(f"[kernels] ssd_scan B=1 S=1024 H={H} P={P} N={N} Q={Q}: {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nops / 1e9:.3f} GFLOP, "
         f"{nbytes / 1e6:.2f} MB)")
-    rows["ssd_scan"]["shapes"] = {"zamba2": ssd_row(torch, ops, ref, 80, 64, 64, Q, "zamba2-2.7b")}
+    # zamba2-2.7b's width as served, and both widths at the train paths'
+    # shape (B=2, S=1,024): their forward and remat recompute
+    zamba = (80, 64, 64, Q)
+    rows["ssd_scan"]["shapes"] = {
+        "zamba2": ssd_row(torch, ops, ref, 1, *zamba, "zamba2-2.7b"),
+        "train_mamba": ssd_row(torch, ops, ref, TRAIN_BATCH, H, P, N, Q, "mamba2-130m train"),
+        "train_zamba": ssd_row(torch, ops, ref, TRAIN_BATCH, *zamba, "zamba2-2.7b train")}
+
+    # its gradient at the train phase's shape (B=2, S=1,024), mamba2-130m and
+    # zamba2-2.7b width, float32 and bfloat16, and G=2 with both states
+    f32, bf16 = torch.float32, torch.bfloat16
+    mamba, zamba = (TRAIN_BATCH, TRAIN_SEQ, H, P, N, Q), (TRAIN_BATCH, TRAIN_SEQ, 80, 64, 64, Q)
+    rows["ssd_scan_bwd"] = dict(
+        name="ssd_scan_bwd", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        # no TPU kernel: the JAX package differentiates ssd_chunked by autodiff
+        replaces="src/repro/models/mamba.py:80",
+        **ssd_bwd_row(torch, ops, ref, "mamba2-130m train", mamba, f32, seed=21),
+        shapes={"bf16": ssd_bwd_row(torch, ops, ref, "mamba2-130m train", mamba, bf16, seed=21),
+                "g2": ssd_bwd_row(torch, ops, ref, "mamba2-130m train", mamba, f32, G=2, seed=22,
+                                  state=True),
+                "zamba2": ssd_bwd_row(torch, ops, ref, "zamba2-2.7b train", zamba, f32, seed=23),
+                "zamba2_bf16": ssd_bwd_row(torch, ops, ref, "zamba2-2.7b train", zamba, bf16,
+                                           seed=23)})
 
 
-def ssd_row(torch, ops, ref, H, P, N, Q, label):
-    """``ssd_scan`` at B=1, S=1024 and another model's width, float32: against
+def ssd_row(torch, ops, ref, B, H, P, N, Q, label):
+    """``ssd_scan`` at batch B, S=1024 and a model's width, float32: against
     its plain version (atol=1e-4, rtol=1e-3), then times from CUDA graphs as
     the main row's.  Returns the row for the kernels line."""
-    x, dt, A, Bm, Cm = ssd_inputs(torch, 1, 1024, H, P, N, seed=H + N)
+    x, dt, A, Bm, Cm = ssd_inputs(torch, B, 1024, H, P, N, seed=H + N)
     y, st = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
     yr, sr = ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q)
     if not (torch.allclose(y, yr, **TOL_F32) and torch.allclose(st, sr, **TOL_F32)):
@@ -632,10 +693,58 @@ def ssd_row(torch, ops, ref, H, P, N, Q, label):
     err = max(max_abs(y, yr), max_abs(st, sr))
     ms = time_graph(torch, [lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)] * 10)
     plain_ms = time_graph(torch, [lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q)] * 3)
-    nbytes, nops = ssd_counts(1, 1024, H, P, N, Q, 4)
+    nbytes, nops = ssd_counts(B, 1024, H, P, N, Q, 4)
     b_ms, b_by = bound(nbytes, nops)
-    log(f"[kernels] ssd_scan {label} B=1 S=1024 H={H} P={P} N={N} Q={Q} f32: max abs err "
+    log(f"[kernels] ssd_scan {label} B={B} S=1024 H={H} P={P} N={N} Q={Q} f32: max abs err "
         f"{err:.3e} (atol 1e-4, rtol 1e-3); {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def ssd_bwd_row(torch, ops, ref, label, shape, dtype, G=1, seed=0, state=False):
+    """``ssd_scan_bwd`` at ``shape`` (B, S, H, P, N, Q) with G groups in
+    ``dtype`` (x, B, C and dy), from the forward kernel's scratch (its y
+    and final state held against ``ssd_scan_ref`` first), with a seeded dy
+    and, with ``state``, an initial state and a final state's gradient (the
+    train path has neither): every gradient against
+    ``ssd_scan_bwd_ref`` on the same tensors (TOL_BWD in float32, TOL_BF16
+    in bfloat16) and bit for bit across two runs; then its time and the
+    plain version's, each in CUDA events around back-to-back calls, and the
+    bound from ``ssd_bwd_counts`` at the peak for the inputs' type.  No
+    single PyTorch call computes it (library time none).  Returns the row."""
+    B, S, H, P, N, Q = shape
+    x, dt, A, Bm, Cm = ssd_inputs(torch, B, S, H, P, N, seed=seed, G=G)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    dy = torch.randn(B, S, H, P, generator=g).to(DEVICE)
+    h0, dfin = ((torch.randn(B, H, P, N, generator=g).to(DEVICE) for _ in range(2)) if state
+                else (None, None))
+    x, Bm, Cm, dy = (t.to(dtype) for t in (x, Bm, Cm, dy))
+    y, st, saved = ops._ssd_forward(x, dt, A, Bm, Cm, Q, h0, keep=True)
+    yr, sr = ref.ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float(), Q, h0)
+    y_tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+    y_err = max(max_abs(y, yr), max_abs(st, sr))
+    if not (torch.allclose(y.float(), yr, **y_tol) and torch.allclose(st, sr, **y_tol)):
+        fail(f"ssd_scan {label}, its scratch kept: max abs err {y_err:.3e} ({y_tol})")
+    args = (x, dt, A, Bm, Cm, Q, h0, dy, dfin)
+    got, again = ops.ssd_scan_bwd(*args, saved), ops.ssd_scan_bwd(*args, saved)
+    want = ref.ssd_scan_bwd_ref(x.float(), dt, A, Bm.float(), Cm.float(), Q, h0, dy.float(), dfin)
+    tol = TOL_BWD if dtype == torch.float32 else TOL_BF16
+    err = 0.0
+    for name, a, b, w, t in zip(("dx", "ddt", "dA", "dB", "dC", "d_init_state"), got, again,
+                                want, (x, dt, A, Bm, Cm, dt)):
+        if not torch.equal(a, b):
+            fail(f"ssd_scan_bwd {label}: {name} differs between two runs")
+        if a.dtype != t.dtype or not torch.allclose(a.float(), w, **tol):
+            fail(f"ssd_scan_bwd {label}: {name} max abs err {max_abs(a, w):.3e} ({tol})")
+        err = max(err, max_abs(a, w))
+    ms = time_cuda(torch, lambda: ops.ssd_scan_bwd(*args, saved), 5, calls=10)
+    plain_ms = time_cuda(torch, lambda: ref.ssd_scan_bwd_ref(*args), 3, calls=3)
+    nbytes, nops = ssd_bwd_counts(B, S, H, P, N, G, Q, x.element_size(), dfin is not None)
+    b_ms, b_by = bound(nbytes, nops, peak_ops(torch, dtype))
+    log(f"[kernels] ssd_scan_bwd {label} B={B} S={S} H={H} P={P} N={N} G={G} Q={Q} "
+        f"{str(dtype)[6:]}{' init and final state' if state else ''}: max abs err {err:.3e} "
+        f"({tol}; two runs bit for bit; the forward's y and state {y_err:.3e}); {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}: {nops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
@@ -789,17 +898,21 @@ def phase_attention(torch, np, ops, ref, rows):
         mla_b8=latent_row(torch, ops, ref, "deepseek-v3 batch", BATCH_SLOTS, BATCH_MAX_LEN,
                           lengths, torch.bfloat16, torch.bfloat16, 70))
     # training at minicpm-2b's width: the forward with its LSE written, and
-    # the backward, in float32 (the train phase's) and in bfloat16
-    shape = (TRAIN_BATCH, TRAIN_SEQ, 36, 36, 64)
+    # the backward, in float32 (the train phase's) and in bfloat16; and the
+    # forward and backward at zamba2-2.7b's shared blocks (hd 80)
+    shape, zamba = (TRAIN_BATCH, TRAIN_SEQ, 36, 36, 64), (TRAIN_BATCH, TRAIN_SEQ, 32, 32, 80)
     rows["flash_attention"]["shapes"]["train"] = flash_lse_row(
         torch, ops, ref, "minicpm-2b train", shape, f32)
+    rows["flash_attention"]["shapes"]["train_zamba"] = flash_lse_row(
+        torch, ops, ref, "zamba2-2.7b train", zamba, f32)
     rows["flash_attention_bwd"] = dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         # no TPU kernel: the JAX package differentiates its einsum attention
         replaces="src/repro/models/attention.py:84",
         **flash_bwd_row(torch, ops, ref, "minicpm-2b train", shape, f32),
-        shapes={"bf16": flash_bwd_row(torch, ops, ref, "minicpm-2b train", shape, bf16)})
+        shapes={"bf16": flash_bwd_row(torch, ops, ref, "minicpm-2b train", shape, bf16),
+                "zamba2": flash_bwd_row(torch, ops, ref, "zamba2-2.7b train", zamba, f32)})
     softcap_checks(torch, ops, ref)
 
 
@@ -1825,8 +1938,8 @@ def flash_bwd_counts(B, S, H, KH, hd, causal, window, elem, Sk=None):
 
 def flash_bwd_row(torch, ops, ref, label, shape, dtype, causal=True):
     """``flash_attention_bwd`` at ``shape`` (B, S, H, KH, hd) in ``dtype``,
-    from the forward kernel's output and LSE: the LSE against its plain
-    version, the gradients against ``flash_attention_bwd_ref`` (the dtype's
+    from the forward kernel's output and LSE: both against their plain
+    versions, the gradients against ``flash_attention_bwd_ref`` (the dtype's
     tolerance) and bit for bit across two runs; then its time, the plain
     version's and the backward of one ``scaled_dot_product_attention`` call
     (the library yardstick, never called by the port), each in CUDA events
@@ -1840,6 +1953,8 @@ def flash_bwd_row(torch, ops, ref, label, shape, dtype, causal=True):
     lse_err = max_abs(lse, ref.flash_attention_lse_ref(q, k, causal))
     if not torch.allclose(lse, ref.flash_attention_lse_ref(q, k, causal), **TOL_ATTN):
         fail(f"flash_attention's LSE {label}: max abs err {lse_err:.3e}")
+    out_err = check_close(torch, f"flash_attention {label}", out,
+                          ref.flash_attention_ref(q, k, v, causal), dtype)
     got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal)
     again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal)
     want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
@@ -1867,7 +1982,7 @@ def flash_bwd_row(torch, ops, ref, label, shape, dtype, causal=True):
     b_ms, b_by = bound(nbytes, nops, peak_ops(torch, dtype))
     log(f"[kernels] flash_attention_bwd {label} B={B} S={S} H={H} KH={KH} hd={hd} "
         f"{'causal' if causal else 'bidirectional'} {str(dtype)[6:]}: max abs err {err:.3e} "
-        f"(LSE {lse_err:.2e}; two runs bit for bit); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"(out {out_err:.2e}, LSE {lse_err:.2e}; two runs bit for bit); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa backward {lib_ms:.4f} ms (max abs diff {lib_err:.2e}), bound {b_ms:.4f} ms "
         f"({b_by}: {nops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; the kernel does "
         f"{nops * 7 / 5 / 1e9:.3f} GFLOP, {nops * 7 / 5 / ms / 1e9:.1f} TFLOP/s)")
@@ -1938,39 +2053,86 @@ def _named_leaves(tree, prefix=""):
         yield prefix, tree
 
 
-def phase_train(torch, np, ops, ref, cfg, Model, training, data, counted, path_shapes):
-    """The training path: ``cfg`` (minicpm-2b at full width, float32) with
-    ``remat`` and AdamW, on one seeded Markov-LM batch of TRAIN_BATCH x
-    TRAIN_SEQ tokens.  (1) the kernel path's gradient and the plain path's
-    (``ref.flash_attention_ref`` under autograd in place of the kernels) on
-    the same weights, every leaf within TOL_GRAD_REL relative L2; (2) one
-    AdamW step from each, from the same weights and a zero state: the loss
-    and grad_norm the steps report and the loss after them; (3) the main
-    path, counted: TRAIN_STEPS steps on that batch, the loss falling, each
-    attention launch counted by shape; then one step traced.  Returns
-    (losses, ms a step)."""
-    from contextlib import nullcontext
+def plain_ssd(torch, ref, sums="float32"):
+    """``ops.ssd_scan``'s plain version on the card: padded to the chunk,
+    ``ssd_chunked`` (torch operations, so autograd differentiates it), y
+    cut back and in x's dtype, the state in float32.  ``sums``: "float32";
+    "cumsum64", its cumsums summed in float64 and rounded to float32, as the
+    kernel's chunk cumsum is (forward, and the reverse cumsum of its
+    backward); or "float64", the whole scan in float64 (its inputs cast up)."""
+    cumsum = torch.cumsum
 
-    tag = "[train]"
+    def cumsum_f64(t, dim, **kw):
+        return cumsum(t.double(), dim, **kw).to(t.dtype)
+
+    def f(x, dt, A, Bm, Cm, chunk=128, init_state=None):
+        S = x.shape[1]
+        args = pad_to(torch, (x, dt, A, Bm, Cm), S, chunk)
+        if sums == "float64":
+            args = [t.double() for t in args]
+            init_state = None if init_state is None else init_state.double()
+        with swapped(torch, cumsum_f64, "cumsum") if sums == "cumsum64" else nullcontext():
+            y, st = ref.ssd_scan_ref(*args, chunk, init_state)
+        return y[:, :S].to(x.dtype), st.float()
+    return f
+
+
+def worst_leaf(torch, got, want):
+    """The leaf of ``got`` furthest from ``want``'s in relative L2: (name, value)."""
+    return max(((name, float(torch.linalg.vector_norm(a - b)
+                             / torch.linalg.vector_norm(b).clamp(min=1e-30)))
+                for (name, a), (_, b) in zip(_named_leaves(got), _named_leaves(want))),
+               key=lambda t: t[1])
+
+
+def train_kernels(cfg):
+    """The kernels a train step of ``cfg`` reaches, forward and backward."""
+    attn = ("flash_attention", "flash_attention_bwd")
+    ssd = ("ssd_scan", "ssd_scan_bwd")
+    return {"ssm": ssd, "hybrid": ssd + attn}.get(cfg.family, attn)
+
+
+def phase_train(torch, np, ops, ref, cfg, Model, training, data, counted, path_shapes,
+                path="train"):
+    """A training path: ``cfg`` at full width in float32 with ``remat`` and
+    AdamW, on one seeded Markov-LM batch of TRAIN_BATCH x TRAIN_SEQ tokens.
+    (1) the kernel path's gradient and the plain path's (every kernel the
+    model reaches swapped for its plain version under autograd:
+    ``ref.flash_attention_ref``, and ``ssd_chunked`` for ``ssd_scan``) on the
+    same weights, every leaf within TOL_GRAD_REL relative L2; (2) one AdamW
+    step from each, from the same weights and a zero state: the loss and
+    grad_norm the steps report and the loss after them; (3) the main path,
+    counted as ``path``: TRAIN_STEPS steps on that batch, the loss falling,
+    each kernel's launches counted by shape; then one step traced.  Returns
+    (losses, ms a step)."""
+    tag = f"[{path}]"
     model = Model(cfg, device=DEVICE, remat=True)
     params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
     n_params = sum(t.numel() for _, t in _named_leaves(params))
     lm = data.MarkovLM(data.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                        global_batch=TRAIN_BATCH, seed=0))
     batch = data.device_put_batch(lm.batch_at(0), device=DEVICE)
-    plain = lambda: swapped(ops, ref.flash_attention_ref, "flash_attention")  # noqa: E731
-    log(f"{tag} {cfg.name} {cfg.n_layers}L d{cfg.d_model} {cfg.n_heads} heads of "
-        f"{cfg.head_dim_} vocab {cfg.vocab}: {n_params / 1e9:.3f} B parameters in float32, "
-        f"remat; batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens (MarkovLM seed 0)")
+    kernels = train_kernels(cfg)
+
+    @contextmanager
+    def plain(sums="float32"):
+        plain_of = {"flash_attention": ref.flash_attention_ref,
+                    "ssd_scan": plain_ssd(torch, ref, sums)}
+        with ExitStack() as stack:
+            for name in kernels:
+                if name in plain_of:
+                    stack.enter_context(swapped(ops, plain_of[name], name))
+            yield
+
+    log(f"{tag} {cfg.name} {cfg.n_layers}L d{cfg.d_model} vocab {cfg.vocab}: "
+        f"{n_params / 1e9:.3f} B parameters in float32, remat; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens (MarkovLM seed 0); kernels {', '.join(kernels)}")
 
     # (1) gradients: kernel path against plain path, on the card
     loss_k, _, g_k = training.loss_and_grads(model, params, batch)
     with plain():
         loss_p, _, g_p = training.loss_and_grads(model, params, batch)
-    worst = max(((name, float(torch.linalg.vector_norm(a - b)
-                               / torch.linalg.vector_norm(b).clamp(min=1e-30)))
-                  for (name, a), (_, b) in zip(_named_leaves(g_k), _named_leaves(g_p))),
-                key=lambda t: t[1])
+    worst = worst_leaf(torch, g_k, g_p)
     gn_k, gn_p = training.global_norm(g_k), training.global_norm(g_p)
     log(f"{tag} gradient, kernel path vs plain path: loss {float(loss_k):.6f} vs "
         f"{float(loss_p):.6f}, grad_norm {float(gn_k):.6f} vs {float(gn_p):.6f}; worst leaf "
@@ -1978,6 +2140,19 @@ def phase_train(torch, np, ops, ref, cfg, Model, training, data, counted, path_s
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     if worst[1] > TOL_GRAD_REL or not torch.isfinite(gn_k):
         fail(f"train gradient: leaf {worst[0]} relative L2 {worst[1]:.3e} > {TOL_GRAD_REL}")
+    # how much of that gap is the plain scan's float32 rounding: the same
+    # plain path with its cumsums summed as the kernel's, then with the
+    # whole scan in float64
+    for sums, what in (("cumsum64", "its scan's cumsums summed in float64"),
+                       ("float64", "its whole scan in float64")):
+        if "ssd_scan" not in kernels:
+            break
+        with plain(sums):
+            _, _, g_64 = training.loss_and_grads(model, params, batch)
+        k64, p64 = worst_leaf(torch, g_k, g_64), worst_leaf(torch, g_p, g_64)
+        log(f"{tag} the plain path with {what}: worst leaf against the kernel path "
+            f"{k64[0]} {k64[1]:.3e}, against the float32 plain path {p64[0]} {p64[1]:.3e}")
+        del g_64
     del g_k, g_p
     gc.collect()
     torch.cuda.empty_cache()
@@ -2026,7 +2201,7 @@ def phase_train(torch, np, ops, ref, cfg, Model, training, data, counted, path_s
             losses.append(float(m["loss"]))  # waits for the step
             times.append((time.perf_counter() - t0) * 1e3)
 
-    counted("train", ("flash_attention", "flash_attention_bwd"), run)
+    counted(path, kernels, run)
     peak = torch.cuda.max_memory_allocated() / 2**30
     ms = statistics.median(times[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -2040,16 +2215,13 @@ def phase_train(torch, np, ops, ref, cfg, Model, training, data, counted, path_s
         f"{n_ops / ms / 1e9:.1f} TFLOP/s)")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
-    L = cfg.n_layers
-    want = {("flash_attention", *ops.shape_key(*_train_qkv(torch, cfg), True, None)):
-            2 * L * TRAIN_STEPS,
-            ("flash_attention_bwd", *ops.shape_key(*_train_qkv(torch, cfg), True, None)):
-            L * TRAIN_STEPS}
-    if path_shapes["train"] != want:
-        fail(f"train path launched {path_shapes['train']}, not {want} ({2 * L} forward (with "
-             f"the remat recompute) and {L} backward launches a step)")
-    log(f"{tag} launches: flash_attention {2 * L} a step (forward and the remat recompute), "
-        f"flash_attention_bwd {L} a step, at one shape each, as expected")
+    want = train_launches(torch, ops, cfg)
+    if path_shapes[path] != want:
+        fail(f"{path} path launched {path_shapes[path]}, not {want} (each layer's kernels "
+             f"twice a step, forward and the remat recompute, and its backward once)")
+    log(f"{tag} launches a step: " + ", ".join(f"{key[0]} {n // TRAIN_STEPS}"
+                                              for key, n in want.items())
+        + " (forward and the remat recompute, and the backward), at one shape each, as expected")
     # where the peak falls: one more step, its two halves measured apart
     torch.cuda.reset_peak_memory_stats()
     _, _, grads = training.loss_and_grads(model, params, batch)
@@ -2060,8 +2232,37 @@ def phase_train(torch, np, ops, ref, cfg, Model, training, data, counted, path_s
     log(f"{tag} peak device memory in the gradient {peak_grad:.1f} GiB, in the AdamW update "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB (parameters "
         f"{n_params * 4 / 2**30:.1f} GiB, moments twice that)")
-    trace_train_step(torch, lambda: step(params, opt, batch))
+    trace_train_step(torch, lambda: step(params, opt, batch), tag)
     return losses, ms
+
+
+def train_launches(torch, ops, cfg):
+    """The launches TRAIN_STEPS steps of ``cfg`` make, by shape: every
+    attention layer (minicpm-2b's 40; zamba2's shared block at each of its 9
+    applications) and every Mamba2 layer launches its forward kernel twice a
+    step (the forward and the remat recompute) and its backward once."""
+    want = {}
+    if cfg.family in ("ssm", "hybrid"):
+        key = ops.shape_key(*_train_ssd(torch, cfg), cfg.ssm.chunk, None)
+        want[("ssd_scan", *key)] = 2 * cfg.n_layers * TRAIN_STEPS
+        want[("ssd_scan_bwd", *key)] = cfg.n_layers * TRAIN_STEPS
+    if cfg.family != "ssm":
+        n = cfg.n_layers // cfg.hybrid.every if cfg.family == "hybrid" else cfg.n_layers
+        key = ops.shape_key(*_train_qkv(torch, cfg), True, None)
+        want[("flash_attention", *key)] = 2 * n * TRAIN_STEPS
+        want[("flash_attention_bwd", *key)] = n * TRAIN_STEPS
+    return want
+
+
+def _train_ssd(torch, cfg):
+    """Tensors of the shape and dtype of a training step's scan inputs (x,
+    dt, A, B, C; S padded to the chunk), on the meta device."""
+    s = cfg.ssm
+    H, P, N, G = s.nheads(cfg.d_model), s.headdim, s.d_state, s.ngroups
+    Sp = -(-TRAIN_SEQ // s.chunk) * s.chunk
+    shapes = [(TRAIN_BATCH, Sp, H, P), (TRAIN_BATCH, Sp, H), (H,), (TRAIN_BATCH, Sp, G, N),
+              (TRAIN_BATCH, Sp, G, N)]
+    return [torch.empty(sh, device="meta") for sh in shapes]
 
 
 def _train_qkv(torch, cfg):
@@ -2073,7 +2274,7 @@ def _train_qkv(torch, cfg):
             torch.empty(kv, device="meta"))
 
 
-def trace_train_step(torch, fn):
+def trace_train_step(torch, fn, tag="[train]"):
     """One train step under ``torch.profiler``: the device's busy and idle
     share of its wall time, and the device time by kernel."""
     from torch.autograd import DeviceType
@@ -2089,13 +2290,13 @@ def trace_train_step(torch, fn):
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(self_us(e) for e in kern) / 1e3
     if busy_ms == 0:
-        log("[train] traced step: device time not measured (the profiler saw no kernel time)")
+        log(f"{tag} traced step: device time not measured (the profiler saw no kernel time)")
         return
-    log(f"[train] traced step {wall_ms:.1f} ms: device busy {busy_ms:.1f} ms "
+    log(f"{tag} traced step {wall_ms:.1f} ms: device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%, "
         f"{sum(e.count for e in kern)} kernel launches")
     for e in sorted(kern, key=self_us, reverse=True)[:10]:
-        log(f"[train]   {self_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        log(f"{tag}   {self_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
 def _to_cpu(tree):
@@ -2418,11 +2619,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    # training: minicpm-2b at full width in float32, remat and AdamW
-    phase_train(torch, np, ops, ref, full_width(get_config, "minicpm_2b", DENSE_WIDTH), Model,
-                training, train_data, counted, path_shapes)
-    gc.collect()
-    torch.cuda.empty_cache()
+    # training at full width in float32, remat and AdamW: minicpm-2b, then
+    # mamba2-130m whole and zamba2-2.7b whole, each freed before the next
+    for path, name, width in (("train", "minicpm_2b", DENSE_WIDTH),
+                              ("train_mamba", "mamba2_130m", FULL_WIDTH),
+                              ("train_zamba", "zamba2_2p7b", ZAMBA_WIDTH)):
+        phase_train(torch, np, ops, ref, full_width(get_config, name, width), Model, training,
+                    train_data, counted, path_shapes, path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
 
     # each row of the kernels line, and the launches of the path its shape is
     # on: a ``batch`` or ``whisper_*`` row's are those at its own shape
@@ -2441,15 +2647,18 @@ def main(argv=None) -> int:
                  f"{c} row's shape, not {LLAVA_WIDTH[0]} x {sum(made[c])} steps")
     rows["decode_attention"]["batch"] = batch
     rows["decode_attention"]["shapes"] = rows.pop("decode_attention_shapes")
-    own = {"ssd_scan": ("serve", {"zamba2": "hybrid"}),
+    own = {"ssd_scan": ("serve", {"zamba2": "hybrid", "train_mamba": "train_mamba",
+                                  "train_zamba": "train_zamba"}),
+           "ssd_scan_bwd": ("train_mamba", {"bf16": None, "g2": None, "zamba2": "train_zamba",
+                                            "zamba2_bf16": None}),
            "flash_attention": ("dense", {"zamba2": "hybrid", "mixtral": "moe", "mla": "mla",
-                                         "train": "train"}),
-           "flash_attention_bwd": ("train", {"bf16": None}),
+                                         "train": "train", "train_zamba": "train_zamba"}),
+           "flash_attention_bwd": ("train", {"bf16": None, "zamba2": "train_zamba"}),
            "decode_attention": ("dense", {"zamba2": "hybrid", "mixtral": "moe",
                                           "mla_b1": ("mla", "decode_attention_latent"),
                                           "mla_b8": ("mla_batch", "decode_attention_latent")})}
     kernels, loss = [], {}
-    for name in ("sched_events", "sched_step", "ssd_scan", "flash_attention",
+    for name in ("sched_events", "sched_step", "ssd_scan", "ssd_scan_bwd", "flash_attention",
                  "flash_attention_bwd", "decode_attention"):
         row = rows[name]
         row["launches"] = launches[name]

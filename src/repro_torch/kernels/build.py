@@ -22,7 +22,8 @@ from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sched", "ssd_scan", "flash_attention", "flash_attention_bwd", "decode_attention")
+SOURCES = ("sched", "ssd_scan", "ssd_scan_bwd", "flash_attention", "flash_attention_bwd",
+           "decode_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -107,6 +108,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ssd_scan_launch.restype = i
         lib.ssd_scan_max_chunk.argtypes = []
         lib.ssd_scan_max_chunk.restype = i
+    elif name == "ssd_scan_bwd":
+        lib.ssd_scan_bwd_launch.argtypes = [p] * 17 + [i] * 8 + [p]
+        lib.ssd_scan_bwd_launch.restype = i
+        lib.ssd_scan_bwd_scratch_floats.argtypes = [i] * 7
+        lib.ssd_scan_bwd_scratch_floats.restype = ctypes.c_longlong
     elif name == "flash_attention":
         lib.flash_attention_launch.argtypes = [p] * 5 + [i] * 12 + [f, p]
         lib.flash_attention_launch.restype = i

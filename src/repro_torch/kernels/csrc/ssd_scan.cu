@@ -139,35 +139,43 @@ __device__ void chunk_scores(const T* __restrict__ Bm, const T* __restrict__ Cm,
 }
 
 // Inclusive cumsum of dt * a over the chunk into cs[0, Q), by all threads:
-// a warp scan per 256-long segment, then a scan of the 8 warp totals.
+// a warp scan per 256-long segment, then a scan of the 8 warp totals.  The
+// products are rounded to float32 and summed in float64, so the sum's error
+// in any order lies far below float32's rounding and cs is the float32
+// rounding of it, bar a rare last-bit tie (it is not exact: products of
+// exponents more than 29 bits apart, dt ~1e-9 beside ~10, can round in the
+// double).  kernels/ref.py::ssd_scan_bwd_ref sums the same way, so the two
+// agree to an ulp, not bit for bit; |cs| reaches hundreds over a chunk,
+// where float32 sums in two orders would differ in the decays exp(cs_q - cs_k).
 __device__ void chunk_cumsum(const float* __restrict__ dt, size_t row0, int H, int h, float a,
-                             int Q, float* cs, float* dts, float* wtot) {
+                             int Q, float* cs, float* dts, double* wtot) {
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   constexpr int kWarps = kThreads / 32;
-  float carry = 0.f;
+  double carry = 0.0;
   for (int base = 0; base < Q; base += kThreads) {
     const int q = base + tid;
     const float d = q < Q ? dt[(row0 + q) * H + h] : 0.f;
-    float v = d * a;
+    const float da = d * a;
+    double v = da;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_up_sync(0xffffffffu, v, off);
+      const double o = __shfl_up_sync(0xffffffffu, v, off);
       if (lane >= off) v += o;
     }
     if (lane == 31) wtot[warp] = v;
     __syncthreads();
     if (warp == 0) {
-      float w = lane < kWarps ? wtot[lane] : 0.f;
+      double w = lane < kWarps ? wtot[lane] : 0.0;
 #pragma unroll
       for (int off = 1; off < kWarps; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, w, off);
+        const double o = __shfl_up_sync(0xffffffffu, w, off);
         if (lane >= off) w += o;
       }
       if (lane < kWarps) wtot[lane] = w;
     }
     __syncthreads();
     if (q < Q) {
-      cs[q] = carry + (warp > 0 ? wtot[warp - 1] : 0.f) + v;
+      cs[q] = (float)(carry + (warp > 0 ? wtot[warp - 1] : 0.0) + v);
       dts[q] = d;
     }
     carry += wtot[kWarps - 1];
@@ -187,7 +195,7 @@ __device__ void chunk_states(const T* __restrict__ x, const float* __restrict__ 
                              const float* __restrict__ A, const T* __restrict__ Bm,
                              float* __restrict__ st, float* __restrict__ cs_out, int nt, int pt,
                              int h, int bc, int S, int H, int G, int P, int N, int Q, int nc,
-                             float* Bs, float* Xs, float* cs, float* ws, float* wtot) {
+                             float* Bs, float* Xs, float* cs, float* ws, double* wtot) {
   const int b = bc / nc, c = bc % nc;
   const int g = h / (H / G);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -261,7 +269,7 @@ chunk_prep(const T* __restrict__ x, const float* __restrict__ dt, const float* _
   __shared__ __align__(16) float Xs[kT * kLd];
   __shared__ float cs[kMaxQ];
   __shared__ float ws[kMaxQ];
-  __shared__ float wtot[kThreads / 32];
+  __shared__ double wtot[kThreads / 32];
   const int nnt = (N + kT - 1) / kT, npt = (P + kT - 1) / kT, nsx = nnt * npt;
   const int bx = blockIdx.x, y = blockIdx.y, bc = blockIdx.z;
   if (bx < nsx) {

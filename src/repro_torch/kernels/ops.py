@@ -10,16 +10,19 @@ launch counts in ``SHAPE_LAUNCHES`` under the call's shape.  A call
 recorded into a CUDA graph counts too; its replays do not pass through the
 wrapper (``serving/captured.py`` counts them).
 
-Gradients.  On the card ``flash_attention`` is a ``torch.autograd.Function``
-when grad mode is on and an input requires a gradient: its forward launches
-the same kernel, which then also writes the rows' log-sum-exp, and its
-backward launches ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``).
-With no gradient wanted the call is exactly the serving path's.  The
-wrappers that have no backward kernel (``ssd_scan``, ``decode_attention``,
-``decode_attention_latent``, and ``flash_attention`` at split head dims or
-with v read at a head stride) raise ``NotImplementedError`` on the card under
-autograd, so no gradient is cut silently; on the CPU the plain versions are
-torch operations and differentiate as they are.
+Gradients.  On the card ``flash_attention`` and ``ssd_scan`` are
+``torch.autograd.Function``s when grad mode is on and an input requires a
+gradient: their forwards launch the same kernels (``flash_attention`` then
+also writes the rows' log-sum-exp, ``ssd_scan`` keeps its scratch: C.B^T,
+the chunk cumsums and the states entering the chunks), and their backwards
+launch ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``) and
+``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``).  With no gradient wanted the
+calls are exactly the serving path's.  The wrappers that have no backward
+kernel (``decode_attention``, ``decode_attention_latent``, and
+``flash_attention`` at split head dims or with v read at a head stride)
+raise ``NotImplementedError`` on the card under autograd, so no gradient is
+cut silently; on the CPU the plain versions are torch operations and
+differentiate as they are.
 
 The model kernels take their inputs in any of ``FLOAT_DTYPES``, as the
 Pallas kernels cast each tile to float32: the combinations a kernel is
@@ -40,7 +43,7 @@ from . import build, ref
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"sched_events": 0, "sched_step": 0, "ssd_scan": 0,
-                            "flash_attention": 0, "flash_attention_bwd": 0,
+                            "ssd_scan_bwd": 0, "flash_attention": 0, "flash_attention_bwd": 0,
                             "decode_attention": 0, "decode_attention_latent": 0}
 
 #: head dims the attention kernels are instantiated for (the repo's attention
@@ -237,7 +240,9 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tens
 
     On the card the kernel runs in three launches (chunk scores and chunk
     states, state passing, chunk outputs) on float32 scratch allocated here;
-    they count as one."""
+    they count as one.  Under autograd on the card (grad mode on, an input
+    requiring a gradient) the call is ``_SsdScan``, whose backward is
+    ``ssd_scan_bwd``; the padding and the casts stay torch operations."""
     _check_floats(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, init_state=init_state)
     f32 = torch.float32
     if not (x.dtype in _Q_CODES and Bm.dtype == Cm.dtype == x.dtype and dt.dtype == A.dtype == f32
@@ -245,32 +250,51 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tens
         y, st = ssd_scan(x.float(), dt.float(), A.float(), Bm.float(), Cm.float(), chunk,
                          init_state.float() if init_state is not None else None)
         return y.to(x.dtype), st
-    Bsz, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
+    S = x.shape[1]
     on_cuda = _on_cuda(*(t for t in (x, dt, A, Bm, Cm, init_state) if t is not None))
-    if on_cuda and _wants_grad(x, dt, A, Bm, Cm, init_state):
-        raise _no_backward("ssd_scan", "ROADMAP Queue 1 item 8b: the ssd_scan backward kernel, "
-                                       "with mamba2-130m and zamba2-2.7b training")
     pad = (-S) % chunk
     if pad:
         x, dt, Bm, Cm = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in (x, dt, Bm, Cm))
-    if not on_cuda:
-        y, st = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init_state)
-        return (y[:, :S] if pad else y), st
+    if on_cuda and _wants_grad(x, dt, A, Bm, Cm, init_state):
+        y, st = _SsdScan.apply(x, dt, A, Bm, Cm, chunk, init_state)
+    else:
+        y, st, _ = _ssd_forward(x, dt, A, Bm, Cm, chunk, init_state, keep=False)
+    return (y[:, :S] if pad else y), st
+
+
+def _ssd_checks(x, dt, A, Bm, Cm, chunk: int, init_state) -> None:
+    """Shapes, dtypes and contiguity of a kernel call (S a multiple of chunk)."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
     if G < 1 or H % G:
         raise ValueError(f"n_heads {H} is not a multiple of ngroups {G}")
-    Sp = S + pad
-    _check("x", x, x.dtype, (Bsz, Sp, H, P))
-    _check("dt", dt, torch.float32, (Bsz, Sp, H))
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk {chunk}")
+    _check("x", x, x.dtype, (Bsz, S, H, P))
+    _check("dt", dt, torch.float32, (Bsz, S, H))
     _check("A", A, torch.float32, (H,))
-    _check("Bm", Bm, x.dtype, (Bsz, Sp, G, N))
-    _check("Cm", Cm, x.dtype, (Bsz, Sp, G, N))
+    _check("Bm", Bm, x.dtype, (Bsz, S, G, N))
+    _check("Cm", Cm, x.dtype, (Bsz, S, G, N))
     if init_state is not None:
         _check("init_state", init_state, torch.float32, (Bsz, H, P, N))
+
+
+def _ssd_forward(x, dt, A, Bm, Cm, chunk: int, init_state, keep: bool):
+    """The forward kernel's launch on inputs padded to the chunk: (y, final
+    state, and with ``keep`` the scratch the backward starts from: (scores
+    C.B^T (B,nc,G,Q,Q), cumsum (B,nc,H,Q), states (B,nc,H,N,P), the state
+    entering each chunk), else None).  On the CPU the plain version, with
+    no scratch."""
+    if not _on_cuda(*(t for t in (x, dt, A, Bm, Cm, init_state) if t is not None)):
+        y, st = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init_state)
+        return y, st, None
+    _ssd_checks(x, dt, A, Bm, Cm, chunk, init_state)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
     lib = build.load("ssd_scan")
     if chunk > lib.ssd_scan_max_chunk():
         raise ValueError(f"ssd_scan kernel takes chunk <= {lib.ssd_scan_max_chunk()}, got {chunk}")
-    nc = Sp // chunk
+    nc = S // chunk
     y = torch.empty_like(x)
     st = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     scores = torch.empty((Bsz, nc, G, chunk, chunk), dtype=torch.float32, device=x.device)
@@ -281,11 +305,94 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tens
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             init_state.data_ptr() if init_state is not None else None,
             y.data_ptr(), st.data_ptr(), scores.data_ptr(), cumsum.data_ptr(), states.data_ptr(),
-            Bsz, Sp, H, G, P, N, chunk, _Q_CODES[x.dtype], _stream(x),
+            Bsz, S, H, G, P, N, chunk, _Q_CODES[x.dtype], _stream(x),
         )
     _raise_on(err, "ssd_scan")
     _launched("ssd_scan", x, dt, A, Bm, Cm, chunk, init_state)
-    return (y[:, :S] if pad else y), st
+    return y, st, ((scores, cumsum, states) if keep else None)
+
+
+class _SsdScan(torch.autograd.Function):
+    """``ssd_scan`` with a gradient, on inputs padded to the chunk in the
+    kernel's dtypes: the forward kernel's launch, keeping its scratch (C.B^T,
+    the chunk cumsums and the states entering the chunks; recomputed with the
+    forward under ``torch.utils.checkpoint``), and ``ssd_scan_bwd``.  A
+    gradient of y or of the final state that no caller uses comes as None
+    (zero).  On CPU tensors it runs the plain versions both ways."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk, init_state):
+        y, st, saved = _ssd_forward(x, dt, A, Bm, Cm, chunk, init_state, keep=True)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state, *(saved or ()))
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        x, dt, A, Bm, Cm, init_state, *saved = ctx.saved_tensors
+        if dy is not None:
+            dy = dy.to(x.dtype).contiguous()
+        if d_state is not None:
+            d_state = d_state.contiguous()
+        dx, ddt, dA, dB, dC, d_init = ssd_scan_bwd(x, dt, A, Bm, Cm, ctx.chunk, init_state, dy,
+                                                   d_state, tuple(saved) or None)
+        return dx, ddt, dA, dB, dC, None, (d_init if init_state is not None else None)
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, chunk: int, init_state, dy, d_final_state, saved=None):
+    """The gradient of ``ssd_scan`` on inputs padded to the chunk: (dx, ddt,
+    dA, dB, dC, d_init_state), dx, dB and dC in the dtypes of x, Bm and Cm,
+    the rest float32; ``dy`` (B,S,H,P) in x's dtype and ``d_final_state``
+    (B,H,P,N) float32 are the gradients of y and of the final state, either
+    None for zero.  On the card ``saved`` is the forward's scratch
+    (``_ssd_forward(..., keep=True)``), x, Bm and Cm float32 or bfloat16
+    alike, dt and A float32, all contiguous, and the kernel runs in five
+    launches (four when G == H) on float32 scratch allocated here, counted
+    as one under ``ssd_scan_bwd``.  On the CPU this is
+    ``ref.ssd_scan_bwd_ref``, its float32 results cast to the inputs'
+    dtypes."""
+    tensors = [t for t in (x, dt, A, Bm, Cm, init_state, dy, d_final_state) if t is not None]
+    if not _on_cuda(*tensors):
+        dx, ddt, dA, dB, dC, d_init = ref.ssd_scan_bwd_ref(x, dt, A, Bm, Cm, chunk, init_state, dy,
+                                                           d_final_state)
+        return dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(Bm.dtype), dC.to(Cm.dtype), \
+            d_init
+    if x.dtype not in _Q_CODES:
+        raise TypeError(f"x: expected one of {tuple(_Q_CODES)}, got {x.dtype}")
+    _ssd_checks(x, dt, A, Bm, Cm, chunk, init_state)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = S // chunk
+    if saved is None:
+        raise ValueError("ssd_scan_bwd on the card starts from the forward's scratch: pass "
+                         "saved=_ssd_forward(..., keep=True)[2]")
+    scores, cumsum, states = saved
+    _check("scores", scores, torch.float32, (Bsz, nc, G, chunk, chunk))
+    _check("cumsum", cumsum, torch.float32, (Bsz, nc, H, chunk))
+    _check("states", states, torch.float32, (Bsz, nc, H, N, P))
+    if dy is None:
+        dy = torch.zeros_like(x)
+    _check("dy", dy, x.dtype, (Bsz, S, H, P))
+    if d_final_state is not None:
+        _check("d_final_state", d_final_state, torch.float32, (Bsz, H, P, N))
+    lib = build.load("ssd_scan_bwd")
+    work = torch.empty((lib.ssd_scan_bwd_scratch_floats(Bsz, S, H, G, P, N, chunk),),
+                       dtype=torch.float32, device=x.device)
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
+    ddt, dA = torch.empty_like(dt), torch.empty_like(A)
+    d_init = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
+            d_final_state.data_ptr() if d_final_state is not None else None,
+            scores.data_ptr(), cumsum.data_ptr(), states.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), d_init.data_ptr(),
+            work.data_ptr(), Bsz, S, H, G, P, N, chunk, _Q_CODES[x.dtype], _stream(x),
+        )
+    _raise_on(err, "ssd_scan_bwd")
+    _launched("ssd_scan_bwd", x, dt, A, Bm, Cm, chunk, init_state)
+    return dx, ddt, dA, dB, dC, d_init
 
 
 def _attn_checks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_shape, kv_shape) -> None:

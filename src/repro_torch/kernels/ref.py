@@ -62,6 +62,120 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     return ssd_chunked(x, dt, A, Bm, Cm, chunk, init_state)
 
 
+def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, chunk: int, init_state=None, dy=None, d_final_state=None):
+    """The gradient of ``ssd_scan_ref`` written out in its chunked form, as
+    the backward kernel computes it.  Shapes as the forward's (S a multiple
+    of ``chunk``); ``dy`` (B,S,H,P) and ``d_final_state`` (B,H,P,N) are the
+    gradients of y and of the final state, either None for zero.  Per chunk,
+    with cs the cumsum of a = dt * A over the chunk, h the state entering it,
+    G the gradient of the state leaving it, w_k = exp(cs_last - cs_k) dt_k
+    and M_qk = (C_q . B_k) exp(cs_q - cs_k) dt_k for q >= k (0 above the
+    diagonal):
+
+      carried     dC_q += exp(cs_q) dy_q h         dh_c = sum_q exp(cs_q) dy_q (x) C_q
+                  dcs_q += exp(cs_q) dy_q . (h C_q)
+      state pass  from the last chunk down, G_c = the gradient leaving chunk c
+                  (d_final_state for the last); the one entering is
+                  exp(cs_last) G_c + dh_c; d cs_last += exp(cs_last) sum(G_c * h)
+      state       dx_k += w_k G B_k                dB_k += w_k G^T x_k
+                  dw_k = x_k . (G B_k);  ddt_k += exp(cs_last - cs_k) dw_k;
+                  dcs_k -= w_k dw_k;  dcs_last += sum_k w_k dw_k
+      quadratic   D_qk = dy_q . x_k                dx_k += sum_q M_qk dy_q
+                  dCB_qk = D_qk exp(cs_q - cs_k) dt_k, summed over a group's
+                  heads: dC_q += sum_k dCB_qk B_k, dB_k += sum_q dCB_qk C_q
+                  Z = D (C.B) exp(cs_q - cs_k): ddt_k += sum_q Z_qk;
+                  T = Z dt_k: dcs_q += sum_k T_qk, dcs_k -= sum_q T_qk
+      cumsum      da_t = sum_{q >= t} dcs_q (inside the chunk);
+                  ddt += da A;  dA_h = sum over batch and positions of da dt
+
+    dB and dC sum over the heads of a group (head h reads group h // (H/G)).
+    cs is summed as the forward kernel sums it: the products dt * A in
+    float32, summed in float64 and rounded to float32 (|cs| reaches hundreds
+    over a chunk at full width, and float32 sums in two orders would differ
+    there by more than the 1e-4 / 1e-3 tolerance in every decay).  The
+    float64 sums of two orders differ far below float32's rounding but are
+    not exact, so this cs and the kernel's may still differ by an ulp.  The sums that
+    cancel (T's row and column sums, d cs, its reverse cumsum, dA and the
+    decay term) are taken in float64, as in the kernel; the rest in float32.
+    Returns (dx, ddt, dA, dB, dC, d_init_state), float32, in the inputs'
+    shapes; d_init_state (B,H,P,N) is the gradient entering chunk 0."""
+    f32, f64 = torch.float32, torch.float64
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep, Q = H // G, chunk
+    nc = S // Q
+    xc = x.reshape(Bsz, nc, Q, H, P).to(f32)
+    dtc = dt.reshape(Bsz, nc, Q, H).to(f32).movedim(-1, -2)         # (B,nc,H,Q)
+    Bc = Bm.reshape(Bsz, nc, Q, G, N).to(f32)
+    Cc = Cm.reshape(Bsz, nc, Q, G, N).to(f32)
+    BH, CH = Bc.repeat_interleave(rep, dim=3), Cc.repeat_interleave(rep, dim=3)  # (B,nc,Q,H,N)
+    dyc = (torch.zeros_like(xc) if dy is None else dy.reshape(Bsz, nc, Q, H, P).to(f32))
+    A = A.to(f32)
+
+    cs = torch.cumsum((dtc * A[:, None]).to(f64), dim=-1).to(f32)   # (B,nc,H,Q)
+    cl = cs[..., -1]                                                 # (B,nc,H)
+    w = torch.exp(cl[..., None] - cs) * dtc                          # (B,nc,H,Q)
+    live = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    diff = (cs[..., :, None] - cs[..., None, :]).masked_fill(~live, float("-inf"))
+    L = torch.exp(diff)                                              # (B,nc,H,Q,Q), 0 above
+    CB = torch.einsum("bcqhn,bckhn->bchqk", CH, BH)
+
+    # the forward's states: S_c, and h_c entering each chunk
+    own = torch.einsum("bchk,bckhn,bckhp->bchpn", w, BH, xc)
+    h = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device) if init_state is None
+         else init_state.to(f32))
+    hs = []
+    for c in range(nc):
+        hs.append(h)
+        h = h * torch.exp(cl[:, c])[..., None, None] + own[:, c]
+    hs = torch.stack(hs, dim=1)                                      # (B,nc,H,P,N)
+
+    # (1) the carried term
+    ecs = torch.exp(cs)
+    dC_h = torch.einsum("bcqhp,bchpn->bcqhn", dyc, hs) * ecs.movedim(-1, -2)[..., None]
+    dcs = torch.einsum("bcqhn,bcqhn->bchq", dC_h, CH).to(f64)
+    dh = torch.einsum("bchq,bcqhp,bcqhn->bchpn", ecs, dyc, CH)
+    # (2) the reverse state pass
+    g = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device) if d_final_state is None
+         else d_final_state.to(f32))
+    Gs, d_last = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        Gs[c] = g
+        decay = torch.exp(cl[:, c])                                  # (B,H)
+        d_last[c] = decay.to(f64) * (g.to(f64) * hs[:, c].to(f64)).sum((-1, -2))
+        g = g * decay[..., None, None] + dh[:, c]
+    Gs, d_last = torch.stack(Gs, dim=1), torch.stack(d_last, dim=1)  # (B,nc,H,P,N), (B,nc,H)
+    # (3) the chunk states' backward
+    U = torch.einsum("bckhn,bchpn->bchkp", BH, Gs)                   # G B_k
+    dx = (w[..., None] * U).movedim(2, 3)                            # (B,nc,Q,H,P)
+    dB_h = torch.einsum("bckhp,bchpn->bckhn", xc, Gs) * w.movedim(-1, -2)[..., None]
+    dw = torch.einsum("bchkp,bckhp->bchk", U, xc)
+    ddt = (torch.exp(cl[..., None] - cs) * dw).to(f64)
+    wdw = (w * dw).to(f64)
+    dcs = dcs - wdw
+    d_last = d_last + wdw.sum(-1)
+    # (4) the quadratic term's backward
+    M = CB * L * dtc[..., None, :]
+    D = torch.einsum("bcqhp,bckhp->bchqk", dyc, xc)
+    dx = dx + torch.einsum("bchqk,bcqhp->bckhp", M, dyc)
+    dCB = (D * L * dtc[..., None, :]).reshape(Bsz, nc, G, rep, Q, Q).sum(3)  # (B,nc,G,Q,Q)
+    dC = dC_h.reshape(Bsz, nc, Q, G, rep, N).sum(4) + torch.einsum("bcgqk,bckgn->bcqgn", dCB, Bc)
+    dB = dB_h.reshape(Bsz, nc, Q, G, rep, N).sum(4) + torch.einsum("bcgqk,bcqgn->bckgn", dCB, Cc)
+    Z = D * CB * L
+    ddt = ddt + Z.to(f64).sum(-2)
+    T = (Z * dtc[..., None, :]).to(f64)
+    dcs = dcs + T.sum(-1) - T.sum(-2)
+    # (5) every d cs gathered (cs_last's own terms at the last position), then
+    # (6) through the cumsum: da_t = sum_{q >= t} dcs_q
+    dcs = torch.cat([dcs[..., :-1], dcs[..., -1:] + d_last[..., None]], dim=-1)
+    da = torch.flip(torch.cumsum(torch.flip(dcs, (-1,)), -1), (-1,))
+    ddt = ddt + da * A.to(f64)[:, None]
+    dA = (da * dtc.to(f64)).sum((0, 1, 3))
+    return (dx.reshape(Bsz, S, H, P).to(f32), ddt.movedim(-1, -2).reshape(Bsz, S, H).to(f32),
+            dA.to(f32), dB.reshape(Bsz, S, G, N).to(f32), dC.reshape(Bsz, S, G, N).to(f32),
+            g.to(f32))
+
+
 def attn_scale(hd: int) -> float:
     """1/sqrt(hd) computed in float32, as the JAX package does."""
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))

@@ -85,20 +85,21 @@ def ssd_chunked(
     chunk: int,
     init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SSD chunked scan in float32.  Returns (y (B,S,H,P), final state
-    (B,H,P,N)).  ``S`` must be a multiple of ``chunk``."""
+    """SSD chunked scan in float32, or in float64 when ``x`` is float64.
+    Returns (y (B,S,H,P), final state (B,H,P,N)) in that dtype.  ``S`` must
+    be a multiple of ``chunk``."""
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
     nc = S // chunk
-    f32 = torch.float32
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
 
-    xc = x.reshape(B_, nc, chunk, H, P).to(f32)
-    dtc = dt.reshape(B_, nc, chunk, H).to(f32)
-    BH = Bm.reshape(B_, nc, chunk, G, N).to(f32).repeat_interleave(rep, dim=3)  # (B,nc,Q,H,N)
-    CH = Cm.reshape(B_, nc, chunk, G, N).to(f32).repeat_interleave(rep, dim=3)
+    xc = x.reshape(B_, nc, chunk, H, P).to(acc)
+    dtc = dt.reshape(B_, nc, chunk, H).to(acc)
+    BH = Bm.reshape(B_, nc, chunk, G, N).to(acc).repeat_interleave(rep, dim=3)  # (B,nc,Q,H,N)
+    CH = Cm.reshape(B_, nc, chunk, G, N).to(acc).repeat_interleave(rep, dim=3)
 
-    dA_t = (dtc * A.to(f32)).movedim(-1, -2)  # (B,nc,H,Q)
+    dA_t = (dtc * A.to(acc)).movedim(-1, -2)  # (B,nc,H,Q)
     L = torch.exp(_segsum(dA_t))              # (B,nc,H,Q,Q)
 
     # intra-chunk (quadratic) term   (c = chunk idx, s = state dim)
@@ -112,7 +113,7 @@ def ssd_chunked(
 
     # inter-chunk recurrence
     chunk_decay = torch.exp(cs[..., -1])  # (B,nc,H)
-    h = x.new_zeros((B_, H, P, N), dtype=f32) if init_state is None else init_state.to(f32)
+    h = x.new_zeros((B_, H, P, N), dtype=acc) if init_state is None else init_state.to(acc)
     h_prev = []
     for c in range(nc):
         h_prev.append(h)

@@ -258,6 +258,8 @@ def test_each_wrapper_call_counts_one_launch(cuda):
         "sched_events": lambda: ops.sched_events(*args),
         "sched_step": lambda: ops.sched_step(*args[1:2], *args[3:]),
     }
+    _, _, saved = ops._ssd_forward(x, dt, A, Bm, Cm, 128, None, keep=True)
+    calls["ssd_scan_bwd"] = lambda: ops.ssd_scan_bwd(x, dt, A, Bm, Cm, 128, None, x, None, saved)
     for name, call in calls.items():
         for n in (1, 2, 3):
             ops.reset_launches()
@@ -265,6 +267,14 @@ def test_each_wrapper_call_counts_one_launch(cuda):
                 call()
             torch.cuda.synchronize()
             assert ops.LAUNCHES == {**{kn: 0 for kn in ops.LAUNCHES}, name: n}
+    # under autograd: one ssd_scan, and after backward() one ssd_scan_bwd
+    xg = x.clone().requires_grad_()
+    ops.reset_launches()
+    y, _ = ops.ssd_scan(xg, dt, A, Bm, Cm, chunk=128)
+    assert ops.LAUNCHES == {**{kn: 0 for kn in ops.LAUNCHES}, "ssd_scan": 1}
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == {**{kn: 0 for kn in ops.LAUNCHES}, "ssd_scan": 1, "ssd_scan_bwd": 1}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1333,13 +1343,11 @@ def test_flash_autograd_matches_plain_autograd(cuda, B, S, H, KH, hd, causal, wi
 def test_kernels_without_backward_raise_under_autograd(cuda):
     """No silent gradient: the wrappers with no backward kernel raise on the
     card under autograd, and run as before without it."""
-    x, dt, A, Bm, Cm = (t.to(cuda) for t in _ssd_inputs(1, 256, 4, 16, 16))
     q, kc, vc = _attn_inputs([(1, 4, 64), (1, 32, 2, 64), (1, 32, 2, 64)], torch.float32, 0, cuda)
     lat = _latent_inputs(1, 64, 16, torch.float32, torch.float32, 2, cuda)
     qs, ks, kv = _attn_inputs([(1, 64, 4, 192), (1, 64, 4, 192), (1, 64, 4, 256)],
                               torch.float32, 1, cuda)
     calls = {
-        "ssd_scan": lambda g: ops.ssd_scan(x.requires_grad_(g), dt, A, Bm, Cm, chunk=128),
         "decode_attention": lambda g: ops.decode_attention(q.requires_grad_(g), kc, vc, 20),
         "decode_attention_latent": lambda g: ops.decode_attention_latent(
             lat[0].requires_grad_(g), *lat[1:], 40, 0.1),
@@ -1387,6 +1395,128 @@ def test_train_step_on_card_matches_cpu(cuda):
     for key in ("loss", "ce", "grad_norm", "lr"):
         torch.testing.assert_close(m_c[key].cpu(), m[key], **TOL)
     # step 1 of AdamW moves each weight by ~lr * sign(g): compare where |g| is not tiny
+    for a, b, g in zip(tree_leaves(p_c), tree_leaves(p), tree_leaves(grads)):
+        big = g.abs() > 1e-3 * g.abs().max()
+        torch.testing.assert_close(a.cpu()[big], b[big], atol=1e-5, rtol=1e-5)
+
+
+# B, S, H, P, N, G, chunk, init_state given, d_final_state given
+SSD_BWD_SHAPES = [
+    (1, 64, 4, 16, 16, 1, 64, False, False),
+    (2, 256, 8, 16, 32, 1, 64, False, True),
+    (1, 192, 6, 16, 8, 2, 64, True, True),      # G=2
+    (2, 200, 3, 16, 16, 3, 100, False, True),   # chunk not a multiple of the 64 tile
+    (1, 256, 4, 96, 80, 2, 128, True, True),    # P and N not multiples of 64
+    (1, 1024, 24, 64, 128, 1, 256, False, False),  # mamba2-130m width
+    (1, 1024, 80, 64, 64, 1, 256, False, False),   # zamba2-2.7b width
+    (1, 512, 24, 64, 128, 2, 256, True, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,init,dfin", SSD_BWD_SHAPES)
+def test_ssd_bwd_kernel_matches_plain(cuda, B, S, H, P, N, G, chunk, init, dfin, dtype):
+    """``ssd_scan_bwd`` from the forward kernel's scratch against
+    ``ssd_scan_bwd_ref`` on the same inputs: every gradient in its dtype,
+    two runs bit for bit (no atomics)."""
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, G=G, seed=S + H)
+    rng = np.random.default_rng(S)
+    h0 = torch.from_numpy(rng.standard_normal((B, H, P, N)).astype(np.float32)) if init else None
+    dy = torch.from_numpy(rng.standard_normal((B, S, H, P)).astype(np.float32))
+    df = torch.from_numpy(rng.standard_normal((B, H, P, N)).astype(np.float32)) if dfin else None
+    xd, Bd, Cd, dyd = (t.to(cuda, dtype) for t in (x, Bm, Cm, dy))
+    dtd, Ad = dt.to(cuda), A.to(cuda)
+    h0d, dfd = (t.to(cuda) if t is not None else None for t in (h0, df))
+    _, _, saved = ops._ssd_forward(xd, dtd, Ad, Bd, Cd, chunk, h0d, keep=True)
+    ops.reset_launches()
+    got = ops.ssd_scan_bwd(xd, dtd, Ad, Bd, Cd, chunk, h0d, dyd, dfd, saved)
+    again = ops.ssd_scan_bwd(xd, dtd, Ad, Bd, Cd, chunk, h0d, dyd, dfd, saved)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan_bwd"] == 2 and ops.LAUNCHES["ssd_scan"] == 0
+    want = ref.ssd_scan_bwd_ref(xd.float(), dtd, Ad, Bd.float(), Cd.float(), chunk, h0d,
+                                dyd.float(), dfd)
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    for g, a, w, t in zip(got, again, want, (xd, dtd, Ad, Bd, Cd, dtd)):
+        assert g.dtype == t.dtype and g.shape == w.shape and torch.equal(g, a)
+        torch.testing.assert_close(g.float(), w, **tol)
+
+
+@pytest.mark.parametrize("S,G,init", [(256, 1, False), (200, 2, True), (1000, 1, False)])
+def test_ssd_autograd_matches_plain_autograd(cuda, S, G, init):
+    """``ops.ssd_scan`` under autograd on the card (padding included: one
+    ``ssd_scan`` and one ``ssd_scan_bwd`` launch) against ``torch.autograd``
+    through the plain version on the same inputs; with no gradient wanted,
+    the serving path's launch alone at the same shape."""
+    H, P, N, chunk = 8, 32, 64, 128 if S != 1000 else 256
+    x, dt, A, Bm, Cm = (t.to(cuda) for t in _ssd_inputs(1, S, H, P, N, G=G, seed=9))
+    h0 = torch.randn(1, H, P, N, device=cuda) if init else None
+    dy = torch.randn(1, S, H, P, device=cuda)
+    dst = torch.randn(1, H, P, N, device=cuda)
+    grads = []
+    for route in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        h = h0.clone().requires_grad_() if init else None
+        ops.reset_launches()
+        if route == "kernel":
+            y, st = ops.ssd_scan(*leaves, chunk=chunk, init_state=h)
+        else:
+            pad = (-S) % chunk
+            xp, dtp, Bp, Cp = (torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+                               for t in (leaves[0], leaves[1], leaves[3], leaves[4]))
+            y, st = ref.ssd_scan_ref(xp, dtp, leaves[2], Bp, Cp, chunk, h)
+            y = y[:, :S]
+        ((y * dy).sum() + (st * dst).sum()).backward()
+        torch.cuda.synchronize()
+        want_launches = {"ssd_scan": 1, "ssd_scan_bwd": 1} if route == "kernel" else {}
+        assert ops.LAUNCHES == {**{k: 0 for k in ops.LAUNCHES}, **want_launches}
+        grads.append([t.grad for t in leaves + ([h] if init else [])])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, **TOL)
+    ops.reset_launches()
+    with torch.no_grad():
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=h0)
+    assert ops.LAUNCHES == {**{k: 0 for k in ops.LAUNCHES}, "ssd_scan": 1}
+    assert [k[0] for k in ops.SHAPE_LAUNCHES] == ["ssd_scan"]
+
+
+@pytest.mark.parametrize("arch", ["mamba2_130m", "zamba2_2p7b"])
+def test_ssm_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step of reduced mamba2-130m and zamba2-2.7b (with remat) on
+    the card, the scan through ``ssd_scan`` and ``ssd_scan_bwd`` (zamba2's
+    shared attention through both flash kernels), against the CPU's: the
+    loss, the metrics, every gradient leaf, and the parameters after the
+    step."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.training import OptConfig, init_opt_state, loss_and_grads, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = get_config(arch).reduced()
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device=cuda)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    params_card = _tree_to(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 100))
+                              .astype(np.int32))  # 100: padded to the chunk of 32
+    ops.reset_launches()
+    loss_c, _, grads_c = loss_and_grads(card, params_card, {"tokens": tokens.to(cuda)})
+    groups = cfg.n_layers // cfg.hybrid.every if cfg.hybrid else 0
+    assert ops.LAUNCHES["ssd_scan"] == 2 * cfg.n_layers  # forward and remat recompute
+    assert ops.LAUNCHES["ssd_scan_bwd"] == cfg.n_layers
+    assert ops.LAUNCHES["flash_attention"] == 2 * groups
+    assert ops.LAUNCHES["flash_attention_bwd"] == groups
+    loss, _, grads = loss_and_grads(cpu, params, {"tokens": tokens})
+    torch.testing.assert_close(loss_c.cpu(), loss, **TOL)
+    for a, b in zip(tree_leaves(grads_c), tree_leaves(grads)):
+        torch.testing.assert_close(a.cpu(), b, **TOL)
+    opt = OptConfig(lr=1e-3, warmup_steps=0)
+    p_c, _, m_c = make_train_step(card, opt)(params_card, init_opt_state(params_card),
+                                             {"tokens": tokens.to(cuda)})
+    p, _, m = make_train_step(cpu, opt)(copy.deepcopy(params), init_opt_state(params),
+                                        {"tokens": tokens})
+    for key in ("loss", "ce", "grad_norm", "lr"):
+        torch.testing.assert_close(m_c[key].cpu(), m[key], **TOL)
     for a, b, g in zip(tree_leaves(p_c), tree_leaves(p), tree_leaves(grads)):
         big = g.abs() > 1e-3 * g.abs().max()
         torch.testing.assert_close(a.cpu()[big], b[big], atol=1e-5, rtol=1e-5)
