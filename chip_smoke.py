@@ -266,7 +266,10 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
+PEAK_F32_OPS_PER_S = 67e12  # CUDA cores (the train step's float32 GEMMs, TF32 off)
+# float32-accurate matrix products on the tensor cores: split-precision TF32,
+# three TF32 products at 495 TFLOP/s (the kernels whose work is matrix products)
+PEAK_F32_TC_OPS_PER_S = 495e12 / 3
 PEAK_BF16_OPS_PER_S = 989e12  # tensor cores, dense
 
 DEVICE = "cuda"
@@ -399,15 +402,16 @@ def graph_kernels(torch, fns):
     return [("wall", 0, span / n)] + rows
 
 
-def bound(nbytes: float, nops: float, peak_ops: float = PEAK_F32_OPS_PER_S):
+def bound(nbytes: float, nops: float, peak_ops: float = PEAK_F32_TC_OPS_PER_S):
     """The least ms for ``nbytes`` moved and ``nops`` done at the card's peak
-    rates (operations at ``peak_ops``: the peak for the inputs' type)."""
+    rates (operations at ``peak_ops``: the peak for the inputs' type, float32
+    matrix products at the tensor cores' split-precision rate)."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, nops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def peak_ops(torch, dtype) -> float:
-    return PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else PEAK_F32_OPS_PER_S
+    return PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else PEAK_F32_TC_OPS_PER_S
 
 
 def max_abs(a, b) -> float:

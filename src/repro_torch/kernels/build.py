@@ -6,6 +6,10 @@ checkout (``.gitignore`` lists ``build/``), then loaded with ``ctypes``.  The
 hash covers the source and the flags, so an edited source builds anew and an
 unchanged one is reused.  Nothing here runs at import: the package imports
 on a machine with no ``nvcc`` and no card.
+
+``python -m repro_torch.kernels.build --ptxas [CSRC_DIR]`` prints, for every
+kernel of every source (of ``CSRC_DIR``, by default this package's), the
+registers and spill bytes that ``nvcc -Xptxas -v`` reports.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -126,3 +131,30 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.decode_attention_max_group.restype = i
         lib.decode_attention_latent_launch.argtypes = [p] * 8 + [i] * 8 + [f, i, i, p]
         lib.decode_attention_latent_launch.restype = i
+
+
+def ptxas_report(csrc: Path = CSRC, names: Iterable[str] = SOURCES) -> str:
+    """The ``ptxas -v`` lines of each named source under ``csrc`` (its
+    kernels' registers, stack frames and spill stores and loads), every
+    source compiled at once with the build's flags into an object that is
+    thrown away."""
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [(name, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS[:-3], "-c", "-Xptxas", "-v", "-o",
+             str(Path(tmp) / f"{name}.o"), str(Path(csrc) / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for name in names]
+        report = []
+        for name, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+            keep = ("Compiling entry", "Function properties", "spill", "Used")
+            report += [f"{name}: {line.strip()}" for line in log.splitlines()
+                       if any(k in line for k in keep)]
+    return "\n".join(report)
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] != ["--ptxas"]:
+        sys.exit("usage: python -m repro_torch.kernels.build --ptxas [CSRC_DIR]")
+    print(ptxas_report(Path(sys.argv[2]) if len(sys.argv) > 2 else CSRC))

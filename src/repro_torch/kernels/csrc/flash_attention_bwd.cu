@@ -22,32 +22,62 @@
 // What bounds it on this card: operations.  Seven products of 2 hd
 // operations a live (i, j) pair (q.k and dO.v twice, then dv, dk and dq)
 // against the forward's two: at minicpm-2b training (B=2, S=1024, H=36,
-// hd=64, causal) ~33.6 GFLOP against ~85 MB of q, k, v, o, dO, the
-// gradients and lse.  The products run on CUDA cores in float32, as the
-// forward's: TF32 or bf16 tensor cores would miss the float32 tolerance the
-// gradients are held to.  A wgmma path is later work (ROADMAP Queue 2).
+// hd=64, causal) ~33.9 GFLOP against ~85 MB of q, k, v, o, dO, the
+// gradients and lse.  The products run on the tensor cores in
+// split-precision TF32 (3xTF32, as CUTLASS's OpMultiplyAddFastF32): a
+// float32 operand x is big = tf32(x) plus small = tf32(x - big), and a.b is
+// small.big + big.small + big.big, each term exact in float32 and summed in
+// float32; the dropped small.small and the rounding of small are ~2^-22
+// |a||b| each, so a product stays within ~2^-21 of its terms' magnitude, far
+// under the 1e-4 / 1e-3 the gradients are held to (one TF32 product, ~2^-11,
+// misses it: tests/test_torch_tf32x3.py).  The tensor cores truncate what
+// they accumulate, so each step of 8 (the scores) or 32 (dv, dk, dq) terms
+// goes into a fresh accumulator that is added to the running sum in float32.
+// A bfloat16 operand is exact in TF32: its small part is zero and its terms
+// are skipped, so q.k and dO.v take one product in bfloat16 and the others
+// two.  Three TF32 products at 495 TFLOP/s bound the float32 work at ~165
+// TFLOP/s; at minicpm-2b's shape ~102 GFLOP of TF32 work, >= 0.21 ms.  What
+// holds it above that is the instructions around the products (the splits,
+// the fragment loads, P and dS) and the occupancy that 255 registers and
+// the staged tiles leave: 8 warps an SM at hd 64 and 80.
 //
 // Design.  Three launches, deterministic and free of atomics, so two runs
 // agree bit for bit:
 //   (a) dsum_kernel: D = rowsum(dO * o), one warp a (batch, row, head);
-//   (b) dkdv_kernel: one CTA per (key tile, kv head, batch).  It keeps its K
-//       and V tiles in shared memory and its dk and dv tiles in registers,
-//       and loops over its group's query heads and, for each, over the query
-//       tiles the masks leave live for its keys: it recomputes the scores
-//       and dO . v^T, forms P and dS in registers from lse and D, writes them
-//       transposed to shared memory and accumulates dv += P^T dO and
-//       dk += dS^T q;
+//   (b) dkdv_kernel: one CTA per (key tile, kv head, batch).  Its K and V
+//       tiles stay in shared memory; it loops over its group's query heads
+//       and, for each, over the query tiles (BC rows) the masks leave live
+//       for its keys, the next tile's Q, dO, lse and D in flight (cp.async)
+//       while the current one's products run;
 //   (c) dq_kernel: one CTA per (query tile, head, batch), last tile first as
-//       the forward launches, loops over the live key tiles, recomputes P and
-//       dS the same way and accumulates dq += dS k.
-// Recomputing P in both (b) and (c) costs seven products against the five
-// of a design that adds dq across CTAs with atomics; it buys the
-// determinism.  The products use the forward's register tiles: a thread
-// owns RS query rows x BT / TS keys of the scores, and RA rows x its float4
-// column groups of an accumulator; tiles are copied with cp.async and read
-// as float4 (bf16 converted when read).  Masks are per element, so any S and
-// Sk work; rows past S or Sk are zero-filled and masked, and each CTA visits
-// exactly the tiles the forward visits for its rows.
+//       the forward launches, its Q and dO tiles in shared memory, looping
+//       over the live key tiles the same way.
+// Each warp owns 16 rows of the CTA's tile (keys in (b), queries in (c)) and
+// HD / WC columns of its accumulators, and runs mma.sync.m16n8k8 TF32
+// (mma.sync rather than wgmma: wgmma takes TF32 operands only K-major from
+// shared memory, so dk = dS^T q and dv = P^T dO would need transposed copies
+// of q and dO, and P and dS would go through shared memory; mma.sync takes
+// them from registers).  A warp forms the 16 x BC scores and dO.v^T (s^T =
+// K Q^T and dp^T = V dO^T in (b)) in registers, turns them into P and dS in
+// place (the masks skipped where the warp's whole tile is live), and uses
+// them at once as the A operand of dv += P^T dO and dk += dS^T q (dq += dS
+// k in (c)): the m16n8 accumulator holds columns 2t and 2t+1 of each row
+// where the m16n8k8 A fragment wants k-slots t and t + 4, so slot t stands
+// for column 2t and slot t + 4 for 2t + 1, and B's rows are read in that
+// order.  The head-dim products read their pairs (2t, 2t + 1) the same way,
+// as one 8-byte load.  A float32 streamed tile is split once a step by the
+// whole CTA into big and small arrays (one stage of it as it arrived, the
+// next stage's copy issued once the split is done), so no warp splits a B
+// operand; the CTA's own tiles are split as their A fragments are read.
+// Staged rows are HD + 8 elements long and every 8-column group of rows 4-7
+// mod 8 is swapped with its neighbour (column c ^ 8), so that both the
+// paired loads along a row and the loads of rows 2t and 2t + 1 hit 32
+// distinct banks; the swap is a constant of each thread, folded into its
+// offsets.  Recomputing P in both (b) and (c) costs seven products against
+// the five of a design that adds dq across CTAs with atomics; it buys the
+// determinism.  Masks are per element, so any S and Sk work; rows past S or
+// Sk are zero-filled and masked, and each CTA visits exactly the tiles the
+// masks leave live for its rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,162 +86,296 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 256;
+constexpr int kDsumThreads = 256;  // dsum_kernel: one warp a row
 
-// BT rows of a query tile and of a key tile; the score products: RS rows x TS
-// lanes a row group; the accumulations over the head dim: RA rows x TA lanes,
-// each lane HD / 4 / TA float4 column groups.  BT / RS * TS == BT / RA * TA
-// == kThreads.
+// WR warps of 16 rows each (the CTA's own rows), times WC slices of the head
+// dim for the accumulators (each slice's warps recompute the 16 x BC scores,
+// which keeps hd 128 and 256 within the registers); BC rows of the streamed
+// tile a step; MinB CTAs an SM for the register budget.
 template <int HD> struct Cfg;
-template <> struct Cfg<16> { static constexpr int BT = 64, RS = 4, TS = 16, RA = 1, TA = 4, MinB = 2; };
-template <> struct Cfg<32> { static constexpr int BT = 64, RS = 4, TS = 16, RA = 2, TA = 8, MinB = 2; };
-template <> struct Cfg<64> { static constexpr int BT = 64, RS = 4, TS = 16, RA = 4, TA = 16, MinB = 2; };
-template <> struct Cfg<80> { static constexpr int BT = 64, RS = 4, TS = 16, RA = 1, TA = 4, MinB = 1; };
-template <> struct Cfg<128> { static constexpr int BT = 64, RS = 4, TS = 16, RA = 4, TA = 16, MinB = 1; };
-template <> struct Cfg<256> { static constexpr int BT = 32, RS = 2, TS = 16, RA = 2, TA = 16, MinB = 1; };
+template <> struct Cfg<16> { static constexpr int WR = 4, WC = 1, BC = 32, MinB = 3; };
+template <> struct Cfg<32> { static constexpr int WR = 4, WC = 1, BC = 32, MinB = 3; };
+template <> struct Cfg<64> { static constexpr int WR = 4, WC = 1, BC = 32, MinB = 2; };
+template <> struct Cfg<80> { static constexpr int WR = 4, WC = 1, BC = 32, MinB = 2; };
+template <> struct Cfg<128> { static constexpr int WR = 4, WC = 2, BC = 32, MinB = 1; };
+template <> struct Cfg<256> { static constexpr int WR = 2, WC = 4, BC = 16, MinB = 1; };
 
-template <typename T, int HD> __host__ __device__ constexpr int row_ld() {
-  return HD + 16 / (int)sizeof(T);
+template <int HD> __host__ __device__ constexpr int threads() {
+  return 32 * Cfg<HD>::WR * Cfg<HD>::WC;
 }
-// four (BT, row_ld) tiles of T, two (BT, BT + 4) float tiles, lse and D rows
+template <int HD> __host__ __device__ constexpr int rows() { return 16 * Cfg<HD>::WR; }
+template <int HD> __host__ __device__ constexpr int row_ld() { return HD + 8; }
+template <typename T> __host__ __device__ constexpr bool exact() { return sizeof(T) == 2; }
+// Shared memory: the CTA's two own (rows, row_ld) tiles of T; the two
+// streamed (BC, row_ld) tiles of T as they arrive, in two stages for
+// bfloat16 and one for float32, whose tiles are split once a step into big
+// and small TF32 arrays of the same layout; the streamed rows' lse and D in
+// two stages (dkdv_kernel) or the own rows' (dq_kernel).
 template <typename T, int HD> __host__ __device__ constexpr size_t smem_bytes() {
-  using C = Cfg<HD>;
-  return sizeof(T) * 4 * (size_t)C::BT * row_ld<T, HD>() +
-         sizeof(float) * (2 * (size_t)C::BT * (C::BT + 4) + 2 * (size_t)C::BT);
+  constexpr size_t R = rows<HD>(), BC = Cfg<HD>::BC, LD = row_ld<HD>();
+  return sizeof(T) * LD * (2 * R + (exact<T>() ? 4 : 2) * BC) +
+         (exact<T>() ? 0 : sizeof(uint32_t) * 4 * BC * LD) + sizeof(float) * 4 * (BC > R ? BC : R);
+}
+
+// element (r, c) of a staged tile: rows 4-7 mod 8 swap their 8-column groups
+template <int HD> __device__ __forceinline__ int at(int r, int c) {
+  return r * row_ld<HD>() + (c ^ ((r & 4) << 1));
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ float2 ld_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
+__device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
-__device__ __forceinline__ float at(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ float dot4(const float4& a, const float4& b, float s) {
-  s = fmaf(a.x, b.x, s);
-  s = fmaf(a.y, b.y, s);
-  s = fmaf(a.z, b.z, s);
-  return fmaf(a.w, b.w, s);
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
 }
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
-// rows [row0, row0 + BT) of head `head` of a contiguous (B, S, heads, HD)
-// tensor into a (BT, row_ld) tile; rows at or past S are zero-filled
-template <typename T, int HD, int BT>
+// rows [row0, row0 + NR) of head `head` of a contiguous (B, S, heads, HD)
+// tensor into a staged (NR, row_ld) tile; rows at or past S are zero-filled
+template <typename T, int HD, int NR>
 __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int b, int row0,
                                           int S, int heads, int head) {
   constexpr int kPer = 16 / (int)sizeof(T);
   constexpr int kChunks = HD / kPer;
-  constexpr int LD = row_ld<T, HD>();
-  for (int e = threadIdx.x; e < BT * kChunks; e += kThreads) {
+  for (int e = threadIdx.x; e < NR * kChunks; e += threads<HD>()) {
     const int r = e / kChunks, ch = e % kChunks;
     const int row = row0 + r;
     const bool in = row < S;
     const T* from = in ? src + (((size_t)b * S + row) * heads + head) * HD + ch * kPer : src;
-    cp_async16(dst + r * LD + ch * kPer, from, in);
+    cp_async16(dst + at<HD>(r, ch * kPer), from, in);
   }
 }
 
-// s[r][c] = A[ty * RS + r] . Bm[tx + TS * c] over HD, both (BT, row_ld) tiles
-template <typename T, int HD>
-__device__ __forceinline__ void scores(float (&s)[Cfg<HD>::RS][Cfg<HD>::BT / Cfg<HD>::TS],
-                                       const T* A, const T* Bm, int ty, int tx) {
-  using C = Cfg<HD>;
-  constexpr int RS = C::RS, TS = C::TS, CM = C::BT / C::TS, LD = row_ld<T, HD>();
-#pragma unroll
-  for (int r = 0; r < RS; ++r)
-#pragma unroll
-    for (int c = 0; c < CM; ++c) s[r][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 a[RS], bv[CM];
-#pragma unroll
-    for (int r = 0; r < RS; ++r) a[r] = load4(A + (ty * RS + r) * LD + d);
-#pragma unroll
-    for (int c = 0; c < CM; ++c) bv[c] = load4(Bm + (tx + TS * c) * LD + d);
-#pragma unroll
-    for (int r = 0; r < RS; ++r)
-#pragma unroll
-      for (int c = 0; c < CM; ++c) s[r][c] = dot4(a[r], bv[c], s[r][c]);
+// x rounded to TF32 (to nearest, ties away from zero, as cvt.rna.tf32.f32
+// for finite x: two integer operations where cvt takes about four)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// A split-precision operand fragment: big = tf32(x), small = tf32(x - big);
+// with kExact (a bfloat16 value, exact in TF32) small is never read.
+template <int N> struct Frag {
+  uint32_t big[N], small[N];
+};
+template <bool kExact, int N>
+__device__ __forceinline__ void split(Frag<N>& f, int i, float x) {
+  f.big[i] = kExact ? __float_as_uint(x) : tf32(x);
+  if (!kExact) f.small[i] = tf32(x - __uint_as_float(f.big[i]));
+}
+
+// A streamed tile as TF32 operands: float32 tiles split once a step into
+// big and small arrays, bfloat16 tiles read as they arrived (exact)
+template <typename T> struct View;
+template <> struct View<float> {
+  const uint32_t* big;
+  const uint32_t* small;
+  __device__ __forceinline__ void pair(Frag<2>& f, int off) const {
+    const uint2 b = *reinterpret_cast<const uint2*>(big + off);
+    const uint2 s = *reinterpret_cast<const uint2*>(small + off);
+    f.big[0] = b.x, f.big[1] = b.y, f.small[0] = s.x, f.small[1] = s.y;
+  }
+  __device__ __forceinline__ void one(Frag<2>& f, int i, int off) const {
+    f.big[i] = big[off];
+    f.small[i] = small[off];
+  }
+};
+template <> struct View<__nv_bfloat16> {
+  const __nv_bfloat16* raw;
+  __device__ __forceinline__ void pair(Frag<2>& f, int off) const {
+    const float2 v = ld_pair(raw + off);
+    f.big[0] = __float_as_uint(v.x), f.big[1] = __float_as_uint(v.y);
+  }
+  __device__ __forceinline__ void one(Frag<2>& f, int i, int off) const {
+    f.big[i] = __float_as_uint(__bfloat162float(raw[off]));
+  }
+};
+
+// Splits n floats (a multiple of 4, 16-byte aligned) into big and small.
+template <int HD>
+__device__ __forceinline__ void split_tiles(const float* raw, uint32_t* big, uint32_t* small,
+                                            int n) {
+  for (int e = threadIdx.x * 4; e < n; e += threads<HD>() * 4) {
+    const float4 x = *reinterpret_cast<const float4*>(raw + e);
+    uint4 b, s;
+    b.x = tf32(x.x), b.y = tf32(x.y), b.z = tf32(x.z), b.w = tf32(x.w);
+    s.x = tf32(x.x - __uint_as_float(b.x)), s.y = tf32(x.y - __uint_as_float(b.y));
+    s.z = tf32(x.z - __uint_as_float(b.z)), s.w = tf32(x.w - __uint_as_float(b.w));
+    *reinterpret_cast<uint4*>(big + e) = b;
+    *reinterpret_cast<uint4*>(small + e) = s;
   }
 }
 
-// acc[r][4g + e] += sum_kk P[ty * RA + r][kk] * V[kk][4 (tx + TA g) + e], kk < BT;
-// P a (BT, BT + 4) float tile, V a (BT, row_ld) tile
-template <typename T, int HD>
-__device__ __forceinline__ void accumulate(float (&acc)[Cfg<HD>::RA][HD / Cfg<HD>::TA],
-                                           const float* P, const T* V, int ty, int tx) {
-  using C = Cfg<HD>;
-  constexpr int RA = C::RA, TA = C::TA, GPL = HD / 4 / TA, LD = row_ld<T, HD>();
-  constexpr int LDP = C::BT + 4;
-#pragma unroll 2
-  for (int kk = 0; kk < C::BT; kk += 4) {
-    float4 pv[RA];
-#pragma unroll
-    for (int r = 0; r < RA; ++r) pv[r] = load4(P + (ty * RA + r) * LDP + kk);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int g = 0; g < GPL; ++g) {
-        const float4 vv = load4(V + (kk + i) * LD + 4 * (tx + TA * g));
-#pragma unroll
-        for (int r = 0; r < RA; ++r) {
-          const float p = at(pv[r], i);
-          acc[r][4 * g + 0] = fmaf(p, vv.x, acc[r][4 * g + 0]);
-          acc[r][4 * g + 1] = fmaf(p, vv.y, acc[r][4 * g + 1]);
-          acc[r][4 * g + 2] = fmaf(p, vv.z, acc[r][4 * g + 2]);
-          acc[r][4 * g + 3] = fmaf(p, vv.w, acc[r][4 * g + 3]);
-        }
-      }
-    }
-  }
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// P and dS of one (query tile q0, key tile k0) pair from the scores s = q.k
-// and dp = dO.v of this thread's elements; lse_s is in log2 units
+// d += a b over one 8-deep step in split precision, the small terms first;
+// an exact operand's small terms are skipped.  The tensor cores truncate
+// what they accumulate, so a split product sums its step into a fresh
+// accumulator and adds that to d in float32, rounding to nearest: the
+// truncation then touches one step's terms, not the running sum (with
+// every term in d, dO.v - D lost up to ~1e-4 on the rows where it cancels).
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void mma3_into(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
+  if (!kExactB) mma(d, a.big, b.small);
+  if (!kExactA) mma(d, a.small, b.big);
+  mma(d, a.big, b.big);
+}
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
+  if (kExactA && kExactB) {
+    mma(d, a.big, b.big);
+    return;
+  }
+  float step[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3_into<kExactA, kExactB>(step, a, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += step[e];
+}
+// 8-deep steps of the dv, dk and dq products that share one fresh
+// accumulator: the truncation touches 4 steps' terms, and the float32 adds
+// come once for 4 steps
+constexpr int kStepGroup = 4;
+
+// This thread's offsets into a staged tile, so that every fragment load is
+// a base plus a constant.  Pattern 1 reads the pair (row r0 + g, columns
+// kk + 2t, kk + 2t + 1): row1[kk & 8 ? 1 : 0] + r0 * ld + kk.  Pattern 2
+// reads (rows j0 + 2t and j0 + 2t + 1, column c0 + n0 + g):
+// row2[n0 & 8 ? 1 : 0] + j0 * ld + n0 (and + ld).  The swizzle of at() is a
+// constant of the thread in both: rows g and 2t fix bit 2 of the row.
+template <int HD> struct Offs {
+  int row1[2], row2[2];
+  __device__ __forceinline__ explicit Offs(int c0) {
+    constexpr int LD = row_ld<HD>();
+    const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+    const int s1 = (g & 4) << 1, s2 = (t & 2) << 2;
+    row1[0] = g * LD + 2 * t + s1;
+    row1[1] = g * LD + 2 * t - s1;
+    row2[0] = 2 * t * LD + c0 + g + s2;
+    row2[1] = 2 * t * LD + c0 + g - s2;
+  }
+};
+
+// The A fragment of own rows [m0, m0 + 16) and head-dim columns [kk, kk + 8):
+// k-slot t is column kk + 2t, slot t + 4 is kk + 2t + 1
+template <bool kExact, int HD, typename T>
+__device__ __forceinline__ Frag<4> a_rows(const T* tile, int off) {
+  const float2 lo = ld_pair(tile + off);
+  const float2 hi = ld_pair(tile + off + 8 * row_ld<HD>());
+  Frag<4> f;
+  split<kExact>(f, 0, lo.x);
+  split<kExact>(f, 1, hi.x);
+  split<kExact>(f, 2, lo.y);
+  split<kExact>(f, 3, hi.y);
+  return f;
+}
+
+// The B fragment of rows [j0, j0 + 8) (the k dim) and columns [n0, n0 + 8)
+// of a streamed tile: k-slot t is row j0 + 2t and slot t + 4 row j0 + 2t +
+// 1, the order in which an accumulator serves as the A operand (acc_as_a)
+template <int HD, typename V>
+__device__ __forceinline__ Frag<2> b_cols(const V& v, int off) {
+  Frag<2> f;
+  v.one(f, 0, off);
+  v.one(f, 1, off + row_ld<HD>());
+  return f;
+}
+
+// An m16n8 accumulator (rows g and g + 8, columns 2t and 2t + 1) as the
+// m16n8k8 A operand with the k-slots of b_cols
+__device__ __forceinline__ Frag<4> acc_as_a(const float (&c)[4]) {
+  Frag<4> f;
+  split<false>(f, 0, c[0]);
+  split<false>(f, 1, c[2]);
+  split<false>(f, 2, c[1]);
+  split<false>(f, 3, c[3]);
+  return f;
+}
+
+// P and dS from the scores s = q.k and dp = dO.v, in place; lse2 is in
+// log2 units
 struct Grad {
   float scale_log2, cap_in, cap_out;
   int S, Sk, causal, window;
-  __device__ __forceinline__ void operator()(float s, float dp, int qi, int kj, float lse2,
-                                             float dsum, float& p, float& ds) const {
-    const bool ok = qi < S && kj < Sk && (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
-    p = 0.f;
-    ds = 0.f;
-    if (!ok) return;
-    float x, dcap = 1.f;
-    if (cap_out > 0.f) {
-      const float t = tanhf(s * cap_in);
-      x = cap_out * t;
-      dcap = 1.f - t * t;
-    } else {
-      x = s * scale_log2;
+  // whether every (query, key) of queries [q_lo, q_hi] x keys [k_lo, k_hi]
+  // is live
+  __device__ __forceinline__ bool all_live(int q_lo, int q_hi, int k_lo, int k_hi) const {
+    return q_hi < S && k_hi < Sk && (!causal || k_hi <= q_lo) &&
+           (window <= 0 || q_hi - k_lo < window);
+  }
+  template <bool kCap, bool kAllLive>
+  __device__ __forceinline__ void apply(float& s, float& dp, int qi, int kj, float lse2,
+                                        float dsum) const {
+    if (!kAllLive &&
+        !(qi < S && kj < Sk && (!causal || kj <= qi) && (window <= 0 || qi - kj < window))) {
+      s = dp = 0.f;
+      return;
     }
-    p = exp2f(x - lse2);
-    ds = p * (dp - dsum) * dcap;
+    if (kCap) {
+      const float t = tanhf(s * cap_in);
+      s = exp2f(cap_out * t - lse2);
+      dp = s * (dp - dsum) * (1.f - t * t);
+    } else {
+      s = exp2f(s * scale_log2 - lse2);
+      dp = s * (dp - dsum);
+    }
+  }
+  // every element of a warp's 16 x 8 NT tile: at(nt, e) gives its (query,
+  // key), lse(nt, e) and dsum(nt, e) its row's values; the softcap and the
+  // masks chosen once for the tile
+  template <int NT, class At, class Lse, class Dsum>
+  __device__ __forceinline__ void tile(float (&s)[NT][4], float (&dp)[NT][4], bool live, At at,
+                                       Lse lse, Dsum dsum) const {
+    if (cap_out > 0.f) {
+      if (live) each<true, true>(s, dp, at, lse, dsum);
+      else each<true, false>(s, dp, at, lse, dsum);
+    } else {
+      if (live) each<false, true>(s, dp, at, lse, dsum);
+      else each<false, false>(s, dp, at, lse, dsum);
+    }
+  }
+  template <bool kCap, bool kAllLive, int NT, class At, class Lse, class Dsum>
+  __device__ __forceinline__ void each(float (&s)[NT][4], float (&dp)[NT][4], At at, Lse lse,
+                                       Dsum dsum) const {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int2 qk = at(nt, e);
+        apply<kCap, kAllLive>(s[nt][e], dp[nt][e], qk.x, qk.y, lse(nt, e), dsum(nt, e));
+      }
   }
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDsumThreads)
 dsum_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ dsum,
             int S, int H, int hd, long long rows) {
-  const long long row = (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const long long row = (long long)blockIdx.x * (kDsumThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const T* orow = o + row * hd;
@@ -226,182 +390,287 @@ dsum_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restri
   }
 }
 
+// The 16 x BC scores and dO.v^T of this warp's rows m0.. (of the own tiles
+// R1 and R2) against the BC rows of the streamed tiles C1 and C2, over the
+// head dim
+template <int HD, typename T>
+__device__ __forceinline__ void scores(float (&s)[Cfg<HD>::BC / 8][4],
+                                       float (&dp)[Cfg<HD>::BC / 8][4], const T* R1,
+                                       const T* R2, const View<T>& C1, const View<T>& C2, int m0,
+                                       const Offs<HD>& o) {
+  constexpr int NT = Cfg<HD>::BC / 8, LD = row_ld<HD>();
+  constexpr bool kExact = exact<T>();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD; kk += 8) {
+    const int off = o.row1[(kk >> 3) & 1] + kk;
+    const Frag<4> a1 = a_rows<kExact, HD>(R1, off + m0 * LD);
+    const Frag<4> a2 = a_rows<kExact, HD>(R2, off + m0 * LD);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      Frag<2> b1, b2;
+      C1.pair(b1, off + nt * 8 * LD);
+      C2.pair(b2, off + nt * 8 * LD);
+      mma3<kExact, kExact>(s[nt], a1, b1);
+      mma3<kExact, kExact>(dp[nt], a2, b2);
+    }
+  }
+}
+
+// The streamed stage's two tiles as operands: split once (float32, into
+// `split`: big of both tiles, then small of both) or read as they are
+template <int HD, int BC>
+__device__ __forceinline__ void views(const float* raw, uint32_t* split, View<float>& c1,
+                                      View<float>& c2) {
+  constexpr int n = BC * row_ld<HD>();
+  split_tiles<HD>(raw, split, split + 2 * n, 2 * n);
+  c1 = View<float>{split, split + 2 * n};
+  c2 = View<float>{split + n, split + 3 * n};
+}
+template <int HD, int BC>
+__device__ __forceinline__ void views(const __nv_bfloat16* raw, uint32_t*,
+                                      View<__nv_bfloat16>& c1, View<__nv_bfloat16>& c2) {
+  c1 = View<__nv_bfloat16>{raw};
+  c2 = View<__nv_bfloat16>{raw + BC * row_ld<HD>()};
+}
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, Cfg<HD>::MinB)
+__global__ void __launch_bounds__(threads<HD>(), Cfg<HD>::MinB)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ dsum, T* __restrict__ dk, T* __restrict__ dv, int H, int KH,
             float scale, Grad grad) {
   using C = Cfg<HD>;
-  constexpr int BT = C::BT, RS = C::RS, TS = C::TS, CM = BT / TS, RA = C::RA, TA = C::TA;
-  constexpr int GPL = HD / 4 / TA, LD = row_ld<T, HD>(), LDP = BT + 4;
-  static_assert(BT / RS * TS == kThreads && BT / RA * TA == kThreads, "thread tiles");
-  static_assert(32 % TS == 0 && 32 % TA == 0 && (HD / 4) % TA == 0, "lane groups");
+  constexpr int LD = row_ld<HD>(), R = rows<HD>(), BC = C::BC, NT = BC / 8;
+  constexpr int HW = HD / C::WC, ND = HW / 8, kStages = exact<T>() ? 2 : 1;
+  constexpr bool kExact = exact<T>();
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + BT * LD;
-  T* Qs = Vs + BT * LD;
-  T* dOs = Qs + BT * LD;
-  float* PT = reinterpret_cast<float*>(dOs + BT * LD);  // (keys, queries): P transposed
-  float* dST = PT + BT * LDP;                           // dS transposed
-  float* lse_s = dST + BT * LDP;
-  float* D_s = lse_s + BT;
+  T* Vs = Ks + R * LD;
+  T* raw = Vs + R * LD;  // kStages x (Q tile, dO tile) of (BC, LD)
+  uint32_t* split = reinterpret_cast<uint32_t*>(raw + kStages * 2 * BC * LD);
+  float* lse_s = reinterpret_cast<float*>(split + (kExact ? 0 : 4 * BC * LD));  // 2 x BC
+  float* D_s = lse_s + 2 * BC;
 
   const int S = grad.S, Sk = grad.Sk;
-  const int k0 = blockIdx.x * BT, kh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * R, kh = blockIdx.y, b = blockIdx.z;
   const int G = H / KH;
-  const int tid = threadIdx.x;
-  const int ty = tid / TS, tx = tid % TS, ya = tid / TA, xa = tid % TA;
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const int m0 = warp / C::WC * 16, c0 = warp % C::WC * HW;
+  const Offs<HD> o(c0);
 
-  load_tile<T, HD, BT>(Ks, k, b, k0, Sk, KH, kh);
-  load_tile<T, HD, BT>(Vs, v, b, k0, Sk, KH, kh);
+  load_tile<T, HD, R>(Ks, k, b, k0, Sk, KH, kh);
+  load_tile<T, HD, R>(Vs, v, b, k0, Sk, KH, kh);
+
+  // the query rows that see a key of this tile (masks only where Sk == S);
+  // step i is query head kh * G + i / n_qt, query tile i % n_qt
+  const int q_lo = grad.causal ? k0 : 0;
+  const int q_hi = grad.window > 0 ? min(S, k0 + R - 1 + grad.window) : S;
+  const int q_start = (q_lo / BC) * BC;
+  const int n_qt = q_hi > q_start ? (q_hi - q_start + BC - 1) / BC : 0;
+  const int n_steps = G * n_qt;
+  auto issue = [&](int i) {
+    const int h = kh * G + i / n_qt, q0 = q_start + i % n_qt * BC;
+    T* st = raw + i % kStages * 2 * BC * LD;
+    load_tile<T, HD, BC>(st, q, b, q0, S, H, h);
+    load_tile<T, HD, BC>(st + BC * LD, dout, b, q0, S, H, h);
+    for (int r = threadIdx.x; r < BC; r += threads<HD>()) {
+      const bool in = q0 + r < S;
+      const size_t row = ((size_t)b * H + h) * S + (in ? q0 + r : 0);
+      cp_async4(lse_s + (i & 1) * BC + r, lse + row, in);
+      cp_async4(D_s + (i & 1) * BC + r, dsum + row, in);
+    }
+  };
+  if (n_steps > 0) issue(0);
   cp_async_commit();
 
-  float dk_acc[RA][4 * GPL], dv_acc[RA][4 * GPL];
+  float dk_acc[ND][4], dv_acc[ND][4];
 #pragma unroll
-  for (int r = 0; r < RA; ++r)
+  for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-    for (int j = 0; j < 4 * GPL; ++j) dk_acc[r][j] = dv_acc[r][j] = 0.f;
+    for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
 
-  // the query rows that see a key of this tile (masks only where Sk == S)
-  const int q_lo = grad.causal ? k0 : 0;
-  const int q_hi = grad.window > 0 ? min(S, k0 + BT - 1 + grad.window) : S;
-  const int q_start = (q_lo / BT) * BT;
-  for (int h = kh * G; h < (kh + 1) * G; ++h) {
-    for (int q0 = q_start; q0 < q_hi; q0 += BT) {
-      __syncthreads();  // the previous tile's Qs, dOs, PT, dST, lse_s, D_s are free
-      load_tile<T, HD, BT>(Qs, q, b, q0, S, H, h);
-      load_tile<T, HD, BT>(dOs, dout, b, q0, S, H, h);
-      cp_async_commit();
-      for (int i = tid; i < BT; i += kThreads) {
-        const int qi = q0 + i;
-        const size_t at_row = ((size_t)b * H + h) * S + qi;
-        lse_s[i] = qi < S ? lse[at_row] * kLog2e : 0.f;
-        D_s[i] = qi < S ? dsum[at_row] : 0.f;
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // step i's tiles are in; step i - 1's readers are done
+    View<T> Qv, dOv;
+    views<HD, BC>(raw + i % kStages * 2 * BC * LD, split, Qv, dOv);
+    if (!kExact) __syncthreads();  // the split tiles are in; the raw stage is free
+    if (i + 1 < n_steps) issue(i + 1);
+    cp_async_commit();
+    const int q0 = q_start + i % n_qt * BC;
+    const float* ls = lse_s + (i & 1) * BC;
+    const float* Ds = D_s + (i & 1) * BC;
+
+    // s^T = K Q^T and dp^T = V dO^T, then P^T and dS^T in place
+    float s[NT][4], dp[NT][4];
+    scores<HD>(s, dp, Ks, Vs, Qv, dOv, m0, o);
+    grad.tile(
+        s, dp, grad.all_live(q0, q0 + BC - 1, k0 + m0, k0 + m0 + 15),
+        [&](int nt, int e) {
+          return make_int2(q0 + nt * 8 + 2 * t + (e & 1), k0 + m0 + g + (e >> 1) * 8);
+        },
+        [&](int nt, int e) { return ls[nt * 8 + 2 * t + (e & 1)] * kLog2e; },
+        [&](int nt, int e) { return Ds[nt * 8 + 2 * t + (e & 1)]; });
+    // dv += P^T dO and dk += dS^T Q over this tile's queries, KG 8-query
+    // steps summed into a fresh accumulator at a time
+    constexpr int KG = kStepGroup < NT ? kStepGroup : NT;
+#pragma unroll
+    for (int k0g = 0; k0g < NT; k0g += KG) {
+      Frag<4> ap[KG], ad[KG];
+#pragma unroll
+      for (int kq = 0; kq < KG; ++kq) {
+        ap[kq] = acc_as_a(s[k0g + kq]);
+        ad[kq] = acc_as_a(dp[k0g + kq]);
       }
-      cp_async_wait_all();
-      __syncthreads();
-
-      float s[RS][CM], dp[RS][CM];
-      scores<T, HD>(s, Qs, Ks, ty, tx);
-      scores<T, HD>(dp, dOs, Vs, ty, tx);
 #pragma unroll
-      for (int r = 0; r < RS; ++r) {
-        const int i = ty * RS + r;
+      for (int nd = 0; nd < ND; ++nd) {
+        float sv[4] = {0.f, 0.f, 0.f, 0.f}, sk[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int c = 0; c < CM; ++c) {
-          const int j = tx + TS * c;
-          float p, ds;
-          grad(s[r][c], dp[r][c], q0 + i, k0 + j, lse_s[i], D_s[i], p, ds);
-          PT[j * LDP + i] = p;
-          dST[j * LDP + i] = ds;
+        for (int kq = 0; kq < KG; ++kq) {
+          const int off = o.row2[nd & 1] + (k0g + kq) * 8 * LD + nd * 8;
+          mma3_into<false, kExact>(sv, ap[kq], b_cols<HD>(dOv, off));
+          mma3_into<false, kExact>(sk, ad[kq], b_cols<HD>(Qv, off));
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dv_acc[nd][e] += sv[e];
+          dk_acc[nd][e] += sk[e];
         }
       }
-      __syncthreads();
-      accumulate<T, HD>(dv_acc, PT, dOs, ya, xa);
-      accumulate<T, HD>(dk_acc, dST, Qs, ya, xa);
     }
   }
-  cp_async_wait_all();  // no copy outlives the CTA (a tile with no live query)
+  cp_async_wait_all();  // no copy outlives the CTA
 
 #pragma unroll
-  for (int r = 0; r < RA; ++r) {
-    const int kj = k0 + ya * RA + r;
+  for (int half = 0; half < 2; ++half) {
+    const int kj = k0 + m0 + g + half * 8;
     if (kj >= Sk) continue;
-    const size_t at_row = (((size_t)b * Sk + kj) * KH + kh) * HD;
+    const size_t row = (((size_t)b * Sk + kj) * KH + kh) * HD;
 #pragma unroll
-    for (int g = 0; g < GPL; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        store(&dk[at_row + 4 * (xa + TA * g) + e], dk_acc[r][4 * g + e] * scale);
-        store(&dv[at_row + 4 * (xa + TA * g) + e], dv_acc[r][4 * g + e]);
-      }
+    for (int nd = 0; nd < ND; ++nd) {
+      const int col = c0 + nd * 8 + 2 * t;
+      store2(&dk[row + col], dk_acc[nd][2 * half] * scale, dk_acc[nd][2 * half + 1] * scale);
+      store2(&dv[row + col], dv_acc[nd][2 * half], dv_acc[nd][2 * half + 1]);
+    }
   }
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, Cfg<HD>::MinB)
+__global__ void __launch_bounds__(threads<HD>(), Cfg<HD>::MinB)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ dsum, T* __restrict__ dq, int H, int KH, float scale,
           Grad grad) {
   using C = Cfg<HD>;
-  constexpr int BT = C::BT, RS = C::RS, TS = C::TS, CM = BT / TS, RA = C::RA, TA = C::TA;
-  constexpr int GPL = HD / 4 / TA, LD = row_ld<T, HD>(), LDP = BT + 4;
+  constexpr int LD = row_ld<HD>(), R = rows<HD>(), BC = C::BC, NT = BC / 8;
+  constexpr int HW = HD / C::WC, ND = HW / 8, kStages = exact<T>() ? 2 : 1;
+  constexpr bool kExact = exact<T>();
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* dOs = Qs + BT * LD;
-  T* Ks = dOs + BT * LD;
-  T* Vs = Ks + BT * LD;
-  float* dSs = reinterpret_cast<float*>(Vs + BT * LD);  // (queries, keys)
-  float* lse_s = dSs + BT * LDP;
-  float* D_s = lse_s + BT;
+  T* dOs = Qs + R * LD;
+  T* raw = dOs + R * LD;  // kStages x (K tile, V tile) of (BC, LD)
+  uint32_t* split = reinterpret_cast<uint32_t*>(raw + kStages * 2 * BC * LD);
+  float* lse_s = reinterpret_cast<float*>(split + (kExact ? 0 : 4 * BC * LD));  // R
+  float* D_s = lse_s + R;
 
   const int S = grad.S, Sk = grad.Sk;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;  // last tile first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;  // last tile first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KH);
-  const int tid = threadIdx.x;
-  const int ty = tid / TS, tx = tid % TS, ya = tid / TA, xa = tid % TA;
-  const int q_end = min(q0 + BT, S);
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const int m0 = warp / C::WC * 16, c0 = warp % C::WC * HW;
+  const Offs<HD> o(c0);
 
-  load_tile<T, HD, BT>(Qs, q, b, q0, S, H, h);
-  load_tile<T, HD, BT>(dOs, dout, b, q0, S, H, h);
-  cp_async_commit();
-  for (int i = tid; i < BT; i += kThreads) {
-    const int qi = q0 + i;
-    const size_t at_row = ((size_t)b * H + h) * S + qi;
-    lse_s[i] = qi < S ? lse[at_row] * kLog2e : 0.f;
-    D_s[i] = qi < S ? dsum[at_row] : 0.f;
+  load_tile<T, HD, R>(Qs, q, b, q0, S, H, h);
+  load_tile<T, HD, R>(dOs, dout, b, q0, S, H, h);
+  for (int r = threadIdx.x; r < R; r += threads<HD>()) {
+    const bool in = q0 + r < S;
+    const size_t row = ((size_t)b * H + h) * S + (in ? q0 + r : 0);
+    cp_async4(lse_s + r, lse + row, in);
+    cp_async4(D_s + r, dsum + row, in);
   }
 
-  float acc[RA][4 * GPL];
-#pragma unroll
-  for (int r = 0; r < RA; ++r)
-#pragma unroll
-    for (int j = 0; j < 4 * GPL; ++j) acc[r][j] = 0.f;
-
-  // the forward's live key tiles of this query tile
+  // the live key tiles of this query tile
   const int k_lo = grad.window > 0 ? max(0, q0 - grad.window + 1) : 0;
-  const int k_hi = grad.causal ? q_end : Sk;
-  for (int k0 = (k_lo / BT) * BT; k0 < k_hi; k0 += BT) {
-    __syncthreads();  // the previous tile's Ks, Vs and dSs are free
-    load_tile<T, HD, BT>(Ks, k, b, k0, Sk, KH, kh);
-    load_tile<T, HD, BT>(Vs, v, b, k0, Sk, KH, kh);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
+  const int k_hi = grad.causal ? min(q0 + R, S) : Sk;
+  const int k_start = (k_lo / BC) * BC;
+  const int n_steps = k_hi > k_start ? (k_hi - k_start + BC - 1) / BC : 0;
+  auto issue = [&](int i) {
+    T* st = raw + i % kStages * 2 * BC * LD;
+    load_tile<T, HD, BC>(st, k, b, k_start + i * BC, Sk, KH, kh);
+    load_tile<T, HD, BC>(st + BC * LD, v, b, k_start + i * BC, Sk, KH, kh);
+  };
+  if (n_steps > 0) issue(0);
+  cp_async_commit();
 
-    float s[RS][CM], dp[RS][CM];
-    scores<T, HD>(s, Qs, Ks, ty, tx);
-    scores<T, HD>(dp, dOs, Vs, ty, tx);
+  float acc[ND][4];
 #pragma unroll
-    for (int r = 0; r < RS; ++r) {
-      const int i = ty * RS + r;
+  for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-      for (int c = 0; c < CM; ++c) {
-        const int j = tx + TS * c;
-        float p, ds;
-        grad(s[r][c], dp[r][c], q0 + i, k0 + j, lse_s[i], D_s[i], p, ds);
-        dSs[i * LDP + j] = ds;
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  float lse2[2], Dr[2];
+
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // step i's tiles are in; step i - 1's readers are done
+    if (i == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        lse2[half] = lse_s[m0 + g + half * 8] * kLog2e;
+        Dr[half] = D_s[m0 + g + half * 8];
       }
     }
-    __syncthreads();
-    accumulate<T, HD>(acc, dSs, Ks, ya, xa);
+    View<T> Kv, Vv;
+    views<HD, BC>(raw + i % kStages * 2 * BC * LD, split, Kv, Vv);
+    if (!kExact) __syncthreads();  // the split tiles are in; the raw stage is free
+    if (i + 1 < n_steps) issue(i + 1);
+    cp_async_commit();
+    const int k0 = k_start + i * BC;
+
+    // s = Q K^T and dp = dO V^T, then P and dS in place, then dq += dS K
+    float s[NT][4], dp[NT][4];
+    scores<HD>(s, dp, Qs, dOs, Kv, Vv, m0, o);
+    grad.tile(
+        s, dp, grad.all_live(q0 + m0, q0 + m0 + 15, k0, k0 + BC - 1),
+        [&](int nt, int e) {
+          return make_int2(q0 + m0 + g + (e >> 1) * 8, k0 + nt * 8 + 2 * t + (e & 1));
+        },
+        [&](int, int e) { return lse2[e >> 1]; }, [&](int, int e) { return Dr[e >> 1]; });
+    constexpr int KG = kStepGroup < NT ? kStepGroup : NT;
+#pragma unroll
+    for (int k0g = 0; k0g < NT; k0g += KG) {
+      Frag<4> ad[KG];
+#pragma unroll
+      for (int kk = 0; kk < KG; ++kk) ad[kk] = acc_as_a(dp[k0g + kk]);
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        float sq[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < KG; ++kk)
+          mma3_into<false, kExact>(
+              sq, ad[kk], b_cols<HD>(Kv, o.row2[nd & 1] + (k0g + kk) * 8 * LD + nd * 8));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] += sq[e];
+      }
+    }
   }
   cp_async_wait_all();
 
 #pragma unroll
-  for (int r = 0; r < RA; ++r) {
-    const int qi = q0 + ya * RA + r;
+  for (int half = 0; half < 2; ++half) {
+    const int qi = q0 + m0 + g + half * 8;
     if (qi >= S) continue;
-    const size_t at_row = (((size_t)b * S + qi) * H + h) * HD;
+    const size_t row = (((size_t)b * S + qi) * H + h) * HD;
 #pragma unroll
-    for (int g = 0; g < GPL; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) store(&dq[at_row + 4 * (xa + TA * g) + e], acc[r][4 * g + e] * scale);
+    for (int nd = 0; nd < ND; ++nd)
+      store2(&dq[row + c0 + nd * 8 + 2 * t], acc[nd][2 * half] * scale,
+             acc[nd][2 * half + 1] * scale);
   }
 }
 
@@ -416,8 +685,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
                    const float* lse, float* dsum, void* dq, void* dk, void* dv, int B, int S,
                    int Sk, int H, int KH, int causal, int window, float softcap,
                    cudaStream_t stream) {
-  using C = Cfg<HD>;
   constexpr size_t smem = smem_bytes<T, HD>();
+  constexpr int R = rows<HD>();
   static bool opted_in = false;  // the attributes are set once per instantiation
   if (!opted_in) {
     cudaError_t err = opt_in(dkdv_kernel<T, HD>, smem);
@@ -432,16 +701,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  const long long rows = (long long)B * S * H;
-  dsum_kernel<T><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads, 0,
-                   stream>>>(static_cast<const T*>(o), dot, dsum, S, H, HD, rows);
+  const long long n_rows = (long long)B * S * H;
+  constexpr int kRowsPerBlock = kDsumThreads / 32;
+  dsum_kernel<T><<<(unsigned)((n_rows + kRowsPerBlock - 1) / kRowsPerBlock), kDsumThreads, 0,
+                   stream>>>(
+      static_cast<const T*>(o), dot, dsum, S, H, HD, n_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<T, HD><<<dim3((Sk + C::BT - 1) / C::BT, KH, B), kThreads, smem, stream>>>(
+  dkdv_kernel<T, HD><<<dim3((Sk + R - 1) / R, KH, B), threads<HD>(), smem, stream>>>(
       qt, kt, vt, dot, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), H, KH, scale, grad);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<T, HD><<<dim3((S + C::BT - 1) / C::BT, H, B), kThreads, smem, stream>>>(
+  dq_kernel<T, HD><<<dim3((S + R - 1) / R, H, B), threads<HD>(), smem, stream>>>(
       qt, kt, vt, dot, lse, dsum, static_cast<T*>(dq), H, KH, scale, grad);
   return cudaGetLastError();
 }

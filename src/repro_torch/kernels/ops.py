@@ -347,9 +347,10 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, chunk: int, init_state, dy, d_final_state, sa
     (B,H,P,N) float32 are the gradients of y and of the final state, either
     None for zero.  On the card ``saved`` is the forward's scratch
     (``_ssd_forward(..., keep=True)``), x, Bm and Cm float32 or bfloat16
-    alike, dt and A float32, all contiguous, and the kernel runs in five
-    launches (four when G == H) on float32 scratch allocated here, counted
-    as one under ``ssd_scan_bwd``.  On the CPU this is
+    alike, dt and A float32, all contiguous, and the kernel runs in six
+    launches (five when G == H; dC and dB are summed over slices of 8
+    heads) on float32 scratch allocated here, counted as one under
+    ``ssd_scan_bwd``.  On the CPU this is
     ``ref.ssd_scan_bwd_ref``, its float32 results cast to the inputs'
     dtypes."""
     tensors = [t for t in (x, dt, A, Bm, Cm, init_state, dy, d_final_state) if t is not None]

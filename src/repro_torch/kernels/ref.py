@@ -62,7 +62,8 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     return ssd_chunked(x, dt, A, Bm, Cm, chunk, init_state)
 
 
-def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, chunk: int, init_state=None, dy=None, d_final_state=None):
+def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, chunk: int, init_state=None, dy=None, d_final_state=None,
+                     einsum=torch.einsum):
     """The gradient of ``ssd_scan_ref`` written out in its chunked form, as
     the backward kernel computes it.  Shapes as the forward's (S a multiple
     of ``chunk``); ``dy`` (B,S,H,P) and ``d_final_state`` (B,H,P,N) are the
@@ -97,6 +98,9 @@ def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, chunk: int, init_state=None, dy=None, d_f
     not exact, so this cs and the kernel's may still differ by an ulp.  The sums that
     cancel (T's row and column sums, d cs, its reverse cumsum, dA and the
     decay term) are taken in float64, as in the kernel; the rest in float32.
+    ``einsum`` computes the backward's matrix products (dy h, G B, x G, D,
+    M dy and dCB with B and C): the tests pass ``einsum_tf32x3`` or
+    ``einsum_tf32`` to see what the tensor cores' rounding does to them.
     Returns (dx, ddt, dA, dB, dC, d_init_state), float32, in the inputs'
     shapes; d_init_state (B,H,P,N) is the gradient entering chunk 0."""
     f32, f64 = torch.float32, torch.float64
@@ -132,7 +136,7 @@ def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, chunk: int, init_state=None, dy=None, d_f
 
     # (1) the carried term
     ecs = torch.exp(cs)
-    dC_h = torch.einsum("bcqhp,bchpn->bcqhn", dyc, hs) * ecs.movedim(-1, -2)[..., None]
+    dC_h = einsum("bcqhp,bchpn->bcqhn", dyc, hs) * ecs.movedim(-1, -2)[..., None]
     dcs = torch.einsum("bcqhn,bcqhn->bchq", dC_h, CH).to(f64)
     dh = torch.einsum("bchq,bcqhp,bcqhn->bchpn", ecs, dyc, CH)
     # (2) the reverse state pass
@@ -146,9 +150,9 @@ def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, chunk: int, init_state=None, dy=None, d_f
         g = g * decay[..., None, None] + dh[:, c]
     Gs, d_last = torch.stack(Gs, dim=1), torch.stack(d_last, dim=1)  # (B,nc,H,P,N), (B,nc,H)
     # (3) the chunk states' backward
-    U = torch.einsum("bckhn,bchpn->bchkp", BH, Gs)                   # G B_k
+    U = einsum("bckhn,bchpn->bchkp", BH, Gs)                   # G B_k
     dx = (w[..., None] * U).movedim(2, 3)                            # (B,nc,Q,H,P)
-    dB_h = torch.einsum("bckhp,bchpn->bckhn", xc, Gs) * w.movedim(-1, -2)[..., None]
+    dB_h = einsum("bckhp,bchpn->bckhn", xc, Gs) * w.movedim(-1, -2)[..., None]
     dw = torch.einsum("bchkp,bckhp->bchk", U, xc)
     ddt = (torch.exp(cl[..., None] - cs) * dw).to(f64)
     wdw = (w * dw).to(f64)
@@ -156,11 +160,11 @@ def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, chunk: int, init_state=None, dy=None, d_f
     d_last = d_last + wdw.sum(-1)
     # (4) the quadratic term's backward
     M = CB * L * dtc[..., None, :]
-    D = torch.einsum("bcqhp,bckhp->bchqk", dyc, xc)
-    dx = dx + torch.einsum("bchqk,bcqhp->bckhp", M, dyc)
+    D = einsum("bcqhp,bckhp->bchqk", dyc, xc)
+    dx = dx + einsum("bchqk,bcqhp->bckhp", M, dyc)
     dCB = (D * L * dtc[..., None, :]).reshape(Bsz, nc, G, rep, Q, Q).sum(3)  # (B,nc,G,Q,Q)
-    dC = dC_h.reshape(Bsz, nc, Q, G, rep, N).sum(4) + torch.einsum("bcgqk,bckgn->bcqgn", dCB, Bc)
-    dB = dB_h.reshape(Bsz, nc, Q, G, rep, N).sum(4) + torch.einsum("bcgqk,bcqgn->bckgn", dCB, Cc)
+    dC = dC_h.reshape(Bsz, nc, Q, G, rep, N).sum(4) + einsum("bcgqk,bckgn->bcqgn", dCB, Bc)
+    dB = dB_h.reshape(Bsz, nc, Q, G, rep, N).sum(4) + einsum("bcgqk,bcqgn->bckgn", dCB, Cc)
     Z = D * CB * L
     ddt = ddt + Z.to(f64).sum(-2)
     T = (Z * dtc[..., None, :]).to(f64)
@@ -182,7 +186,7 @@ def attn_scale(hd: int) -> float:
 
 
 def _flash_logits(q: torch.Tensor, k: torch.Tensor, causal: bool, window: Optional[int],
-                  softcap: Optional[float]):
+                  softcap: Optional[float], einsum=torch.einsum):
     """(logits (B,KH,G,S,Sk) float32 with the masked ones at -2e38, the live
     mask (S,Sk) or None, tanh(u / softcap) of the scaled logits u or None):
     the logits are ``q . k / sqrt(hd)``, then ``softcap * tanh(. /
@@ -192,7 +196,7 @@ def _flash_logits(q: torch.Tensor, k: torch.Tensor, causal: bool, window: Option
     Sk, KH = k.shape[1], k.shape[2]
     check_key_length(S, Sk, causal, window)
     qg = q.reshape(B, S, KH, H // KH, hd)
-    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * attn_scale(hd)
+    logits = einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * attn_scale(hd)
     t = None
     if softcap:
         t = torch.tanh(logits / softcap)
@@ -243,7 +247,7 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, causal: bool = Tru
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                             causal: bool = True, window: Optional[int] = None,
-                            softcap: Optional[float] = None):
+                            softcap: Optional[float] = None, einsum=torch.einsum):
     """The gradient of ``flash_attention`` (equal head dims) written out, in
     float32 from the forward's output ``out`` (B,S,H,hd) and row
     log-sum-exp ``lse`` (B,H,S), as the backward kernel computes it, with
@@ -254,25 +258,28 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dQ = dS K * scale                      dK = dS^T Q * scale
 
     with scale = 1/sqrt(hd), dS taking the factor ``1 - tanh^2`` of the
-    softcap, and dK, dV summed over each kv head's query group.  Returns
-    (dq, dk, dv) in the dtypes of q, k and v."""
+    softcap, and dK, dV summed over each kv head's query group.  ``einsum``
+    computes the five products (the logits, dO V^T, dV, dQ, dK): the tests
+    pass ``einsum_tf32x3`` or ``einsum_tf32`` to see what the tensor cores'
+    rounding does to the gradients.  Returns (dq, dk, dv) in the dtypes of
+    q, k and v."""
     B, S, H, hd = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     G = H // KH
-    logits, ok, t = _flash_logits(q, k, causal, window, softcap)
+    logits, ok, t = _flash_logits(q, k, causal, window, softcap, einsum)
     p = torch.exp(logits - lse.float().reshape(B, KH, G, S, 1))
     if ok is not None:
         p = p.masked_fill(~ok, 0.0)
     do = dout.float().reshape(B, S, KH, G, hd)
-    dv = torch.einsum("bkgqs,bqkgh->bskh", p, do)
+    dv = einsum("bkgqs,bqkgh->bskh", p, do)
     d = (do * out.float().reshape(B, S, KH, G, hd)).sum(-1)         # (B,S,KH,G)
-    dp = torch.einsum("bqkgh,bskh->bkgqs", do, v.float())
+    dp = einsum("bqkgh,bskh->bkgqs", do, v.float())
     ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
     if t is not None:
         ds = ds * (1 - t * t)
     scale = attn_scale(hd)
-    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, k.float()).reshape(B, S, H, hd) * scale
-    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, q.float().reshape(B, S, KH, G, hd)) * scale
+    dq = einsum("bkgqs,bskh->bqkgh", ds, k.float()).reshape(B, S, H, hd) * scale
+    dk = einsum("bkgqs,bqkgh->bskh", ds, q.float().reshape(B, S, KH, G, hd)) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -349,3 +356,35 @@ def decode_attention_latent_ref(q_lat: torch.Tensor, q_rope: torch.Tensor, c_cac
     logits = logits.masked_fill(~ok, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).masked_fill(~ok, 0.0).to(work)
     return torch.einsum("bhs,bsr->bhr", probs, c_cache.to(work)).to(q_lat.dtype)
+
+
+# ------------------------------------------------------------------ TF32
+# The backward kernels run their float32 products on tensor cores in split
+# precision: x = big + small with big = tf32(x) and small = tf32(x - big),
+# a.b = big.big + big.small + small.big, each product exact in float32 and
+# summed in float32 (small.small, ~2^-22 |a||b|, is dropped).  These plain
+# versions let the tests measure what that does; no kernel path calls them.
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 explicit mantissa bits) to nearest,
+    ties away from zero, as ``cvt.rna.tf32.f32`` does: 0x1000 added to the
+    bits of the magnitude through an int32 view, then the 13 low bits
+    cleared.  Finite inputs only."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def einsum_tf32x3(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of two float32 operands as the split-precision
+    tensor-core product computes it: small.big + big.small + big.big."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    a_big, b_big = round_tf32(a), round_tf32(b)
+    a_small, b_small = round_tf32(a - a_big), round_tf32(b - b_big)
+    return (torch.einsum(equation, a_small, b_big) + torch.einsum(equation, a_big, b_small)
+            + torch.einsum(equation, a_big, b_big))
+
+
+def einsum_tf32(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of two float32 operands as one TF32 tensor-core
+    product computes it: both rounded to TF32, the products summed in
+    float32."""
+    return torch.einsum(equation, round_tf32(a), round_tf32(b))

@@ -15,6 +15,7 @@ import torch
 from repro_torch.core import sched as T
 from repro_torch.kernels import ops, ref
 from test_torch_sched_cases import burst, sched_case
+from test_torch_tf32x3 import _flash_bwd_float64
 
 pytestmark = pytest.mark.gpu
 
@@ -1263,6 +1264,22 @@ BWD_SHAPES = [
     (2, 64, 4, 4, 64, False, None, 300),      # keys of another length (cross-attention)
     (1, 1024, 36, 36, 64, True, None, None),  # minicpm-2b width
 ]
+# BWD_SHAPES with no softcap, then the cases the tensor-core tiles (16 rows a
+# warp, 32-row streamed tiles, head-dim slices at 128 and 256) must meet:
+# head counts of every kind, S and Sk off the tiles, windows, softcaps and
+# every head dim, hd 80 at zamba2-2.7b's train width among them
+BWD_CASES = [(*shape, None) for shape in BWD_SHAPES] + [
+    (1, 200, 3, 1, 80, True, None, None, None),     # 3 heads on one kv head, S off the tile
+    (2, 333, 20, 4, 80, True, 100, None, None),     # GQA 5:1 with a window
+    (1, 96, 8, 8, 80, False, None, 77, None),       # Sk != S, neither a tile multiple
+    (1, 200, 4, 2, 64, True, None, None, 50.0),     # softcap
+    (1, 130, 6, 3, 80, True, 48, None, 30.0),       # softcap, window, hd 80
+    (1, 100, 2, 2, 128, False, None, 260, 50.0),    # cross-attention with a softcap
+    (1, 77, 2, 1, 256, True, 20, None, None),       # hd 256, window
+    (1, 50, 2, 2, 16, True, None, None, 20.0),
+    (1, 70, 4, 2, 32, False, 16, None, None),
+    (2, 1024, 32, 32, 80, True, None, None, None),  # zamba2-2.7b train width
+]
 
 
 def _bwd_inputs(B, S, H, KH, hd, Sk, dtype, seed, cuda):
@@ -1272,19 +1289,21 @@ def _bwd_inputs(B, S, H, KH, hd, Sk, dtype, seed, cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,KH,hd,causal,window,Sk", BWD_SHAPES)
-def test_flash_bwd_kernel_matches_plain(cuda, B, S, H, KH, hd, causal, window, Sk, dtype):
+@pytest.mark.parametrize("B,S,H,KH,hd,causal,window,Sk,cap", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, B, S, H, KH, hd, causal, window, Sk, cap, dtype):
     """The forward kernel's LSE and the backward kernel's dq, dk, dv against
     ``flash_attention_lse_ref`` and ``flash_attention_bwd_ref`` on the same
     out and lse; two runs bit for bit (no atomics)."""
     q, k, v, do = _bwd_inputs(B, S, H, KH, hd, Sk, dtype, S + hd, cuda)
-    out, lse = ops._flash_forward(q, k, v, causal, window, None, want_lse=True)
-    torch.testing.assert_close(lse, ref.flash_attention_lse_ref(q, k, causal, window),
-                               atol=2e-5, rtol=2e-5)
+    if cap:
+        q = q * 4  # logits where the cap bends them
+    out, lse = ops._flash_forward(q, k, v, causal, window, cap, want_lse=True)
+    torch.testing.assert_close(lse, ref.flash_attention_lse_ref(q, k, causal, window, cap),
+                               atol=1e-4 if cap else 2e-5, rtol=2e-5)
     ops.reset_launches()
-    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
-    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
-    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal, window, cap)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal, window, cap)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window, cap)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention_bwd"] == 2
     tol = TOL_ATTN[torch.float32] if dtype == torch.float32 else dict(atol=5e-2, rtol=5e-2)
@@ -1316,6 +1335,22 @@ def test_softcap_kernels_match_plain(cuda, causal, window, dtype):
         torch.testing.assert_close(
             ops.decode_attention(q[:, 150], kc, vc, valid, window, cap).float(),
             ref.decode_attention_ref(q[:, 150], kc, vc, valid, window, cap).float(), **tol)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48), (False, None)])
+def test_softcap_bwd_kernel_against_float64(cuda, causal, window):
+    """The float32 backward at ``test_softcap_kernels_match_plain``'s data
+    (cap 50, logits of ~+-60) against the float64 gradient of capped
+    attention, at TOL: split precision meets it on the CPU and one TF32
+    product misses it (tests/test_torch_tf32x3.py)."""
+    cap = 50.0
+    q, k, v, do = _bwd_inputs(1, 200, 4, 2, 64, None, torch.float32, 5, cuda)
+    q = q * 8
+    out, lse = ops._flash_forward(q, k, v, causal, window, cap, want_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal, window, cap)
+    want = _flash_bwd_float64(*(t.cpu() for t in (q, k, v, do)), causal, window, cap)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu().double(), w, **TOL)
 
 
 @pytest.mark.parametrize("B,S,H,KH,hd,causal,window,Sk", BWD_SHAPES[:4])
@@ -1410,6 +1445,12 @@ SSD_BWD_SHAPES = [
     (1, 1024, 24, 64, 128, 1, 256, False, False),  # mamba2-130m width
     (1, 1024, 80, 64, 64, 1, 256, False, False),   # zamba2-2.7b width
     (1, 512, 24, 64, 128, 2, 256, True, True),
+    # head counts that the dC / dB CTAs' slices of 8 heads do not divide
+    (1, 128, 3, 16, 16, 1, 64, True, True),     # H=3: one short slice
+    (1, 256, 20, 32, 32, 1, 128, False, True),  # H=20: slices of 8, 8 and 4
+    (1, 192, 18, 16, 16, 2, 96, True, True),    # G=2, 9 heads a group: 8 and 1
+    (2, 256, 40, 32, 64, 2, 128, True, False),  # G=2, 20 heads a group
+    (1, 512, 80, 64, 64, 1, 256, True, True),   # zamba2-2.7b width with both states
 ]
 
 
