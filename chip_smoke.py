@@ -241,7 +241,9 @@ carry ``shapes``: the same numbers at the hybrid, moe, mla, whisper and
 train paths' shapes (``ssd_scan_bwd``'s main row is mamba2-130m's train
 shape, ``zamba2`` zamba2-2.7b's), each with the launches of its own path (``decode_attention``'s ``batch`` holds the llava-width rows, its
 ``mla_b1`` and ``mla_b8`` the latent entry's, counted under
-``decode_attention_latent``).  A ``batch`` or ``whisper_*`` row's launches
+``decode_attention_latent``, with the ``variant`` that ran, ``wgmma``
+for its bfloat16 tensor-core kernel, and ``launch_ms``, the device time of
+each of its CUDA launches in one call).  A ``batch`` or ``whisper_*`` row's launches
 are those the wrappers counted at its own shape (``ops.SHAPE_LAUNCHES``,
 and for replays ``captured.REPLAYED_SHAPES``) on the main paths; every
 launch of the whisper paths falls in one of the ``whisper_*`` rows.  The two
@@ -1142,8 +1144,14 @@ def latent_row(torch, ops, ref, label, B, S, lengths, q_dtype, cache_dtype, seed
     lib = lambda kv: F.scaled_dot_product_attention(  # noqa: E731
         qt, *kv, attn_mask=mask, scale=scale, enable_gqa=True)
     lib_err = max_abs(lib(lib_kv[0])[:, :, 0], want)
-    ms = time_graph(torch, [lambda kv=kv: ops.decode_attention_latent(q_lat, q_rope, *kv, valid,
-                                                                      scale) for kv in caches])
+    fns = [lambda kv=kv: ops.decode_attention_latent(q_lat, q_rope, *kv, valid, scale)
+           for kv in caches]
+    ms = time_graph(torch, fns)
+    # the device time of each CUDA launch of one call (the tensor-core path
+    # may launch more than one kernel a call)
+    launch_ms = {name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+                 .split()[-1]: round(t, 5) for name, _, t in graph_kernels(torch, fns)[1:]}
+    variant = "wgmma" if q_dtype == cache_dtype == torch.bfloat16 else "cuda-core"
     plain_ms = time_graph(torch, [lambda kv=kv: ref.decode_attention_latent_ref(
         q_lat, q_rope, *kv, valid, scale) for kv in caches])
     lib_ms = time_graph(torch, [lambda kv=kv: lib(kv) for kv in lib_kv])
@@ -1152,11 +1160,12 @@ def latent_row(torch, ops, ref, label, B, S, lengths, q_dtype, cache_dtype, seed
     b_ms, b_by = bound(nbytes, nops, peak_ops(torch, q_dtype))
     log(f"[kernels] decode_attention_latent {label} B={B} cache {S} H={H} latent {dc}+{dr} "
         f"lengths {lengths}, q {str(q_dtype)[6:]}, cache {str(cache_dtype)[6:]}, {n} caches in "
-        f"turn: max abs err {err:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on the joined "
-        f"cache {lib_ms:.4f} ms (max abs diff {lib_err:.2e}), bound {b_ms:.5f} ms ({b_by}: "
-        f"{nbytes / 1e6:.2f} MB, {nops / 1e6:.2f} MFLOP)")
+        f"turn: max abs err {err:.3e}; {variant} kernel {ms:.4f} ms (by launch {launch_ms}), "
+        f"plain {plain_ms:.4f} ms, sdpa on the joined cache {lib_ms:.4f} ms (max abs diff "
+        f"{lib_err:.2e}), bound {b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
+        f"{nops / 1e6:.2f} MFLOP)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, variant=variant, launch_ms=launch_ms)
 
 
 def run_launcher():

@@ -65,11 +65,14 @@
 // latent row of a position, so it is laid out by head groups over a row
 // tile instead; its own note follows.
 
+#include <cuda.h>  // CUtensorMap and the types of its encoder
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -505,35 +508,75 @@ cudaError_t dispatch_cache(int cache_code, const void* q, const void* kc, const 
 // out = acc / max(l, 1e-30) in q's type, zeros for a row with none live.
 //
 // What bounds it on this card: all 128 query heads share each cache row, so
-// a row of 576 values (1.1 KB in bfloat16) feeds 128 x 2 x (576 + 512)
-// operations, ~240 a byte: bound by the bf16 tensor-core rate at best, and
-// far from the memory rate.  These products run on CUDA cores in float32
-// (ROADMAP Queue 2: wgmma for the 128-head score and value products).
+// a row of 576 values (1,152 bytes in bfloat16) feeds 128 x 2 x (576 + 512)
+// operations, ~242 a byte: just under the bf16 tensor cores' ~295 a byte,
+// so bound by bytes, and only on the tensor cores; on the CUDA cores in
+// float32 (67 TFLOP/s) the operations take ~12x the bytes' time.  A call is
+// one short wave (deepseek-v3's batch: ~2,400 live rows, 2.8 MB, 0.67 GFLOP),
+// so what it pays besides is fixed: the launch, each CTA's q load, the
+// splits' partials and their merge.
 //
-// Design (a simple one): the grid is (splits, head groups of kLatHeads, B),
-// from ops.py::latent_geometry (shapes and SM count only, so a captured call
-// replays with new valid_len).  Each CTA takes its share of its row's live
-// range in whole kLatRows-row tiles (ops.py::decode_share with that
-// granule), copies the tiles' c and r rows into shared memory with cp.async
-// (double-buffered, rows outside the share zero-filled, so no dead row is
-// ever read from the cache), and on each tile
+// Design, bfloat16 q and cache (latent_tc_kernel; deepseek-v3 serves in
+// bfloat16, so every path the card times is here):
+// * Grid (splits, head groups of kTcHeads = 64, B), from
+//   ops.py::latent_geometry (shapes and SM count only, so a captured call
+//   replays with new valid_len), 256 threads: two warpgroups.  Each CTA
+//   takes its share of its row's live range in whole 64-row tiles
+//   (ops.py::decode_share with that granule); 128 heads are 2 head groups,
+//   so each live row is read twice, not 8 times as with 16 heads a CTA.
+// * Shared memory: the CTA's 64 heads of [q_lat | q_rope] (64 x 576
+//   bfloat16, 72 KB) once, and two 64-row tiles of [c | r] (72 KB each),
+//   all as 64-column blocks under the 128-byte swizzle: 221,184 bytes and
+//   1 KB to align the swizzle, of the 232,448 a CTA may opt into, so one
+//   CTA an SM.  q and every whole tile come by TMA (9 boxes of 64 x 64 from
+//   2-D tensor maps over q_lat, q_rope, c and r, issued by one thread,
+//   completing on an mbarrier); the share's last rows, when they are not a
+//   whole tile, come by cp.async from all threads, zero-filled past the
+//   share, so no row past valid_len is read (a box would read them).  The
+//   next tile is in flight while one is computed.
+// * Scores: each warpgroup computes all of S = Q . [c | r]^T (64 heads x 64
+//   rows) with 36 wgmma.m64n64k16 (bf16 in, float32 out, both operands
+//   K-major from shared memory), so that P never leaves its registers and
+//   the warpgroups share nothing but the tiles: the second copy of the
+//   score product costs tensor-core time (~0.6 us a tile), where passing P
+//   and the row maxima through shared memory would cost two more barriers
+//   a tile.  The online softmax runs on the accumulator fragments in
+//   float32 (exp2 of the scores times scale * log2 e); rows past the share
+//   are -2e38 before the max, as in the decode kernel.
+// * Values: O += P . c with P rounded to bfloat16 and fed from registers
+//   (the score accumulator's layout is the A fragment's); warpgroup w owns
+//   latent columns [256 w, 256 w + 256): 4 wgmma.m64n256k16 a tile, 128
+//   float32 accumulators a thread, B the tile's own c columns read
+//   MN-major (the transpose bit), so the tile is never copied twice.
+// * Splits: each CTA with a non-empty share writes its partial (m, l and
+//   acc, 64 x 512 float32) and a second launch (latent_merge, grid (H, B),
+//   counted with the first as one call) merges each head's live splits, 4
+//   columns a thread, in a group of threads for each 8 splits (at most 4);
+//   it reads valid_len itself to know which splits are live.  No atomics
+//   and no tickets: two runs agree bit for bit.  (A cluster of a unit's
+//   splits merging through distributed shared memory, and a TMA store of
+//   the partial, were no faster on the card: PERF.md, section 6.)
+//
+// Float32 and mixed q / cache types keep the CUDA-core kernel that follows
+// (latent_kernel; no timed path reaches it): the grid is (splits, head
+// groups of kLatHeads = 16, B), from ops.py::latent_geometry(...,
+// tensor_cores=False).  Each CTA copies tiles of kLatRows = 16 rows of its
+// share into shared memory (double-buffered, cp.async, rows outside the
+// share zero-filled), and on each tile
 //   1. scores: the 16 lanes of a half-warp share a head; lane k holds the
 //      head's query chunks k, k + 16, ... (36 of its 576 values, float32 in
 //      registers for the whole call) and forms its partial dot with each of
-//      the tile's 16 rows, reading only the rows from shared memory; a
-//      transposing butterfly (15 shuffles) leaves lane j the score of row
-//      j; then the head's online softmax over the tile with 16-lane
-//      shuffles;
+//      the tile's 16 rows; a transposing butterfly (15 shuffles) leaves lane
+//      j the score of row j; then the head's online softmax over the tile
+//      with 16-lane shuffles;
 //   2. values: each thread owns 4 heads x 8 latent columns of acc in
 //      registers (16 x 512 float32 over 256 threads) and adds p * c_p for
 //      the tile's rows.
-// The 16 heads of a CTA keep 16 x 512 float32 accumulators: the whole 128
-// would take 256 KB, beyond a CTA's registers and shared memory, so the 8
-// head groups each read the rows (the later ones mostly from L2).  The
-// splits merge in the same launch through the tickets, as above; the last
-// CTA reads splits x 32 KB a head group, so ops.py caps the splits at 16.
-constexpr int kLatHeads = 16;    // query heads a CTA (ops.LATENT_HEADS)
-constexpr int kLatRows = 16;     // cache rows a tile (ops.LATENT_ROWS)
+// Its splits merge in the same launch through the tickets, as above; the
+// last CTA reads splits x 32 KB a head group, so ops.py caps its splits at
+// 16.  (ROADMAP Queue 2: a split-precision TF32 path for these types.)
+constexpr int kLatHeads = 16;    // query heads a CTA (ops.LATENT_F32_HEADS)
+constexpr int kLatRows = 16;     // cache rows a tile (ops.LATENT_F32_ROWS)
 constexpr int kLatThreads = kLatHeads * kLatRows;
 constexpr int kLatCols = 8;      // latent columns of acc a thread
 constexpr int kLatHeadsPer = 4;  // heads of acc a thread
@@ -835,6 +878,510 @@ cudaError_t latent_launch(const void* q_lat, const void* q_rope, const void* cc,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------- the tensor-core latent kernel
+constexpr int kTcHeads = 64;     // query heads a CTA: one wgmma M tile (ops.LATENT_HEADS)
+constexpr int kTcRows = 64;      // cache rows a tile (ops.LATENT_ROWS)
+constexpr int kTcThreads = 256;  // two warpgroups
+constexpr int kTcDC = 512, kTcDR = 64, kTcDQ = kTcDC + kTcDR;
+constexpr int kTcChunks = kTcDQ / 8;            // 16-byte chunks of a row: 72
+constexpr int kTcBlock = 64 * 128;              // a 64-column block of 64 rows
+constexpr int kTcTile = kTcDQ / 64 * kTcBlock;  // 9 blocks: 73,728 bytes
+constexpr int kTcSmem = 3 * kTcTile + 1024;     // q, two tiles, 1 KB to align the swizzle
+constexpr int kTcMergeThreads = kTcDC / 4;      // latent_merge: 4 columns a thread,
+constexpr int kTcMergeGroups = 4;               // in up to 4 groups of the splits
+static_assert(kTcSmem <= 232448, "a CTA's shared memory");
+
+// rows [row0, row0 + 64) of a (rows, 576) bfloat16 operand whose columns
+// [0, 512) are rows of `a` and [512, 576) rows of `b`, into the tile at
+// shared address `dst`: nine 64-column blocks of 64 rows x 128 bytes, the
+// 16-byte chunk j of row r at chunk j ^ (r % 8) of its block row (the
+// 128-byte swizzle wgmma reads); rows at or past `end` zero-filled, not read
+__device__ __forceinline__ void tc_load(uint32_t dst, const __nv_bfloat16* __restrict__ a,
+                                        const __nv_bfloat16* __restrict__ b, int row0,
+                                        int end) {
+  for (int e = threadIdx.x; e < kTcRows * kTcChunks; e += kTcThreads) {
+    const int r = e / kTcChunks, j = e % kTcChunks;
+    const bool in = row0 + r < end;
+    const size_t row = in ? row0 + r : 0;
+    const __nv_bfloat16* src = j < kTcDC / 8 ? a + row * kTcDC + j * 8
+                                             : b + row * kTcDR + (j - kTcDC / 8) * 8;
+    const uint32_t d = dst + (j / 8) * kTcBlock + r * 128 + (((j % 8) ^ (r % 8)) << 4);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(in ? 16 : 0));
+  }
+}
+
+// a wgmma shared-memory matrix descriptor under the 128-byte swizzle: start
+// address, leading and stride byte offsets, each in 16-byte units
+__device__ __forceinline__ uint64_t tc_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+// K-major (scores, both operands): 8-row groups 1,024 bytes apart; a k-step
+// of 16 columns is 32 bytes into the block's swizzled rows
+__device__ __forceinline__ uint64_t tc_desc_k(uint32_t addr) { return tc_desc(addr, 16, 1024); }
+// MN-major (values' B, the transpose bit): 64-column blocks kTcBlock bytes
+// apart along N, 8-row groups 1,024 bytes apart along K
+__device__ __forceinline__ uint64_t tc_desc_mn(uint32_t addr) {
+  return tc_desc(addr, kTcBlock, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" :::
+               "memory");
+}
+// keeps the compiler from moving a register's use across the wgmma wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// S (64 x 64, float32) += A (64 x 16) . B (16 x 64), both bfloat16 in shared
+// memory, K-major under the 128-byte swizzle
+__device__ __forceinline__ void wgmma_s(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// O (64 x 256, float32) += P (64 x 16, bfloat16 in registers: each warp's
+// 16 rows as the m16n8k16 A fragment) . B (16 x 256, bfloat16 in shared
+// memory, MN-major under the 128-byte swizzle: the transpose bit)
+__device__ __forceinline__ void wgmma_o(float (&d)[128], uint32_t a0, uint32_t a1, uint32_t a2,
+                                        uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// TMA: whole 64 x 64 boxes (128-byte rows, under the 128-byte swizzle, so
+// a box lands as one block of the tile layout above), completing on an
+// mbarrier that counts the bytes
+struct LatMaps {  // q_lat (B*H, 512), q_rope (B*H, 64), c (B*S, 512), r (B*S, 64)
+  CUtensorMap q, qr, c, r;
+};
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n@!done bra LAB_WAIT;\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int x, int y,
+                                        uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar) : "memory");
+}
+// rows [y, y + 64) of a pair of maps (64-column boxes of `a`, then one of
+// `b`) into a tile at `dst`: 9 boxes, kTcTile bytes on `bar`
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* a, const CUtensorMap* b,
+                                         int y, uint32_t bar) {
+  mbar_expect(bar, kTcTile);
+#pragma unroll
+  for (int j = 0; j < kTcDC / 64; ++j) tma_box(dst + j * kTcBlock, a, 64 * j, y, bar);
+  tma_box(dst + kTcDC / 64 * kTcBlock, b, 0, y, bar);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the live share [beg, end) of split `split` of `splits` over the live range
+// [0, hi] of a row, in whole g-row granules (ops.py::decode_share); empty
+// (beg == end) past it
+__device__ __forceinline__ void latent_share(long long hi, int split, int splits, int g,
+                                             int& beg, int& end) {
+  beg = end = 0;
+  if (hi < 0) return;
+  const long long per = ((hi + 1 + g - 1) / g + splits - 1) / splits * g;
+  const long long bb = split * per, ee = min(hi + 1, bb + per);
+  if (ee > bb) {
+    beg = (int)bb;
+    end = (int)ee;
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+latent_tc_kernel(const __grid_constant__ LatMaps maps, const __nv_bfloat16* __restrict__ cc,
+                 const __nv_bfloat16* __restrict__ rc, float* __restrict__ part,
+                 const int* __restrict__ valid_dev, int valid_stride, int valid_host, int S,
+                 int H, float scale_log2) {
+  extern __shared__ unsigned char tc_smem[];
+  __shared__ __align__(8) uint64_t bars[3];  // q's, and each tile buffer's
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int hg = blockIdx.y, b = blockIdx.z;
+  const int h0 = hg * kTcHeads;
+  const long long valid =
+      valid_dev ? (long long)valid_dev[(size_t)b * valid_stride] : (long long)valid_host;
+  int beg, end;
+  latent_share(min(valid, (long long)S - 1), split, splits, kTcRows, beg, end);
+  if (end <= beg) return;  // an empty share: latent_merge reads no partial of it
+  const int n_tiles = (end - beg + kTcRows - 1) / kTcRows;
+
+  const uint32_t q_s = ((uint32_t)__cvta_generic_to_shared(tc_smem) + 1023) & ~1023u;
+  const uint32_t tiles = q_s + kTcTile;  // tile t at tiles + (t & 1) * kTcTile
+  const uint32_t bar_q = (uint32_t)__cvta_generic_to_shared(bars);  // buffer j's: + 8 (1 + j)
+  const __nv_bfloat16* cb = cc + (size_t)b * S * kTcDC;
+  const __nv_bfloat16* rb = rc + (size_t)b * S * kTcDR;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) mbar_init(bar_q + 8 * j);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // q by TMA (rows past H are other heads' or zeros: their scores and
+  // outputs are never stored); a whole tile of the share by TMA from one
+  // thread, the share's last rows (a part of a tile) by cp.async from all,
+  // zero-filled past `end`, so that no row past valid_len is read
+  auto issue = [&](int t) {
+    const int row0 = beg + t * kTcRows;
+    const uint32_t dst = tiles + (t & 1) * kTcTile;
+    if (row0 + kTcRows <= end) {
+      if (threadIdx.x == 0)
+        tma_tile(dst, &maps.c, &maps.r, b * S + row0, bar_q + 8 * (1 + (t & 1)));
+    } else {
+      tc_load(dst, cb, rb, row0, end);
+      lat_commit();
+    }
+  };
+  if (threadIdx.x == 0) tma_tile(q_s, &maps.q, &maps.qr, b * H + h0, bar_q);
+  issue(0);
+  if (n_tiles > 1) issue(1);
+
+  // thread (warpgroup wg, warp w of it, lane): heads r0 and r0 + 8 of the
+  // group in every fragment; in each 8 columns of S (cache rows of the
+  // tile) and of O (latent columns 256 wg ...) the two at q2 and q2 + 1
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) % 4 * 16 + lane / 4, q2 = lane % 4 * 2;
+  float o[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  // heads r0 and r0 + 8: running max, and the sum over this thread's columns
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int row0 = beg + t * kTcRows;
+    const uint32_t tile = tiles + (t & 1) * kTcTile;
+    if (row0 + kTcRows <= end) {  // tile t has landed (buffer t & 1's use t / 2)
+      mbar_wait(bar_q + 8 * (1 + (t & 1)), (t >> 1) & 1);
+    } else {
+      lat_wait<0>();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    }
+    if (t == 0) mbar_wait(bar_q, 0);
+    __syncthreads();
+
+    // 1. S = Q . [c | r]^T over 36 k-steps of 16 columns
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kTcDQ / 16; ++k) {
+      const uint32_t off = k / 4 * kTcBlock + k % 4 * 32;
+      wgmma_s(s, tc_desc_k(q_s + off), tc_desc_k(tile + off));
+    }
+    wgmma_commit_wait();
+    reg_fence(s);
+
+    // 2. the online softmax of heads r0 and r0 + 8 over the tile's rows:
+    // s[4 i + 2 x + e] is head r0 + 8 x at row 8 i + q2 + e
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool live = row0 + 8 * i + q2 + e < end;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          float& v = s[4 * i + 2 * x + e];
+          v = live ? v * scale_log2 : kNegInf;
+          mx[x] = fmaxf(mx[x], v);
+        }
+      }
+    uint32_t p[16];  // P in bfloat16 pairs: p[2 i + x] = head r0 + 8 x, rows 8 i + q2, + 1
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 1));
+      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 2));
+      const float mn = fmaxf(m[x], mx[x]);  // a real score: every tile has a live row
+      const float alpha = exp2f(m[x] - mn);
+      m[x] = mn;
+      float ls = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float p0 = exp2f(s[4 * i + 2 * x] - mn), p1 = exp2f(s[4 * i + 2 * x + 1] - mn);
+        ls += p0 + p1;
+        p[2 * i + x] = pack_bf16(p0, p1);
+      }
+      l[x] = l[x] * alpha + ls;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        o[4 * i + 2 * x] *= alpha;
+        o[4 * i + 2 * x + 1] *= alpha;
+      }
+    }
+
+    // 3. O += P . c: k-step kk takes the tile's rows 16 kk .. 16 kk + 15,
+    // whose A fragment is p[4 kk .. 4 kk + 3]
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcRows / 16; ++kk)
+      wgmma_o(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+              tc_desc_mn(tile + wg * 4 * kTcBlock + kk * 16 * 128));
+    wgmma_commit_wait();
+    reg_fence(o);
+    reg_fence(p);
+    __syncthreads();  // both warpgroups are done with tile t's buffer
+    if (t + 2 < n_tiles) issue(t + 2);
+  }
+
+  // this CTA's partial: acc (units, splits, kTcHeads, DC), then (m, l)
+  // (units, splits, 2, kTcHeads); heads past H are not stored
+  const int n_units = gridDim.z * gridDim.y;
+  const size_t pidx = ((size_t)b * gridDim.y + hg) * splits + split;
+  float* acc = part + pidx * kTcHeads * kTcDC;
+  float* ml = part + (size_t)n_units * splits * kTcHeads * kTcDC + pidx * 2 * kTcHeads;
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
+    const int r = r0 + 8 * x;
+    if (h0 + r < H) {
+      float* dst = acc + (size_t)r * kTcDC + wg * 256 + q2;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        *reinterpret_cast<float2*>(dst + 8 * i) = make_float2(o[4 * i + 2 * x],
+                                                               o[4 * i + 2 * x + 1]);
+      if (wg == 0 && lane % 4 == 0) {
+        ml[r] = m[x];
+        ml[kTcHeads + r] = l[x];
+      }
+    }
+  }
+}
+
+// out for head h (blockIdx.x) of batch row b (blockIdx.y): the live splits'
+// partials merged, 4 columns a thread; the block's groups of
+// kTcMergeThreads threads (blockDim.x / kTcMergeThreads, at most
+// kTcMergeGroups: one for each kMerge splits) each take every groups-th
+// split, kMerge splits' loads in flight a thread, and group 0 merges the
+// groups' (m, l, acc)
+template <typename TQ>
+__global__ void __launch_bounds__(kTcMergeThreads * kTcMergeGroups)
+latent_merge(const float* __restrict__ part, TQ* __restrict__ out,
+             const int* __restrict__ valid_dev, int valid_stride, int valid_host, int S, int H,
+             int splits) {
+  __shared__ float4 g_acc[kTcMergeGroups - 1][kTcMergeThreads];
+  __shared__ float g_ml[kTcMergeGroups - 1][2];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int i = threadIdx.x % kTcMergeThreads, g = threadIdx.x / kTcMergeThreads;
+  const int groups = blockDim.x / kTcMergeThreads;
+  const int n_hg = (H + kTcHeads - 1) / kTcHeads;
+  const long long valid =
+      valid_dev ? (long long)valid_dev[(size_t)b * valid_stride] : (long long)valid_host;
+  const long long hi = min(valid, (long long)S - 1);
+  int live = 0;  // the splits whose share is not empty (latent_share)
+  if (hi >= 0) {
+    const long long tiles = (hi + kTcRows) / kTcRows;
+    const long long per = (tiles + splits - 1) / splits;
+    live = (int)((tiles + per - 1) / per);
+  }
+  const size_t unit = (size_t)b * n_hg + h / kTcHeads;
+  const int row = h % kTcHeads;
+  const float* accs = part + unit * splits * kTcHeads * kTcDC + (size_t)row * kTcDC;
+  const float* mls = part + (size_t)gridDim.y * n_hg * splits * kTcHeads * kTcDC +
+                     unit * splits * 2 * kTcHeads + row;
+  float M = kNegInf, L = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s0 = g; s0 < live; s0 += groups * kMerge) {
+    float mm[kMerge], ll[kMerge];
+    float4 x[kMerge];
+#pragma unroll
+    for (int j = 0; j < kMerge; ++j) {
+      const int sp = s0 + j * groups;
+      if (sp < live) {
+        mm[j] = mls[sp * 2 * kTcHeads];
+        ll[j] = mls[sp * 2 * kTcHeads + kTcHeads];
+        x[j] = reinterpret_cast<const float4*>(accs + (size_t)sp * kTcHeads * kTcDC)[i];
+      } else {
+        mm[j] = kNegInf;
+        ll[j] = 0.f;
+        x[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    float mb = M;
+#pragma unroll
+    for (int j = 0; j < kMerge; ++j) mb = fmaxf(mb, mm[j]);
+    const float r = exp2f(M - mb);
+    L *= r;
+    a = make_float4(a.x * r, a.y * r, a.z * r, a.w * r);
+#pragma unroll
+    for (int j = 0; j < kMerge; ++j) {
+      const float w = exp2f(mm[j] - mb);
+      L = fmaf(ll[j], w, L);
+      a = make_float4(fmaf(x[j].x, w, a.x), fmaf(x[j].y, w, a.y), fmaf(x[j].z, w, a.z),
+                      fmaf(x[j].w, w, a.w));
+    }
+    M = mb;
+  }
+  if (g > 0) {
+    g_acc[g - 1][i] = a;
+    if (i == 0) {
+      g_ml[g - 1][0] = M;
+      g_ml[g - 1][1] = L;
+    }
+  }
+  __syncthreads();
+  if (g > 0) return;
+  float mb = M;
+  for (int k = 0; k < groups - 1; ++k) mb = fmaxf(mb, g_ml[k][0]);
+  const float r = exp2f(M - mb);
+  L *= r;
+  a = make_float4(a.x * r, a.y * r, a.z * r, a.w * r);
+  for (int k = 0; k < groups - 1; ++k) {
+    const float w = exp2f(g_ml[k][0] - mb);
+    const float4 x = g_acc[k][i];
+    L = fmaf(g_ml[k][1], w, L);
+    a = make_float4(fmaf(x.x, w, a.x), fmaf(x.y, w, a.y), fmaf(x.z, w, a.z),
+                    fmaf(x.w, w, a.w));
+  }
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  TQ* o = out + ((size_t)b * H + h) * kTcDC + i * 4;
+  store(o, a.x * inv);
+  store(o + 1, a.y * inv);
+  store(o + 2, a.z * inv);
+  store(o + 3, a.w * inv);
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no libcuda link)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (rows, cols) row-major bfloat16 matrix in 64 x 64 boxes under the
+// 128-byte swizzle; rows past the end read as zeros
+bool box_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint64_t dims[2] = {cols, rows}, strides[1] = {cols * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, 64}, step[2] = {1, 1};
+  return encode && encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                          dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t latent_tc_launch(const void* q_lat, const void* q_rope, const void* cc,
+                             const void* rc, void* out, float* part, const int* valid_dev,
+                             int valid_stride, int valid_host, int B, int S, int H, int splits,
+                             float scale, cudaStream_t stream) {
+  if (((uintptr_t)q_lat | (uintptr_t)q_rope) % 16 != 0) return cudaErrorMisalignedAddress;
+  LatMaps maps;  // by value in the launch: a captured graph keeps them
+  if (!box_map(&maps.q, q_lat, (uint64_t)B * H, kTcDC) ||
+      !box_map(&maps.qr, q_rope, (uint64_t)B * H, kTcDR) ||
+      !box_map(&maps.c, cc, (uint64_t)B * S, kTcDC) ||
+      !box_map(&maps.r, rc, (uint64_t)B * S, kTcDR))
+    return cudaErrorInvalidValue;
+  static bool opted_in = false;  // the attribute is set once
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        latent_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  using bf16 = __nv_bfloat16;
+  latent_tc_kernel<<<dim3(splits, (H + kTcHeads - 1) / kTcHeads, B), kTcThreads, kTcSmem,
+                     stream>>>(maps, static_cast<const bf16*>(cc), static_cast<const bf16*>(rc),
+                               part, valid_dev, valid_stride, valid_host, S, H, scale * kLog2e);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int groups = min(kTcMergeGroups, (splits + kMerge - 1) / kMerge);
+  latent_merge<bf16><<<dim3(H, B), kTcMergeThreads * groups, 0, stream>>>(
+      part, static_cast<bf16*>(out), valid_dev, valid_stride, valid_host, S, H, splits);
+  return cudaGetLastError();
+}
+
 template <typename TQ, typename TC>
 cudaError_t latent_dispatch(int dc, int dr, const void* q_lat, const void* q_rope,
                             const void* cc, const void* rc, void* out, float* part, int* tickets,
@@ -856,9 +1403,16 @@ cudaError_t latent_dispatch_cache(int cache_code, int dc, int dr, const void* q_
     case 0: return latent_dispatch<TQ, float>(dc, dr, q_lat, q_rope, cc, rc, out, part, tickets,
                                               valid_dev, valid_stride, valid_host, B, S, H,
                                               splits, scale, s);
-    case 1: return latent_dispatch<TQ, __nv_bfloat16>(dc, dr, q_lat, q_rope, cc, rc, out, part,
-                                                      tickets, valid_dev, valid_stride,
-                                                      valid_host, B, S, H, splits, scale, s);
+    case 1:
+      // bfloat16 q and cache: the tensor-core kernel (no tickets)
+      if (std::is_same<TQ, __nv_bfloat16>::value)
+        return dc == kTcDC && dr == kTcDR
+                   ? latent_tc_launch(q_lat, q_rope, cc, rc, out, part, valid_dev, valid_stride,
+                                      valid_host, B, S, H, splits, scale, s)
+                   : cudaErrorInvalidValue;
+      return latent_dispatch<TQ, __nv_bfloat16>(dc, dr, q_lat, q_rope, cc, rc, out, part,
+                                                tickets, valid_dev, valid_stride, valid_host, B,
+                                                S, H, splits, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -908,9 +1462,14 @@ extern "C" int decode_attention_launch(const void* q, const void* kc, const void
 // (cache_code 0) or bfloat16 (1), 16-byte aligned; all contiguous.  (dc, dr)
 // = (512, 64); H a multiple of 16.  valid_len as for decode_attention_launch
 // (no window).  splits <= 1024 CTAs a (batch, head group) unit, from
-// ops.py::latent_geometry.  Scratch: part, float32, units * splits * 16 *
-// (dc + 2); tickets as for decode_attention_launch, one per unit (units = B
-// * H / 16).  scale multiplies the scores (MLA: 1/sqrt(qk_nope + qk_rope)).
+// ops.py::latent_geometry.  bfloat16 q and cache run the tensor-core kernel
+// and latent_merge, two launches: head groups of 64 (units = B * ceil(H /
+// 64)), scratch part float32, units * splits * 64 * (dc + 2), q 16-byte
+// aligned too; tickets not read (may be null).  Other types run the
+// CUDA-core kernel, one launch: head groups of 16 (units = B * H / 16), part
+// units * splits * 16 * (dc + 2), tickets as for decode_attention_launch,
+// one per unit.  scale multiplies the scores (MLA: 1/sqrt(qk_nope +
+// qk_rope)).
 extern "C" int decode_attention_latent_launch(const void* q_lat, const void* q_rope,
                                               const void* cc, const void* rc, void* out,
                                               float* part, int* tickets, const int* valid_dev,

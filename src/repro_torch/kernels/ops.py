@@ -54,16 +54,26 @@ ATTN_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 #: 64 against v 128)
 FLASH_SPLIT_DIMS = ((192, 128),)
 #: (latent, rope) dims the absorbed-MLA decode kernel is instantiated for
-#: (deepseek-v3: kv_lora 512, qk_rope 64), the query heads one CTA carries
-#: (``LATENT_HEADS`` x 512 float32 accumulators in registers), the cache rows
-#: of one shared-memory tile (also the granule of a CTA's share), the CTAs
-#: it aims for per SM, and the most splits a unit (the last CTA merges
-#: splits x 32 KB of partials)
+#: (deepseek-v3: kv_lora 512, qk_rope 64).  Its tensor-core kernel
+#: (bfloat16 q and caches) carries ``LATENT_HEADS`` query heads a CTA (one
+#: wgmma M tile; the heads past H of the last group are zeros), reads the
+#: cache in tiles of ``LATENT_ROWS`` rows (also the granule of a CTA's
+#: share), aims for ``LATENT_CTAS_PER_SM`` CTAs per SM (~217 KB of shared
+#: memory each) and takes at most ``LATENT_MAX_SPLITS`` splits a unit (a
+#: split's partial is 64 x 512 float32, merged by a second launch).  The
+#: CUDA-core kernel (float32 or mixed types) has its own: 16 heads a CTA,
+#: 16-row tiles, 2 CTAs per SM, at most 16 splits (its last CTA merges
+#: splits x 32 KB of partials).  H is a multiple of ``LATENT_F32_HEADS``
+#: for both.
 LATENT_DIMS = ((512, 64),)
-LATENT_HEADS = 16
-LATENT_ROWS = 16
-LATENT_CTAS_PER_SM = 2
-LATENT_MAX_SPLITS = 16
+LATENT_HEADS = 64
+LATENT_ROWS = 64
+LATENT_CTAS_PER_SM = 1
+LATENT_MAX_SPLITS = 32
+LATENT_F32_HEADS = 16
+LATENT_F32_ROWS = 16
+LATENT_F32_CTAS_PER_SM = 2
+LATENT_F32_MAX_SPLITS = 16
 #: the decode kernel's geometry (``decode_geometry``): CTAs it aims for per
 #: SM, the granule of cache rows a CTA's share is made of, the float32
 #: partial columns (splits x heads x hd) that one CTA may merge before the
@@ -730,17 +740,26 @@ def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = Non
     return out
 
 
-def latent_geometry(B: int, H: int, S: int, n_sm: int) -> Tuple[int, int]:
-    """(head groups, splits) of the latent decode kernel: the grid is
-    (splits, head groups, B), each CTA ``LATENT_HEADS`` query heads over its
-    share of the row's live range (``decode_share`` in granules of
-    ``LATENT_ROWS``), from the shapes and the SM count alone (never
-    ``valid_len``).  Splits fill ``LATENT_CTAS_PER_SM`` CTAs per SM in one
-    wave, up to ``LATENT_MAX_SPLITS``, and never outnumber the cache's
-    tiles."""
-    n_hg = H // LATENT_HEADS
-    tiles = -(-S // LATENT_ROWS)
-    return n_hg, max(1, min(LATENT_CTAS_PER_SM * n_sm // (B * n_hg), tiles, LATENT_MAX_SPLITS))
+def latent_geometry(B: int, H: int, S: int, n_sm: int,
+                    tensor_cores: bool = True) -> Tuple[int, int, int, int]:
+    """(heads a CTA, tile rows, head groups, splits) of the latent decode
+    kernel: the grid is (splits, head groups, B), each CTA that many query
+    heads over its share of the row's live range (``decode_share`` in
+    granules of the tile rows), from the shapes and the SM count alone
+    (never ``valid_len``, so a captured call replays with new lengths).
+    ``tensor_cores`` (bfloat16 q and caches) picks the tensor-core kernel's
+    ``LATENT_*`` constants, else the CUDA-core kernel's ``LATENT_F32_*``.
+    Splits fill the kernel's CTAs per SM in one wave, up to its most
+    splits, and never outnumber the cache's tiles."""
+    if tensor_cores:
+        heads, rows, per_sm, most = (LATENT_HEADS, LATENT_ROWS, LATENT_CTAS_PER_SM,
+                                     LATENT_MAX_SPLITS)
+    else:
+        heads, rows, per_sm, most = (LATENT_F32_HEADS, LATENT_F32_ROWS, LATENT_F32_CTAS_PER_SM,
+                                     LATENT_F32_MAX_SPLITS)
+    n_hg = -(-H // heads)
+    tiles = -(-S // rows)
+    return heads, rows, n_hg, max(1, min(per_sm * n_sm // (B * n_hg), tiles, most))
 
 
 _LATENT_CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -755,16 +774,23 @@ def decode_attention_latent(q_lat, q_rope, c_cache, r_cache, valid_len, scale: f
     the latent rows ``c``; ``valid_len`` as in ``decode_attention`` (an int,
     or a 0-d or (B,) integer tensor on the card, read there), no window.
     The kernel is instantiated for (dc, dr) in ``LATENT_DIMS``, H a multiple
-    of ``LATENT_HEADS``, q in float32 or bfloat16 and both caches in
+    of ``LATENT_F32_HEADS``, q in float32 or bfloat16 and both caches in
     float32 or bfloat16; any other mix of ``FLOAT_DTYPES`` is cast to
     float32 first and the output cast back.  Returns (B,H,dc) in q_lat's
     dtype.
 
-    On the card this is one launch of ``latent_geometry``'s grid: each CTA
-    copies tiles of ``LATENT_ROWS`` cache rows of its share into shared
-    memory, where all its heads read them, and the last CTA of each (batch,
-    head group) merges the splits' float32 partials through the tickets
-    that ``decode_attention`` uses (one stream per device)."""
+    On the card, bfloat16 q and caches (every timed path: deepseek-v3
+    serves in bfloat16) run the tensor-core kernel: a CTA of
+    ``latent_geometry``'s grid holds ``LATENT_HEADS`` heads of q in shared
+    memory and ``LATENT_ROWS``-row tiles of its share of c and r (by TMA,
+    the share's last part-tile by cp.async, so no row past ``valid_len``
+    is read), computes the scores and the values with ``wgmma`` on
+    bfloat16 tensor cores in float32 sums (P rounded to bfloat16), and
+    writes its float32 partial; a second launch merges the splits (one
+    call counted).  Float32 and
+    mixed types run the CUDA-core kernel, 16 heads a CTA, whose last CTA of
+    each (batch, head group) merges the splits through the tickets that
+    ``decode_attention`` uses (one stream per device)."""
     _check_floats(q_lat=q_lat, q_rope=q_rope, c_cache=c_cache, r_cache=r_cache)
     if not (q_lat.dtype in _Q_CODES and q_rope.dtype == q_lat.dtype
             and c_cache.dtype == r_cache.dtype and c_cache.dtype in _LATENT_CACHE_CODES):
@@ -781,30 +807,32 @@ def decode_attention_latent(q_lat, q_rope, c_cache, r_cache, valid_len, scale: f
     if (dc, dr) not in LATENT_DIMS:
         raise ValueError(f"latent decode kernel takes (latent, rope) dims in {LATENT_DIMS}, "
                          f"got ({dc}, {dr})")
-    if H < 1 or H % LATENT_HEADS:
-        raise ValueError(f"latent decode kernel takes a multiple of {LATENT_HEADS} query heads, "
-                         f"got {H}")
+    if H < 1 or H % LATENT_F32_HEADS:
+        raise ValueError(f"latent decode kernel takes a multiple of {LATENT_F32_HEADS} query "
+                         f"heads, got {H}")
     _check("q_lat", q_lat, q_lat.dtype, (B, H, dc))
     _check("q_rope", q_rope, q_lat.dtype, (B, H, dr))
     _check("c_cache", c_cache, c_cache.dtype, (B, S, dc))
     _check("r_cache", r_cache, c_cache.dtype, (B, S, dr))
-    if any(t.data_ptr() % 16 for t in (c_cache, r_cache)):
-        raise ValueError("latent decode kernel copies the caches 16 bytes at a time: "
-                         "their storage must be 16-byte aligned")
+    tensor_cores = q_lat.dtype == c_cache.dtype == torch.bfloat16
+    copied = (c_cache, r_cache, q_lat, q_rope) if tensor_cores else (c_cache, r_cache)
+    if any(t.data_ptr() % 16 for t in copied):
+        raise ValueError("latent decode kernel copies the caches (and bfloat16 q) 16 bytes at "
+                         "a time: their storage must be 16-byte aligned")
     if not scale > 0:
         raise ValueError(f"scale must be positive, got {scale}")
     valid_dev, valid_host = _valid_len_args(valid_len, q_lat, B, S, None)
     lib = build.load("decode_attention")
-    n_hg, splits = latent_geometry(B, H, S, _sm_count(q_lat.device))
+    heads, _, n_hg, splits = latent_geometry(B, H, S, _sm_count(q_lat.device), tensor_cores)
     units = B * n_hg
     out = torch.empty_like(q_lat)
-    part = torch.empty(units * splits * LATENT_HEADS * (dc + 2), dtype=torch.float32,
+    part = torch.empty(units * splits * heads * (dc + 2), dtype=torch.float32,
                        device=q_lat.device)
-    tickets = _decode_tickets(q_lat.device, units)
+    tickets = None if tensor_cores else _decode_tickets(q_lat.device, units)
     with torch.cuda.device(q_lat.device):
         err = lib.decode_attention_latent_launch(
             q_lat.data_ptr(), q_rope.data_ptr(), c_cache.data_ptr(), r_cache.data_ptr(),
-            out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+            out.data_ptr(), part.data_ptr(), tickets.data_ptr() if tickets is not None else None,
             valid_dev.data_ptr() if valid_dev is not None else None,
             valid_dev.ndim if valid_dev is not None else 0, valid_host,
             B, S, H, dc, dr, splits, float(scale), _Q_CODES[q_lat.dtype],

@@ -840,30 +840,42 @@ def _latent_inputs(B, S, H, q_dtype, cache_dtype, seed, cuda):
 LATENT_SCALE = float(np.float32(1) / np.sqrt(np.float32(192)))
 
 
+MLA_B8_LENGTHS = np.random.default_rng(7).integers(16, 577, 8).tolist()  # chip_smoke's mla_b8
+
+
 @pytest.mark.parametrize("q_dtype,cache_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
-@pytest.mark.parametrize("B,S,valid,form", [
-    (1, 1024, 1023, "int"),     # the engine's shape: one row, the last position
-    (1, 1024, 1023, "0-d"),
-    (1, 1024, 0, "0-d"),        # the first token
-    (1, 100, 37, "int"),        # a partial tile
-    (1, 64, 500, "0-d"),        # past S-1: every row live
-    (3, 300, [5, 299, 140], "per-row"),
-    (8, 1024, [200, 200, 133, 200, 200, 200, 200, 9], "per-row"),  # the batcher's shape
+@pytest.mark.parametrize("B,S,H,valid,form", [
+    (1, 1024, 128, 1023, "int"),     # the engine's shape: one row, the last position
+    (1, 1024, 128, 1023, "0-d"),
+    (1, 1024, 128, 0, "0-d"),        # the first token
+    (1, 100, 128, 37, "int"),        # a partial tile
+    (1, 64, 128, 500, "0-d"),        # past S-1: every row live
+    (3, 300, 128, [5, 299, 140], "per-row"),
+    (8, 1024, 128, [200, 200, 133, 200, 200, 200, 200, 9], "per-row"),  # the batcher's shape
+    (2, 200, 16, [100, 63], "per-row"),     # 16 heads: 48 zero rows of the 64-head tile
+    (2, 200, 80, [64, 130], "per-row"),     # 80 heads: the second head group padded
+    (1, 1024, 128, 700, "0-d"),             # the last split's share ends mid-tile
+    (8, 1024, 128, MLA_B8_LENGTHS, "per-row"),  # chip_smoke's mla_b8 row
+    (1, 2048, 128, 1024, "0-d"),            # the mla endpoint's cache, 1,025 live rows
 ])
-def test_latent_kernel_matches_plain(cuda, B, S, valid, form, q_dtype, cache_dtype):
-    """The absorbed-MLA entry at deepseek-v3's dims (128 heads over one latent
-    head of 512 + 64) against its plain version: an int, a 0-d or a (B,)
-    valid_len; one launch; output (B,128,512) in q's dtype."""
+def test_latent_kernel_matches_plain(cuda, B, S, H, valid, form, q_dtype, cache_dtype):
+    """The absorbed-MLA entry at deepseek-v3's dims (latent 512 + rope 64;
+    128 heads, and 16 and 80) against its plain version: an int, a 0-d or a
+    (B,) valid_len; one launch counted (the tensor-core path makes two:
+    the kernel and the merge); output (B,H,512) in q's dtype; a second run
+    equal bit for bit (no atomics but the CUDA-core kernel's tickets)."""
     v = valid if form == "int" else torch.tensor(valid, dtype=torch.int32, device=cuda)
-    args = _latent_inputs(B, S, 128, q_dtype, cache_dtype, S + B, cuda)
+    args = _latent_inputs(B, S, H, q_dtype, cache_dtype, S + B, cuda)
     ops.reset_launches()
     out = ops.decode_attention_latent(*args, v, LATENT_SCALE)
+    again = ops.decode_attention_latent(*args, v, LATENT_SCALE)
     want = ref.decode_attention_latent_ref(*args, v, LATENT_SCALE)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["decode_attention_latent"] == 1
-    assert out.dtype == q_dtype and out.shape == (B, 128, 512)
+    assert ops.LAUNCHES["decode_attention_latent"] == 2
+    assert out.dtype == q_dtype and out.shape == (B, H, 512)
+    assert torch.equal(out, again)
     torch.testing.assert_close(out.float(), want.float(), **TOL_ATTN[q_dtype])
 
 
@@ -882,11 +894,12 @@ def test_latent_kernel_never_reads_past_valid_len(cuda):
         assert torch.equal(ops.decode_attention_latent(q_lat, q_rope, c, r, lengths,
                                                        LATENT_SCALE), first)
     torch.cuda.synchronize()
-    assert not ops._tickets[q_lat.device].any()
+    assert not ops._decode_tickets(q_lat.device, 1).any()
 
 
-def test_latent_kernel_no_live_position_gives_zeros(cuda):
-    q_lat, q_rope, c, r = _latent_inputs(2, 64, 16, torch.float32, torch.float32, 5, cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_latent_kernel_no_live_position_gives_zeros(cuda, dtype):
+    q_lat, q_rope, c, r = _latent_inputs(2, 64, 16, dtype, dtype, 5, cuda)
     c.fill_(float("nan"))
     r.fill_(float("nan"))
     out = ops.decode_attention_latent(q_lat, q_rope, c, r, torch.tensor([-1, -3], device=cuda),
@@ -1315,8 +1328,21 @@ def test_flash_bwd_kernel_matches_plain(cuda, B, S, H, KH, hd, causal, window, S
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 48), (False, None)])
 def test_softcap_kernels_match_plain(cuda, causal, window, dtype):
-    """cap = 50: the forward, its LSE, the backward and ``decode_attention``
-    against their plain versions."""
+    """cap = 50: the forward, its LSE and ``decode_attention`` against their
+    plain versions; the backward against its plain version in bfloat16 and
+    against the float64 gradient in float32.
+
+    At this data (q x 8: logits of ~+-60, where the cap bends them) the
+    float32 plain backward ``ref.flash_attention_bwd_ref`` itself misses
+    TOL_ATTN (2e-5) against the float64 gradient ``_flash_bwd_float64`` in
+    dk, by up to 4.83e-5, 3.76e-5 and 3.57e-5 in the three cases (2, 1 and
+    1 elements over); dq stays within 6.4e-6 and dv within 1.04e-5
+    (``tests/test_torch_tf32x3.py::test_softcap_plain_bwd_against_float64``).
+    So a float32 comparison with the plain version at 2e-5 measures the
+    plain version's own error as well.  Each float32 gradient of the kernel
+    is held to float64 instead, at most TOL_ATTN's atol less accurate than
+    the plain version on the same out and lse: max |kernel - f64| <= max
+    |plain - f64| + 2e-5."""
     cap = 50.0
     q, k, v, do = _bwd_inputs(1, 200, 4, 2, 64, None, dtype, 5, cuda)
     q = q * 8  # logits of ~+-60, where the cap bends them
@@ -1326,10 +1352,18 @@ def test_softcap_kernels_match_plain(cuda, causal, window, dtype):
                                .float(), **tol)
     torch.testing.assert_close(lse, ref.flash_attention_lse_ref(q, k, causal, window, cap),
                                atol=1e-4, rtol=2e-5)
-    for g, w in zip(ops.flash_attention_bwd(q, k, v, out, lse, do, causal, window, cap),
-                    ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window, cap)):
-        torch.testing.assert_close(g.float(), w.float(), **(
-            TOL_ATTN[torch.float32] if dtype == torch.float32 else dict(atol=5e-2, rtol=5e-2)))
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal, window, cap)
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window, cap)
+    if dtype == torch.float32:
+        exact = _flash_bwd_float64(*(t.cpu() for t in (q, k, v, do)), causal, window, cap)
+        for name, g, pl, w in zip(("dq", "dk", "dv"), got, plain, exact):
+            plain_err = float((pl.cpu().double() - w).abs().max())
+            err = float((g.cpu().double() - w).abs().max())
+            assert err <= plain_err + TOL_ATTN[torch.float32]["atol"], \
+                f"{name}: kernel {err:.3e} from float64, plain {plain_err:.3e}"
+    else:
+        for g, w in zip(got, plain):
+            torch.testing.assert_close(g.float(), w.float(), atol=5e-2, rtol=5e-2)
     kc, vc = k.contiguous(), v.contiguous()
     for valid in (100, torch.tensor([150], device=cuda)):
         torch.testing.assert_close(
@@ -1482,21 +1516,31 @@ def test_ssd_bwd_kernel_matches_plain(cuda, B, S, H, P, N, G, chunk, init, dfin,
         torch.testing.assert_close(g.float(), w, **tol)
 
 
+@pytest.mark.parametrize("seed", range(4))
 @pytest.mark.parametrize("S,G,init", [(256, 1, False), (200, 2, True), (1000, 1, False)])
-def test_ssd_autograd_matches_plain_autograd(cuda, S, G, init):
+def test_ssd_autograd_matches_plain_autograd(cuda, S, G, init, seed):
     """``ops.ssd_scan`` under autograd on the card (padding included: one
-    ``ssd_scan`` and one ``ssd_scan_bwd`` launch) against ``torch.autograd``
-    through the plain version on the same inputs; with no gradient wanted,
-    the serving path's launch alone at the same shape."""
+    ``ssd_scan`` and one ``ssd_scan_bwd`` launch) and ``torch.autograd``
+    through the float32 plain version, each against the plain version run
+    in float64 on the same inputs (``ssd_chunked`` computes float64 inputs
+    in float64), at TOL; with no gradient wanted, the serving path's launch
+    alone at the same shape.  dy, the final state's gradient and h0 come
+    from a generator seeded with ``seed``.  The float32 plain gradient
+    itself lies up to 0.68 of TOL from float64 (dA, 6.4e-4 at S=256 over 12
+    seeds; ``tests/test_torch_ssd_bwd.py::
+    test_ssd_plain_grad_float32_within_tol_of_float64``), so a comparison of
+    the kernel with it, not with float64, adds two such errors."""
     H, P, N, chunk = 8, 32, 64, 128 if S != 1000 else 256
     x, dt, A, Bm, Cm = (t.to(cuda) for t in _ssd_inputs(1, S, H, P, N, G=G, seed=9))
-    h0 = torch.randn(1, H, P, N, device=cuda) if init else None
-    dy = torch.randn(1, S, H, P, device=cuda)
-    dst = torch.randn(1, H, P, N, device=cuda)
-    grads = []
-    for route in ("kernel", "plain"):
-        leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
-        h = h0.clone().requires_grad_() if init else None
+    g = torch.Generator().manual_seed(seed)
+    h0 = torch.randn(1, H, P, N, generator=g).to(cuda) if init else None
+    dy = torch.randn(1, S, H, P, generator=g).to(cuda)
+    dst = torch.randn(1, H, P, N, generator=g).to(cuda)
+    grads = {}
+    for route in ("kernel", "plain", "float64"):
+        dtype = torch.float64 if route == "float64" else torch.float32
+        leaves = [t.to(dtype).clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        h = h0.to(dtype).clone().requires_grad_() if init else None
         ops.reset_launches()
         if route == "kernel":
             y, st = ops.ssd_scan(*leaves, chunk=chunk, init_state=h)
@@ -1506,13 +1550,17 @@ def test_ssd_autograd_matches_plain_autograd(cuda, S, G, init):
                                for t in (leaves[0], leaves[1], leaves[3], leaves[4]))
             y, st = ref.ssd_scan_ref(xp, dtp, leaves[2], Bp, Cp, chunk, h)
             y = y[:, :S]
-        ((y * dy).sum() + (st * dst).sum()).backward()
+        assert y.dtype == st.dtype == dtype
+        ((y * dy.to(dtype)).sum() + (st * dst.to(dtype)).sum()).backward()
         torch.cuda.synchronize()
         want_launches = {"ssd_scan": 1, "ssd_scan_bwd": 1} if route == "kernel" else {}
         assert ops.LAUNCHES == {**{k: 0 for k in ops.LAUNCHES}, **want_launches}
-        grads.append([t.grad for t in leaves + ([h] if init else [])])
-    for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, **TOL)
+        grads[route] = [t.grad for t in leaves + ([h] if init else [])]
+    for route in ("kernel", "plain"):
+        for name, a, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), grads[route],
+                              grads["float64"]):
+            assert a.dtype == torch.float32
+            torch.testing.assert_close(a.double(), w, **TOL, msg=lambda m: f"{route} {name}: {m}")
     ops.reset_launches()
     with torch.no_grad():
         ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=h0)

@@ -214,21 +214,39 @@ def test_latent_ref_matches_pallas_interpret():
         _close(got[b:b + 1], np.asarray(want)[..., :dc], TOL_ATTN)
 
 
+def _shares_cover_live_rows(B, S, tensor_cores):
+    heads, rows, n_hg, splits = ops.latent_geometry(B, 128, S, 132, tensor_cores)
+    assert n_hg == 128 // heads and 1 <= splits <= -(-S // rows)
+    per_sm = ops.LATENT_CTAS_PER_SM if tensor_cores else ops.LATENT_F32_CTAS_PER_SM
+    assert B * n_hg * splits <= per_sm * 132 or splits == 1
+    for valid in (0, 15, 16, 63, 64, 500, S - 1, S + 5):
+        rows_read = []
+        for sp in range(splits):
+            b, e = ops.decode_share(valid, S, None, splits, sp, rows)
+            assert b == e or (b % rows == 0)
+            rows_read.extend(range(b, e))
+        assert rows_read == list(range(min(valid, S - 1) + 1))
+
+
 def test_latent_geometry_shares_cover_every_live_row_once():
-    """The latent kernel's grid comes from the shapes alone, and its splits'
-    shares (``decode_share`` in ``LATENT_ROWS``-row granules) cover each live
-    row exactly once, at the batcher's and the engine's shapes."""
+    """The tensor-core latent kernel's grid (64 heads a CTA: 128 heads are 2
+    head groups) comes from the shapes alone, and its splits' shares
+    (``decode_share`` in ``LATENT_ROWS``-row granules) cover each live row
+    exactly once, at the batcher's and the engine's shapes."""
+    for B, S in ((8, 1024), (1, 1024), (1, 48), (1, 2048), (5, 1024), (3, 200)):
+        _shares_cover_live_rows(B, S, tensor_cores=True)
+    assert ops.latent_geometry(8, 128, 1024, 132) == (64, 64, 2, 8)
+    assert ops.latent_geometry(1, 128, 2048, 132) == (64, 64, 2, 32)
+
+
+def test_latent_geometry_of_the_cuda_core_kernel():
+    """The CUDA-core latent kernel (float32 or mixed types) keeps its own
+    geometry: 16 heads a CTA (8 head groups at 128 heads), 16-row tiles, 2
+    CTAs an SM, at most 16 splits, and the same cover of the live rows."""
     for B, S in ((8, 1024), (1, 1024), (1, 48)):
-        n_hg, splits = ops.latent_geometry(B, 128, S, 132)
-        assert n_hg == 8 and 1 <= splits <= -(-S // ops.LATENT_ROWS)
-        assert B * n_hg * splits <= ops.LATENT_CTAS_PER_SM * 132 or splits == 1
-        for valid in (0, 15, 16, 500, S - 1, S + 5):
-            rows = []
-            for sp in range(splits):
-                b, e = ops.decode_share(valid, S, None, splits, sp, ops.LATENT_ROWS)
-                assert b == e or (b % ops.LATENT_ROWS == 0)
-                rows.extend(range(b, e))
-            assert rows == list(range(min(valid, S - 1) + 1))
+        _shares_cover_live_rows(B, S, tensor_cores=False)
+    assert ops.latent_geometry(8, 128, 1024, 132, tensor_cores=False) == (16, 16, 8, 4)
+    assert ops.latent_geometry(1, 128, 1024, 132, tensor_cores=False) == (16, 16, 8, 16)
 
 
 # ------------------------------------------------------------------- model

@@ -209,3 +209,26 @@ def test_ssd_bwd_split_within_tolerance(width, a_scale):
     for s, p in zip(split, plain):
         torch.testing.assert_close(s, p, **TOL_BWD)
     assert not all(torch.allclose(o, p, **TOL_BWD) for o, p in zip(one, plain))
+
+
+TOL_ATTN = dict(atol=2e-5, rtol=2e-5)  # the card's float32 attention tolerance
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48), (False, None)])
+def test_softcap_plain_bwd_against_float64(causal, window):
+    """At the card's softcap test data (cap 50, logits of +-60) the float32
+    plain backward lies outside TOL_ATTN of the float64 gradient in dk (by
+    up to 4.83e-5, 3.76e-5 and 3.57e-5; 2, 1 and 1 elements over) and within
+    it in dq and dv (6.4e-6, 1.04e-5 at most).  So the card's test holds the
+    float32 kernel to float64, at most TOL_ATTN's atol less accurate than
+    this plain version, not to the plain version at TOL_ATTN."""
+    q, k, v, do = _softcap_data()
+    cap = 50.0
+    out = ref.flash_attention_ref(q, k, v, causal, window, cap)
+    lse = ref.flash_attention_lse_ref(q, k, causal, window, cap)
+    dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window, cap)
+    want = _flash_bwd_float64(q, k, v, do, causal, window, cap)
+    assert not torch.allclose(dk.double(), want[1], **TOL_ATTN)
+    assert float((dk.double() - want[1]).abs().max()) < 5e-5
+    for g, w in ((dq, want[0]), (dv, want[2])):
+        torch.testing.assert_close(g.double(), w, **TOL_ATTN)
