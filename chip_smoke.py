@@ -187,39 +187,53 @@ line):
              and over 1,500 memory rows, and at B=8 over the batcher's
              1,024-row cache (seeded lengths) and 1,500 memory rows.
 
-13. train  — after the whisper model is freed, three models at full
+13. train  — after the whisper model is freed, five models at full
              width in float32, each freed before the next, with ``remat``
              and AdamW on one Markov-LM batch of 2 x 1,024 tokens
              (``MarkovLM`` seed 0; lr 5e-4, the model's schedule, no
              warmup), weights from a seeded generator: minicpm-2b (40
              layers, d_model 2304, 36 heads of 64, vocab 122,753; 2.72 B
              parameters), mamba2-130m whole (24 layers, d_model 768, vocab
-             50,280) and zamba2-2.7b whole (54 Mamba2 layers, 2 shared
-             blocks of 32 heads x 80 applied 9 times, vocab 32,000; 2.47 B
-             parameters).  For each: the gradient through the kernels
-             against the plain path's (every kernel the model reaches under
-             autograd as its plain version: ``ref.flash_attention_ref``, and
-             ``ssd_chunked`` for ``ssd_scan``) on the same weights, every
-             leaf within a relative L2 of 1e-3; one AdamW step from each
-             (the loss and grad_norm within 1e-4, the loss after the step
-             within 1e-3); then the main path (``train``, ``train_mamba``,
-             ``train_zamba``), 8 steps on that batch, the loss falling, with
-             each layer's forward kernel launched twice a step (forward and
-             remat recompute) and its backward once, at one shape each:
-             minicpm-2b 80 ``flash_attention`` and 40 ``flash_attention_bwd``;
-             mamba2-130m 48 ``ssd_scan`` and 24 ``ssd_scan_bwd``; zamba2 108
-             and 54, and 18 and 9; ms a step, tokens/s, peak device memory,
-             and one step traced (busy and idle share).  Phase 2 also holds
-             the forward with its LSE and ``flash_attention_bwd`` at
-             minicpm-2b's shape (B=2, S=1,024, causal; float32, and
-             bfloat16) and the backward at zamba2's (32 heads of 80,
-             float32) against their plain versions, two backward runs bit
-             for bit, each timed with SDPA (its backward) beside, and the
-             logit softcap (50) in the forward, the backward and
-             ``decode_attention``.
+             50,280), zamba2-2.7b whole (54 Mamba2 layers, 2 shared blocks
+             of 32 heads x 80 applied 9 times, vocab 32,000; 2.47 B
+             parameters), mixtral-8x22b cut to 1 of its 56 layers (48 / 8
+             heads of 128 under the 4,096 window, 8 experts of 16,384
+             top-2, vocab 32,768; 2.91 B parameters) and deepseek-v3 cut to
+             2 of its 61 layers, one dense (d_ff 18,432) and one MoE layer
+             whose routed experts are cut from 256 to 16 (MLA with q/k heads
+             of 192 and v heads of 128, v read at a head stride; top-8 of
+             width 2,048, sigmoid router, 1 shared expert; MTP depth 1;
+             vocab 129,280; 4.06 B parameters).  For each: the gradient
+             through the kernels against the plain path's (every kernel the
+             model reaches under autograd as its plain version:
+             ``ref.flash_attention_ref``, and ``ssd_chunked`` for
+             ``ssd_scan``) on the same weights, every leaf within a relative
+             L2 of 1e-3; one AdamW step from each (the loss and grad_norm
+             within 1e-4, the loss after the step within 1e-3); then the
+             main path (``train``, ``train_mamba``, ``train_zamba``,
+             ``train_mixtral``, ``train_mla``), 8 steps on that batch, the
+             loss falling, with each layer's forward kernel launched twice
+             a step (forward and remat recompute) and its backward once, at
+             one shape each (an MTP block, outside the remat stacks, once
+             each): minicpm-2b 80 ``flash_attention`` and 40
+             ``flash_attention_bwd``; mamba2-130m 48 ``ssd_scan`` and 24
+             ``ssd_scan_bwd``; zamba2 108 and 54, and 18 and 9; mixtral 2
+             and 1; deepseek-v3 5 and 3; ms a step, tokens/s, peak device
+             memory, the bound (8 x active parameters x tokens plus the
+             attention's operations), and one step traced (busy and idle
+             share).  Phase 2 also holds the forward with its LSE and
+             ``flash_attention_bwd`` at minicpm-2b's shape (B=2, S=1,024,
+             causal; float32, and bfloat16), at zamba2's (32 heads of 80),
+             at mixtral's (48 / 8 heads of 128, window 4,096) and at
+             deepseek-v3's ((192, 128), 128 heads, v strided; the backward
+             also in bfloat16), float32 unless said, against their plain
+             versions, two backward runs bit for bit, each timed with SDPA
+             (its backward) beside; the float32 softcap backward at the GPU
+             test's data (cap 50, logits of ~+-60); and the logit softcap
+             (50) in the forward, the backward and ``decode_attention``.
 
 The launch counters are set to 0 just before each main path (phases 3, 4,
-5, 8, 9, 10, the three of 13 and the parts of 11 and 12) and read just after: the wrappers' own launches plus, for each
+5, 8, 9, 10, the five of 13 and the parts of 11 and 12) and read just after: the wrappers' own launches plus, for each
 replay of a captured step, the launches recorded when it was captured
 (``serving/captured.py``); launches made in phase 2 do not count.  Before the last line it prints one
 JSON line ``{"kernels": [...]}``, and the last line is
@@ -233,7 +247,9 @@ runs only the scheduling kernels' timings (no latency probe), phase 3 and its
 trace, and prints no result line.  To compare the scheduling kernels of two
 trees on one card, copy this script into a checkout of the other tree (a
 ``git archive`` unpacked under ``build/``) and run it there and here, in
-turns, with ``--sched-only``.
+turns, with ``--sched-only``.  ``--bwd-only`` does the same for the float32
+``flash_attention_bwd`` rows at minicpm-2b's and zamba2-2.7b's train shapes
+and at the softcap test's data.
 
 In the ``{"kernels": [...]}`` line the ``ssd_scan``, ``ssd_scan_bwd``,
 ``flash_attention``, ``flash_attention_bwd`` and ``decode_attention`` rows
@@ -307,6 +323,10 @@ TOL_STEP_REL = 1e-4    # loss and grad_norm of one step: 40 float32 layers, othe
 TOL_AFTER_REL = 1e-3
 
 TRAIN_BATCH, TRAIN_SEQ = 2, 1024  # the train phase's batch: 2 sequences of 1,024 tokens
+MIXTRAL_WINDOW = 4096  # mixtral-8x22b's sliding window, passed to the kernels at every length
+MIXTRAL_TRAIN_LAYERS = 1  # of mixtral's 56: 2.91 B parameters, ~43 GiB with grads and AdamW
+MLA_TRAIN_LAYERS = 2  # of deepseek-v3's 61: 1 dense and 1 MoE layer
+MLA_TRAIN_EXPERTS = 16  # of the MoE layer's 256 routed experts: 4.06 B parameters, ~60.5 GiB
 TRAIN_STEPS = 8
 TRAIN_LR = 5e-4
 
@@ -907,10 +927,16 @@ def phase_attention(torch, np, ops, ref, rows):
     # the backward, in float32 (the train phase's) and in bfloat16; and the
     # forward and backward at zamba2-2.7b's shared blocks (hd 80)
     shape, zamba = (TRAIN_BATCH, TRAIN_SEQ, 36, 36, 64), (TRAIN_BATCH, TRAIN_SEQ, 32, 32, 80)
-    rows["flash_attention"]["shapes"]["train"] = flash_lse_row(
-        torch, ops, ref, "minicpm-2b train", shape, f32)
-    rows["flash_attention"]["shapes"]["train_zamba"] = flash_lse_row(
-        torch, ops, ref, "zamba2-2.7b train", zamba, f32)
+    # mixtral-8x22b's and deepseek-v3's train shapes: 48 heads on 8 kv heads
+    # of 128 under the 4,096 window, and MLA's 128 heads at (192, 128), v
+    # strided; the latter in bfloat16 too, which no path runs
+    mixtral, mla = (TRAIN_BATCH, TRAIN_SEQ, 48, 8, 128), (TRAIN_BATCH, TRAIN_SEQ, 128, 128, 192)
+    shapes = rows["flash_attention"]["shapes"]
+    shapes["train"] = flash_lse_row(torch, ops, ref, "minicpm-2b train", shape, f32)
+    shapes["train_zamba"] = flash_lse_row(torch, ops, ref, "zamba2-2.7b train", zamba, f32)
+    shapes["train_mixtral"] = flash_lse_row(torch, ops, ref, "mixtral-8x22b train", mixtral, f32,
+                                            window=MIXTRAL_WINDOW)
+    shapes["train_mla"] = flash_lse_row(torch, ops, ref, "deepseek-v3 train", mla, f32, hd_v=128)
     rows["flash_attention_bwd"] = dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -918,7 +944,17 @@ def phase_attention(torch, np, ops, ref, rows):
         replaces="src/repro/models/attention.py:84",
         **flash_bwd_row(torch, ops, ref, "minicpm-2b train", shape, f32),
         shapes={"bf16": flash_bwd_row(torch, ops, ref, "minicpm-2b train", shape, bf16),
-                "zamba2": flash_bwd_row(torch, ops, ref, "zamba2-2.7b train", zamba, f32)})
+                "zamba2": flash_bwd_row(torch, ops, ref, "zamba2-2.7b train", zamba, f32),
+                "train_mixtral": flash_bwd_row(torch, ops, ref, "mixtral-8x22b train", mixtral,
+                                               f32, window=MIXTRAL_WINDOW),
+                "train_mla": flash_bwd_row(torch, ops, ref, "deepseek-v3 train", mla, f32,
+                                           hd_v=128),
+                "mla_bf16": flash_bwd_row(torch, ops, ref, "deepseek-v3 train", mla, bf16,
+                                          hd_v=128),
+                # the float32 softcap backward (no config sets a softcap), at
+                # the GPU test's data
+                "softcap": flash_bwd_row(torch, ops, ref, "softcap test data", (1, 200, 4, 2, 64),
+                                         f32, softcap=50.0, inputs=softcap_bwd_inputs(torch, np))})
     softcap_checks(torch, ops, ref)
 
 
@@ -933,7 +969,6 @@ def flash_row(torch, ops, ref, label, shape, window, dtype, hd_v=None, causal=Tr
     hd_v, as ``mla_forward`` passes it; with ``Sk`` (cross-attention, not
     causal) k and v have Sk rows.  Returns the row for the kernels line, with
     ``key``: the call's shape as the wrapper counts it (``ops.shape_key``)."""
-    F = torch.nn.functional
     B, S, H, KH, hd = shape
     Sk = Sk or S
     q, k, kv = (t.to(dtype) for t in attn_inputs(
@@ -942,14 +977,7 @@ def flash_row(torch, ops, ref, label, shape, window, dtype, hd_v=None, causal=Tr
     want = ref.flash_attention_ref(q, k, v, causal, window)
     err = check_close(torch, f"flash_attention {label}",
                       ops.flash_attention(q, k, v, causal, window), want, dtype)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    gqa = dict(enable_gqa=True) if H != KH else {}
-    if window is None or window >= S:
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa)  # noqa: E731
-    else:
-        i = torch.arange(S, device=DEVICE)
-        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa)  # noqa: E731
+    lib = sdpa_call(torch, q, k, v, causal, window)
     lib_err = max_abs(lib().transpose(1, 2), want)
     ms = time_graph(torch, [lambda: ops.flash_attention(q, k, v, causal, window)] * 10)
     plain_ms = time_graph(torch, [lambda: ref.flash_attention_ref(q, k, v, causal, window)] * 3)
@@ -1939,38 +1967,76 @@ def whisper_audio(torch, np, Model, frontends, inst, label):
     return n_prefill, n_steps
 
 # ------------------------------------------------------------------ training
-def flash_bwd_counts(B, S, H, KH, hd, causal, window, elem, Sk=None):
+def flash_bwd_counts(B, S, H, KH, hd, causal, window, elem, Sk=None, hd_v=None):
     """q, k, v, out and dout read once with the forward's lse, dq, dk and dv
-    written once; five products of 2*hd operations per live pair (the
-    scores again, since P is not kept; dO.v; dv, dq and dk): the least
-    work of the gradient (the kernel does seven, recomputing P twice)."""
-    Sk = Sk or S
-    nbytes = (4 * B * S * H * hd + 4 * B * Sk * KH * hd) * elem + B * H * S * 4
-    return nbytes, 10 * hd * B * H * live_pairs(S, causal, window, Sk)
+    written once; five products per live pair (the scores again, since P
+    is not kept, and dq and dk: 2*hd operations each; dO.v and dv: 2*hd_v
+    each): the least work of the gradient.  Returns (bytes, operations, the
+    kernel's operations: seven products, q.k and dO.v twice)."""
+    Sk, hd_v = Sk or S, hd_v or hd
+    nbytes = ((2 * hd + 2 * hd_v) * B * S * H + 2 * (hd + hd_v) * B * Sk * KH) * elem \
+        + B * H * S * 4
+    pairs = B * H * live_pairs(S, causal, window, Sk)
+    return nbytes, 2 * (3 * hd + 2 * hd_v) * pairs, 2 * (4 * hd + 3 * hd_v) * pairs
 
 
-def flash_bwd_row(torch, ops, ref, label, shape, dtype, causal=True):
-    """``flash_attention_bwd`` at ``shape`` (B, S, H, KH, hd) in ``dtype``,
-    from the forward kernel's output and LSE: both against their plain
-    versions, the gradients against ``flash_attention_bwd_ref`` (the dtype's
-    tolerance) and bit for bit across two runs; then its time, the plain
-    version's and the backward of one ``scaled_dot_product_attention`` call
-    (the library yardstick, never called by the port), each in CUDA events
-    around back-to-back calls (the autograd backward cannot be captured in a
-    graph); the bound at the peak for the inputs' type.  Returns the row."""
+def sdpa_call(torch, q, k, v, causal, window):
+    """One ``scaled_dot_product_attention`` call computing ``flash_attention``
+    on (B, S, heads, hd) tensors (transposed to its (B, heads, S, hd)): the
+    library yardstick, never called by the port.  A window shorter than S
+    goes in as a boolean mask."""
     F = torch.nn.functional
+    B, S, H, _ = q.shape
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = dict(enable_gqa=True) if H != k.shape[2] else {}
+    if window is None or window >= S:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa)
+    i = torch.arange(S, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa)
+
+
+def train_attn_inputs(torch, shape, dtype, seed, hd_v=None, n=4):
+    """q (B,S,H,hd), k (B,S,KH,hd), v and (n=4) dout at (B,S,·,hd_v) from a
+    seeded generator; with ``hd_v`` (MLA) v is read in place as the tail of
+    each head's [k_nope | v] row of 2 x hd_v, as ``mla_forward`` passes it."""
     B, S, H, KH, hd = shape
-    q, k, v, do = (t.to(dtype) for t in attn_inputs(
-        torch, [(B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd), (B, S, H, hd)], 11))
-    out, lse = ops._flash_forward(q, k, v, causal, None, None, want_lse=True)
-    lse_err = max_abs(lse, ref.flash_attention_lse_ref(q, k, causal))
-    if not torch.allclose(lse, ref.flash_attention_lse_ref(q, k, causal), **TOL_ATTN):
+    hv = hd_v or hd
+    ts = [t.to(dtype) for t in attn_inputs(
+        torch, [(B, S, H, hd), (B, S, KH, hd), (B, S, KH, 2 * hv if hd_v else hd),
+                (B, S, H, hv)][:n], seed)]
+    if hd_v:
+        ts[2] = ts[2][..., hd_v:]
+    return ts
+
+
+def flash_bwd_row(torch, ops, ref, label, shape, dtype, causal=True, window=None, hd_v=None,
+                  softcap=None, inputs=None):
+    """``flash_attention_bwd`` at ``shape`` (B, S, H, KH, hd) in ``dtype``
+    (with ``hd_v``, v's head dim, v read at a head stride as MLA's; with
+    ``softcap``, capped logits; ``inputs``: q, k, v, dout to use instead of
+    seeded ones), from the forward kernel's output and LSE: both against
+    their plain versions, the gradients against ``flash_attention_bwd_ref``
+    (the dtype's tolerance) and bit for bit across two runs; then its time,
+    the plain version's and the backward of one
+    ``scaled_dot_product_attention`` call (the library yardstick, never
+    called by the port; none computes a softcap), each in CUDA events around
+    back-to-back calls (the autograd backward cannot be captured in a
+    graph); the bound at the peak for the inputs' type.  Returns the row."""
+    B, S, H, KH, hd = shape
+    q, k, v, do = inputs or train_attn_inputs(torch, shape, dtype, 11, hd_v)
+    out, lse = ops._flash_forward(q, k, v, causal, window, softcap, want_lse=True)
+    want_lse = ref.flash_attention_lse_ref(q, k, causal, window, softcap)
+    lse_err = max_abs(lse, want_lse)
+    lse_tol = dict(atol=1e-4, rtol=2e-5) if softcap else TOL_ATTN
+    if not torch.allclose(lse, want_lse, **lse_tol):
         fail(f"flash_attention's LSE {label}: max abs err {lse_err:.3e}")
     out_err = check_close(torch, f"flash_attention {label}", out,
-                          ref.flash_attention_ref(q, k, v, causal), dtype)
-    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal)
-    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal)
-    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+                          ref.flash_attention_ref(q, k, v, causal, window, softcap), dtype)
+    mask = (causal, window, softcap)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, *mask)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, *mask)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, *mask)
     tol = TOL_BWD if dtype == torch.float32 else TOL_BF16
     err = 0.0
     for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
@@ -1979,58 +2045,71 @@ def flash_bwd_row(torch, ops, ref, label, shape, dtype, causal=True):
         if g.dtype != dtype or not torch.allclose(g.float(), w.float(), **tol):
             fail(f"flash_attention_bwd {label}: {name} max abs err {max_abs(g, w):.3e} ({tol})")
         err = max(err, max_abs(g, w))
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                       **(dict(enable_gqa=True) if H != KH else {}))
-    dot = do.transpose(1, 2)
-    lib_err = max(max_abs(g.transpose(1, 2), w) for g, w in zip(
-        torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), want))
-    ms = time_cuda(torch, lambda: ops.flash_attention_bwd(q, k, v, out, lse, do, causal), 5,
+    ms = time_cuda(torch, lambda: ops.flash_attention_bwd(q, k, v, out, lse, do, *mask), 5,
                    calls=10)
-    plain_ms = time_cuda(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
-                                                                    causal), 3, calls=3)
-    lib_ms = time_cuda(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
-                                                          retain_graph=True), 5, calls=10)
-    nbytes, nops = flash_bwd_counts(B, S, H, KH, hd, causal, None, q.element_size())
+    plain_ms = time_cuda(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do, *mask),
+                         3, calls=3)
+    lib_ms, lib_note = None, "no library call computes a softcap"
+    if not softcap:
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = sdpa_call(torch, *leaves, causal, window)().transpose(1, 2)
+        lib_err = max(max_abs(g, w) for g, w in zip(
+            torch.autograd.grad(o, leaves, do, retain_graph=True), want))
+        lib_ms = time_cuda(torch, lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
+                           5, calls=10)
+        lib_note = f"sdpa backward {lib_ms:.4f} ms (max abs diff {lib_err:.2e})"
+    nbytes, nops, kernel_ops = flash_bwd_counts(B, S, H, KH, hd, causal, window,
+                                                q.element_size(), hd_v=hd_v)
     b_ms, b_by = bound(nbytes, nops, peak_ops(torch, dtype))
     log(f"[kernels] flash_attention_bwd {label} B={B} S={S} H={H} KH={KH} hd={hd} "
-        f"{'causal' if causal else 'bidirectional'} {str(dtype)[6:]}: max abs err {err:.3e} "
-        f"(out {out_err:.2e}, LSE {lse_err:.2e}; two runs bit for bit); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa backward {lib_ms:.4f} ms (max abs diff {lib_err:.2e}), bound {b_ms:.4f} ms "
-        f"({b_by}: {nops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; the kernel does "
-        f"{nops * 7 / 5 / 1e9:.3f} GFLOP, {nops * 7 / 5 / ms / 1e9:.1f} TFLOP/s)")
+        f"{f'hd_v={hd_v} (v strided) ' if hd_v else ''}"
+        f"{'causal' if causal else 'bidirectional'} window={window} "
+        f"{f'softcap={softcap} ' if softcap else ''}{str(dtype)[6:]}: max abs err {err:.3e} "
+        f"(out {out_err:.2e}, LSE {lse_err:.2e}; two runs bit for bit); {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, {lib_note}, bound {b_ms:.4f} ms ({b_by}: {nops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB; the kernel does {kernel_ops / 1e9:.3f} GFLOP, "
+        f"{kernel_ops / ms / 1e9:.1f} TFLOP/s)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, key=ops.shape_key(q, k, v, causal, None))
+                library_ms=lib_ms,
+                key=ops.shape_key(q, k, v, causal, window, *((softcap,) if softcap else ())))
 
 
-def flash_lse_row(torch, ops, ref, label, shape, dtype):
+def softcap_bwd_inputs(torch, np):
+    """``tests/test_torch_gpu.py::test_softcap_kernels_match_plain``'s data:
+    q, k, v, dout of (1, 200, 4|2, 64) from numpy seed 5, q x 8 (logits of
+    ~+-60 under a softcap of 50)."""
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(DEVICE)
+                   for s in [(1, 200, 4, 64), (1, 200, 2, 64), (1, 200, 2, 64), (1, 200, 4, 64)])
+    return q * 8, k, v, do
+
+
+def flash_lse_row(torch, ops, ref, label, shape, dtype, window=None, hd_v=None):
     """``flash_attention``'s forward as training runs it (causal, the LSE
-    written for the backward), against its plain version: out and LSE, then
-    its time from a CUDA graph of back-to-back calls as ``flash_row``'s."""
-    F = torch.nn.functional
+    written for the backward; with ``hd_v`` v read at a head stride as
+    MLA's), against its plain version: out and LSE, then its time from a
+    CUDA graph of back-to-back calls as ``flash_row``'s."""
     B, S, H, KH, hd = shape
-    q, k, v = (t.to(dtype) for t in attn_inputs(
-        torch, [(B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)], 7))
-    out, lse = ops._flash_forward(q, k, v, True, None, None, want_lse=True)
+    q, k, v = train_attn_inputs(torch, shape, dtype, 7, hd_v, n=3)
+    out, lse = ops._flash_forward(q, k, v, True, window, None, want_lse=True)
     err = max(check_close(torch, f"flash_attention {label}", out,
-                          ref.flash_attention_ref(q, k, v, True), dtype),
+                          ref.flash_attention_ref(q, k, v, True, window), dtype),
               check_close(torch, f"flash_attention {label} LSE", lse,
-                          ref.flash_attention_lse_ref(q, k, True), torch.float32))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = time_graph(torch, [lambda: ops._flash_forward(q, k, v, True, None, None, True)] * 10)
-    plain_ms = time_graph(torch, [lambda: (ref.flash_attention_ref(q, k, v, True),
-                                           ref.flash_attention_lse_ref(q, k, True))] * 3)
-    lib_ms = time_graph(torch, [lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                       is_causal=True)] * 10)
-    nbytes, nops = flash_counts(B, S, H, KH, hd, True, None, q.element_size())
+                          ref.flash_attention_lse_ref(q, k, True, window), torch.float32))
+    ms = time_graph(torch, [lambda: ops._flash_forward(q, k, v, True, window, None, True)] * 10)
+    plain_ms = time_graph(torch, [lambda: (ref.flash_attention_ref(q, k, v, True, window),
+                                           ref.flash_attention_lse_ref(q, k, True, window))] * 3)
+    lib_ms = time_graph(torch, [sdpa_call(torch, q, k, v, True, window)] * 10)
+    nbytes, nops = flash_counts(B, S, H, KH, hd, True, window, q.element_size(), hd_v)
     nbytes += B * H * S * 4
     b_ms, b_by = bound(nbytes, nops, peak_ops(torch, dtype))
-    log(f"[kernels] flash_attention {label} B={B} S={S} H={H} KH={KH} hd={hd} causal, LSE "
+    log(f"[kernels] flash_attention {label} B={B} S={S} H={H} KH={KH} hd={hd} "
+        f"{f'hd_v={hd_v} (v strided) ' if hd_v else ''}causal window={window}, LSE "
         f"written, {str(dtype)[6:]}: max abs err {err:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms "
         f"(with its LSE), sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
         f"{nops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, key=ops.shape_key(q, k, v, True, None))
+                library_ms=lib_ms, key=ops.shape_key(q, k, v, True, window))
 
 
 def softcap_checks(torch, ops, ref):
@@ -2137,9 +2216,12 @@ def phase_train(torch, np, ops, ref, cfg, Model, training, data, counted, path_s
                     stack.enter_context(swapped(ops, plain_of[name], name))
             yield
 
-    log(f"{tag} {cfg.name} {cfg.n_layers}L d{cfg.d_model} vocab {cfg.vocab}: "
-        f"{n_params / 1e9:.3f} B parameters in float32, remat; batch {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ} tokens (MarkovLM seed 0); kernels {', '.join(kernels)}")
+    n_active = active_params(cfg, params)
+    log(f"{tag} {cfg.name} {cfg.n_layers}L d{cfg.d_model} vocab {cfg.vocab}"
+        f"{f' experts {cfg.moe.n_experts} top-{cfg.moe.top_k}' if cfg.moe else ''}: "
+        f"{n_params / 1e9:.3f} B parameters in float32 ({n_active / 1e9:.3f} B active a token), "
+        f"remat; batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens (MarkovLM seed 0); kernels "
+        f"{', '.join(kernels)}")
 
     # (1) gradients: kernel path against plain path, on the card
     loss_k, _, g_k = training.loss_and_grads(model, params, batch)
@@ -2218,23 +2300,28 @@ def phase_train(torch, np, ops, ref, cfg, Model, training, data, counted, path_s
     peak = torch.cuda.max_memory_allocated() / 2**30
     ms = statistics.median(times[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    n_ops = 8 * n_params * tokens  # 6 x parameters x tokens, and the remat forward
+    # 6 x active parameters x tokens, and the remat forward; and the attention
+    n_attn = train_attn_ops(torch, ops, cfg)
+    n_ops = 8 * n_active * tokens + n_attn
     log(f"{tag} {TRAIN_STEPS} steps on one batch, lr {TRAIN_LR:g} ({cfg.lr_schedule}, no "
         f"warmup): losses {', '.join(f'{x:.4f}' for x in losses)}")
     log(f"{tag} step times {', '.join(f'{t:.1f}' for t in times)} ms; median of steps 2-"
         f"{TRAIN_STEPS} {ms:.1f} ms, {tokens / ms * 1e3:.0f} tokens/s; peak device memory "
-        f"{peak:.1f} GiB; bound {n_ops / 1e12:.1f} TFLOP at {PEAK_F32_OPS_PER_S / 1e12:.0f} "
-        f"TFLOP/s = {n_ops / PEAK_F32_OPS_PER_S * 1e3:.0f} ms a step (achieved "
-        f"{n_ops / ms / 1e9:.1f} TFLOP/s)")
+        f"{peak:.1f} GiB; bound {n_ops / 1e12:.1f} TFLOP ({n_attn / 1e12:.2f} of it the "
+        f"attention) at {PEAK_F32_OPS_PER_S / 1e12:.0f} TFLOP/s = "
+        f"{n_ops / PEAK_F32_OPS_PER_S * 1e3:.0f} ms a step (achieved {n_ops / ms / 1e9:.1f} "
+        f"TFLOP/s)")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
     want = train_launches(torch, ops, cfg)
     if path_shapes[path] != want:
         fail(f"{path} path launched {path_shapes[path]}, not {want} (each layer's kernels "
-             f"twice a step, forward and the remat recompute, and its backward once)")
+             f"twice a step, forward and the remat recompute, and its backward once; an MTP "
+             f"block's once each)")
     log(f"{tag} launches a step: " + ", ".join(f"{key[0]} {n // TRAIN_STEPS}"
                                               for key, n in want.items())
-        + " (forward and the remat recompute, and the backward), at one shape each, as expected")
+        + " (forward and the remat recompute, and the backward; an MTP block's forward once), "
+          "at one shape each, as expected")
     # where the peak falls: one more step, its two halves measured apart
     torch.cuda.reset_peak_memory_stats()
     _, _, grads = training.loss_and_grads(model, params, batch)
@@ -2252,19 +2339,67 @@ def phase_train(torch, np, ops, ref, cfg, Model, training, data, counted, path_s
 def train_launches(torch, ops, cfg):
     """The launches TRAIN_STEPS steps of ``cfg`` make, by shape: every
     attention layer (minicpm-2b's 40; zamba2's shared block at each of its 9
-    applications) and every Mamba2 layer launches its forward kernel twice a
-    step (the forward and the remat recompute) and its backward once."""
+    applications; mixtral's under its window; deepseek-v3's MLA at (192,
+    128)) and every Mamba2 layer launches its forward kernel twice a step
+    (the forward and the remat recompute) and its backward once; an MTP
+    block (deepseek-v3's, outside the remat stacks) its forward and its
+    backward once each."""
     want = {}
     if cfg.family in ("ssm", "hybrid"):
         key = ops.shape_key(*_train_ssd(torch, cfg), cfg.ssm.chunk, None)
         want[("ssd_scan", *key)] = 2 * cfg.n_layers * TRAIN_STEPS
         want[("ssd_scan_bwd", *key)] = cfg.n_layers * TRAIN_STEPS
-    if cfg.family != "ssm":
-        n = cfg.n_layers // cfg.hybrid.every if cfg.family == "hybrid" else cfg.n_layers
-        key = ops.shape_key(*_train_qkv(torch, cfg), True, None)
-        want[("flash_attention", *key)] = 2 * n * TRAIN_STEPS
-        want[("flash_attention_bwd", *key)] = n * TRAIN_STEPS
+    for window, n_remat, n_once in _train_attn_layers(cfg):
+        key = ops.shape_key(*_train_qkv(torch, cfg), True, window)
+        for name, n in (("flash_attention", 2 * n_remat + n_once),
+                        ("flash_attention_bwd", n_remat + n_once)):
+            want[(name, *key)] = want.get((name, *key), 0) + n * TRAIN_STEPS
     return want
+
+
+def _train_attn_layers(cfg):
+    """(the kernels' window, layers under remat, layers run once) of each
+    window a train step of ``cfg`` attends with."""
+    if cfg.family == "ssm":
+        return []
+    if cfg.family == "hybrid":
+        return [(None, cfg.n_layers // cfg.hybrid.every, 0)]
+    from repro_torch.models.attention import _kernel_window
+    from repro_torch.models.transformer import layer_meta
+
+    windows = [_kernel_window(w) for w in layer_meta(cfg)[0]]
+    out = [(w, windows.count(w), 0) for w in dict.fromkeys(windows)]
+    if cfg.mtp_depth:  # the MTP block attends without a window, outside the remat stacks
+        out = [(w, n, 1 if w is None else 0) for w, n, _ in out] if None in windows \
+            else out + [(None, 0, 1)]
+    return out
+
+
+def train_attn_ops(torch, ops, cfg):
+    """The attention's operations in one train step (not in 8 x parameters x
+    tokens): each layer's forward twice (the remat recompute; an MTP block's
+    once) and its backward once, each at the least work of
+    ``flash_counts`` and ``flash_bwd_counts``."""
+    q, k, v = _train_qkv(torch, cfg)
+    B, S, H, hd = q.shape
+    KH, hd_v = k.shape[2], v.shape[-1]
+    total = 0
+    for window, n_remat, n_once in _train_attn_layers(cfg):
+        fwd = flash_counts(B, S, H, KH, hd, True, window, 4, hd_v)[1]
+        bwd = flash_bwd_counts(B, S, H, KH, hd, True, window, 4, hd_v=hd_v)[1]
+        total += (2 * n_remat + n_once) * fwd + (n_remat + n_once) * bwd
+    return total
+
+
+def active_params(cfg, params):
+    """Parameters a token's step reads: all of them, but of each MoE
+    layer's routed experts only top_k of n_experts."""
+    n = sum(t.numel() for _, t in _named_leaves(params))
+    if cfg.moe is None:
+        return n
+    experts = sum(t.numel() for name, t in _named_leaves(params)
+                  if name.split("/")[-2:] in (["moe", "wi_gate"], ["moe", "wi_up"], ["moe", "wo"]))
+    return n - experts + experts * cfg.moe.top_k // cfg.moe.n_experts
 
 
 def _train_ssd(torch, cfg):
@@ -2280,11 +2415,17 @@ def _train_ssd(torch, cfg):
 
 def _train_qkv(torch, cfg):
     """Tensors of the shape and dtype of a training step's q, k and v (on
-    the meta device: only their shape key is read)."""
-    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.head_dim_)
-    kv = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_kv_heads, cfg.head_dim_)
-    return (torch.empty(shape, device="meta"), torch.empty(kv, device="meta"),
-            torch.empty(kv, device="meta"))
+    the meta device: only their shape key is read); MLA's at q/k heads of
+    nope + rope and v heads of v_head_dim."""
+    B, S, H = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads
+    if cfg.mla is not None:
+        m = cfg.mla
+        shapes = [(B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)] * 2 + \
+            [(B, S, H, m.v_head_dim)]
+    else:
+        kv = (B, S, cfg.n_kv_heads, cfg.head_dim_)
+        shapes = [(B, S, H, cfg.head_dim_), kv, kv]
+    return tuple(torch.empty(sh, device="meta") for sh in shapes)
 
 
 def trace_train_step(torch, fn, tag="[train]"):
@@ -2335,6 +2476,11 @@ def main(argv=None) -> int:
                          "(with its trace), and print no result line: for comparing the "
                          "kernels of two trees on one card, run from a copy of this script "
                          "in each")
+    ap.add_argument("--bwd-only", action="store_true",
+                    help="run only the float32 flash_attention_bwd rows at minicpm-2b's and "
+                         "zamba2-2.7b's train shapes and at the softcap test's data, and print "
+                         "no result line: for comparing the backward kernels of two trees on "
+                         "one card, as --sched-only")
     args = ap.parse_args(argv)
     try:
         import numpy as np
@@ -2359,6 +2505,16 @@ def main(argv=None) -> int:
     from repro_torch import training
     from repro_torch.training import data as train_data
 
+    if args.bwd_only:
+        card = phase_device(torch, build, ("flash_attention", "flash_attention_bwd"))
+        for label, shape, kw in (
+                ("minicpm-2b train", (TRAIN_BATCH, TRAIN_SEQ, 36, 36, 64), {}),
+                ("zamba2-2.7b train", (TRAIN_BATCH, TRAIN_SEQ, 32, 32, 80), {}),
+                ("softcap test data", (1, 200, 4, 2, 64),
+                 dict(softcap=50.0, inputs=softcap_bwd_inputs(torch, np)))):
+            flash_bwd_row(torch, ops, ref, label, shape, torch.float32, **kw)
+        print(card)
+        return 0
     if args.sched_only:
         card = phase_device(torch, build, ("sched",))
         sched_kernels(torch, np, ops, ref)
@@ -2633,12 +2789,26 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
 
     # training at full width in float32, remat and AdamW: minicpm-2b, then
-    # mamba2-130m whole and zamba2-2.7b whole, each freed before the next
-    for path, name, width in (("train", "minicpm_2b", DENSE_WIDTH),
-                              ("train_mamba", "mamba2_130m", FULL_WIDTH),
-                              ("train_zamba", "zamba2_2p7b", ZAMBA_WIDTH)):
-        phase_train(torch, np, ops, ref, full_width(get_config, name, width), Model, training,
-                    train_data, counted, path_shapes, path)
+    # mamba2-130m whole and zamba2-2.7b whole, then the MoE family cut in
+    # depth to fit one card with its gradients and moments: mixtral-8x22b at
+    # 1 of 56 layers, deepseek-v3 at 2 of 61 (a dense and a MoE layer, its
+    # routed experts cut from 256 to 16), each freed before the next
+    mcfg = full_width(get_config, "mixtral_8x22b", MIXTRAL_WIDTH)
+    if mcfg.sliding_window != MIXTRAL_WINDOW:
+        fail(f"mixtral_8x22b's window is {mcfg.sliding_window}, not {MIXTRAL_WINDOW}")
+    xcfg = full_width(get_config, "deepseek_v3_671b", MLA_WIDTH)
+    train_paths = (
+        ("train", full_width(get_config, "minicpm_2b", DENSE_WIDTH)),
+        ("train_mamba", full_width(get_config, "mamba2_130m", FULL_WIDTH)),
+        ("train_zamba", full_width(get_config, "zamba2_2p7b", ZAMBA_WIDTH)),
+        ("train_mixtral", dataclasses.replace(mcfg, n_layers=MIXTRAL_TRAIN_LAYERS)),
+        ("train_mla", dataclasses.replace(
+            xcfg, n_layers=MLA_TRAIN_LAYERS,
+            moe=dataclasses.replace(xcfg.moe, n_experts=MLA_TRAIN_EXPERTS,
+                                    n_dense_layers=MLA_TRAIN_LAYERS - 1))))
+    for path, cfg in train_paths:
+        phase_train(torch, np, ops, ref, cfg, Model, training, train_data, counted, path_shapes,
+                    path)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2665,8 +2835,13 @@ def main(argv=None) -> int:
            "ssd_scan_bwd": ("train_mamba", {"bf16": None, "g2": None, "zamba2": "train_zamba",
                                             "zamba2_bf16": None}),
            "flash_attention": ("dense", {"zamba2": "hybrid", "mixtral": "moe", "mla": "mla",
-                                         "train": "train", "train_zamba": "train_zamba"}),
-           "flash_attention_bwd": ("train", {"bf16": None, "zamba2": "train_zamba"}),
+                                         "train": "train", "train_zamba": "train_zamba",
+                                         "train_mixtral": "train_mixtral",
+                                         "train_mla": "train_mla"}),
+           "flash_attention_bwd": ("train", {"bf16": None, "zamba2": "train_zamba",
+                                             "train_mixtral": "train_mixtral",
+                                             "train_mla": "train_mla", "mla_bf16": None,
+                                             "softcap": None}),
            "decode_attention": ("dense", {"zamba2": "hybrid", "mixtral": "moe",
                                           "mla_b1": ("mla", "decode_attention_latent"),
                                           "mla_b8": ("mla_batch", "decode_attention_latent")})}

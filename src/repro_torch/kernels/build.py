@@ -122,7 +122,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flash_attention_launch.argtypes = [p] * 5 + [i] * 12 + [f, p]
         lib.flash_attention_launch.restype = i
     elif name == "flash_attention_bwd":
-        lib.flash_attention_bwd_launch.argtypes = [p] * 10 + [i] * 9 + [f, p]
+        lib.flash_attention_bwd_launch.argtypes = [p] * 10 + [i] * 12 + [f, p]
         lib.flash_attention_bwd_launch.restype = i
     elif name == "decode_attention":
         lib.decode_attention_launch.argtypes = [p] * 7 + [i] * 12 + [f, p]

@@ -16,8 +16,11 @@
 // where dk and dv sum over the query heads of each kv head's group (GQA).
 // The masks are the forward's: j <= i (causal) and i - j < window, each only
 // where Sk == S; keys of another length (cross-attention) are all live.
-// Equal head dims only (16, 32, 64, 80, 128, 256); float32 or bfloat16
-// inputs, float32 arithmetic, outputs in the inputs' type.
+// Head dims (q/k hd, v hd_v): equal in 16, 32, 64, 80, 128, 256, or MLA's
+// (192, 128), scaled by 1/sqrt(hd) as the forward is; k and v may be read
+// at a head stride (MLA's v is the tail of each head's [k_nope | v] row);
+// float32 or bfloat16 inputs, float32 arithmetic, outputs in the inputs'
+// type, dq and dk at hd, dv at hd_v, all contiguous.
 //
 // What bounds it on this card: operations.  Seven products of 2 hd
 // operations a live (i, j) pair (q.k and dO.v twice, then dv, dk and dq)
@@ -41,6 +44,14 @@
 // the fragment loads, P and dS) and the occupancy that 255 registers and
 // the staged tiles leave: 8 warps an SM at hd 64 and 80.
 //
+// A softcap in float32 forms the logits in float32 instead, by FFMA on the
+// CUDA cores over the staged q and k tiles (kF32Logits): where the cap
+// bends them the logits reach ~+-60, and split precision's ~2^-21 of them
+// moves P (and so dk) by ~2x the float32 plain version's error there
+// (tests/test_torch_tf32x3.py::test_softcap_bwd_float32_logits_within_limit).
+// The other four products stay split.  No config of the repo sets a
+// softcap, so no train path runs this variant.
+//
 // Design.  Three launches, deterministic and free of atomics, so two runs
 // agree bit for bit:
 //   (a) dsum_kernel: D = rowsum(dO * o), one warp a (batch, row, head);
@@ -53,7 +64,8 @@
 //       the forward launches, its Q and dO tiles in shared memory, looping
 //       over the live key tiles the same way.
 // Each warp owns 16 rows of the CTA's tile (keys in (b), queries in (c)) and
-// HD / WC columns of its accumulators, and runs mma.sync.m16n8k8 TF32
+// hd / WC columns of its q/k accumulators (hd_v / WC of dv's), and runs
+// mma.sync.m16n8k8 TF32
 // (mma.sync rather than wgmma: wgmma takes TF32 operands only K-major from
 // shared memory, so dk = dS^T q and dv = P^T dO would need transposed copies
 // of q and dO, and P and dS would go through shared memory; mma.sync takes
@@ -67,17 +79,18 @@
 // order.  The head-dim products read their pairs (2t, 2t + 1) the same way,
 // as one 8-byte load.  A float32 streamed tile is split once a step by the
 // whole CTA into big and small arrays (one stage of it as it arrived, the
-// next stage's copy issued once the split is done), so no warp splits a B
-// operand; the CTA's own tiles are split as their A fragments are read.
-// Staged rows are HD + 8 elements long and every 8-column group of rows 4-7
-// mod 8 is swapped with its neighbour (column c ^ 8), so that both the
-// paired loads along a row and the loads of rows 2t and 2t + 1 hit 32
-// distinct banks; the swap is a constant of each thread, folded into its
-// offsets.  Recomputing P in both (b) and (c) costs seven products against
-// the five of a design that adds dq across CTAs with atomics; it buys the
-// determinism.  Masks are per element, so any S and Sk work; rows past S or
-// Sk are zero-filled and masked, and each CTA visits exactly the tiles the
-// masks leave live for its rows.
+// next stage's copy issued once the split is done, or with float32 logits
+// once they are formed), so no warp splits a B operand; the CTA's own tiles
+// are split as their A fragments are read.
+// Staged rows are D + 8 elements long (D = hd or hd_v) and every 8-column
+// group of rows 4-7 mod 8 is swapped with its neighbour (column c ^ 8), so
+// that both the paired loads along a row and the loads of rows 2t and 2t +
+// 1 hit 32 distinct banks; the swap is a constant of each thread, folded
+// into its offsets.  Recomputing P in both (b) and (c) costs seven products
+// against the five of a design that adds dq across CTAs with atomics; it
+// buys the determinism.  Masks are per element, so any S and Sk work; rows
+// past S or Sk are zero-filled and masked, and each CTA visits exactly the
+// tiles the masks leave live for its rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,37 +102,41 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kDsumThreads = 256;  // dsum_kernel: one warp a row
 
 // WR warps of 16 rows each (the CTA's own rows), times WC slices of the head
-// dim for the accumulators (each slice's warps recompute the 16 x BC scores,
-// which keeps hd 128 and 256 within the registers); BC rows of the streamed
-// tile a step; MinB CTAs an SM for the register budget.
+// dims for the accumulators (each slice's warps recompute the 16 x BC scores,
+// which keeps hd 128, 192 and 256 within the registers); BC rows of the
+// streamed tile a step; MinB CTAs an SM for the register budget.  Keyed by
+// the q/k head dim.
 template <int HD> struct Cfg;
 template <> struct Cfg<16> { static constexpr int WR = 4, WC = 1, BC = 32, MinB = 3; };
 template <> struct Cfg<32> { static constexpr int WR = 4, WC = 1, BC = 32, MinB = 3; };
 template <> struct Cfg<64> { static constexpr int WR = 4, WC = 1, BC = 32, MinB = 2; };
 template <> struct Cfg<80> { static constexpr int WR = 4, WC = 1, BC = 32, MinB = 2; };
 template <> struct Cfg<128> { static constexpr int WR = 4, WC = 2, BC = 32, MinB = 1; };
+template <> struct Cfg<192> { static constexpr int WR = 4, WC = 2, BC = 32, MinB = 1; };
 template <> struct Cfg<256> { static constexpr int WR = 2, WC = 4, BC = 16, MinB = 1; };
 
 template <int HD> __host__ __device__ constexpr int threads() {
   return 32 * Cfg<HD>::WR * Cfg<HD>::WC;
 }
 template <int HD> __host__ __device__ constexpr int rows() { return 16 * Cfg<HD>::WR; }
-template <int HD> __host__ __device__ constexpr int row_ld() { return HD + 8; }
+// a staged row of D elements (D = hd or hd_v)
+template <int D> __host__ __device__ constexpr int row_ld() { return D + 8; }
 template <typename T> __host__ __device__ constexpr bool exact() { return sizeof(T) == 2; }
-// Shared memory: the CTA's two own (rows, row_ld) tiles of T; the two
-// streamed (BC, row_ld) tiles of T as they arrive, in two stages for
-// bfloat16 and one for float32, whose tiles are split once a step into big
-// and small TF32 arrays of the same layout; the streamed rows' lse and D in
-// two stages (dkdv_kernel) or the own rows' (dq_kernel).
-template <typename T, int HD> __host__ __device__ constexpr size_t smem_bytes() {
-  constexpr size_t R = rows<HD>(), BC = Cfg<HD>::BC, LD = row_ld<HD>();
-  return sizeof(T) * LD * (2 * R + (exact<T>() ? 4 : 2) * BC) +
-         (exact<T>() ? 0 : sizeof(uint32_t) * 4 * BC * LD) + sizeof(float) * 4 * (BC > R ? BC : R);
+// Shared memory: the CTA's two own tiles (rows x hd and rows x hd_v) of T;
+// the two streamed tiles (BC x hd and BC x hd_v) of T as they arrive, in two
+// stages for bfloat16 and one for float32, whose tiles are split once a step
+// into big and small TF32 arrays of the same layout; the streamed rows' lse
+// and D in two stages (dkdv_kernel) or the own rows' (dq_kernel).
+template <typename T, int HD, int HDV> __host__ __device__ constexpr size_t smem_bytes() {
+  constexpr size_t R = rows<HD>(), BC = Cfg<HD>::BC, LD2 = row_ld<HD>() + row_ld<HDV>();
+  return sizeof(T) * LD2 * (R + (exact<T>() ? 2 : 1) * BC) +
+         (exact<T>() ? 0 : sizeof(uint32_t) * 2 * BC * LD2) + sizeof(float) * 4 * (BC > R ? BC : R);
 }
 
-// element (r, c) of a staged tile: rows 4-7 mod 8 swap their 8-column groups
-template <int HD> __device__ __forceinline__ int at(int r, int c) {
-  return r * row_ld<HD>() + (c ^ ((r & 4) << 1));
+// element (r, c) of a staged tile of D-element rows: rows 4-7 mod 8 swap
+// their 8-column groups
+template <int D> __device__ __forceinline__ int at(int r, int c) {
+  return r * row_ld<D>() + (c ^ ((r & 4) << 1));
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -150,19 +167,20 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
-// rows [row0, row0 + NR) of head `head` of a contiguous (B, S, heads, HD)
-// tensor into a staged (NR, row_ld) tile; rows at or past S are zero-filled
-template <typename T, int HD, int NR>
+// rows [row0, row0 + NR) of head `head` of a (B, S, heads, D) tensor whose
+// heads lie ld elements apart (ld = D when contiguous) into a staged (NR,
+// row_ld) tile, by the CTA's NT threads; rows at or past S are zero-filled
+template <typename T, int D, int NR, int NT>
 __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int b, int row0,
-                                          int S, int heads, int head) {
+                                          int S, int heads, int head, int ld) {
   constexpr int kPer = 16 / (int)sizeof(T);
-  constexpr int kChunks = HD / kPer;
-  for (int e = threadIdx.x; e < NR * kChunks; e += threads<HD>()) {
+  constexpr int kChunks = D / kPer;
+  for (int e = threadIdx.x; e < NR * kChunks; e += NT) {
     const int r = e / kChunks, ch = e % kChunks;
     const int row = row0 + r;
     const bool in = row < S;
-    const T* from = in ? src + (((size_t)b * S + row) * heads + head) * HD + ch * kPer : src;
-    cp_async16(dst + at<HD>(r, ch * kPer), from, in);
+    const T* from = in ? src + (((size_t)b * S + row) * heads + head) * ld + ch * kPer : src;
+    cp_async16(dst + at<D>(r, ch * kPer), from, in);
   }
 }
 
@@ -210,11 +228,12 @@ template <> struct View<__nv_bfloat16> {
   }
 };
 
-// Splits n floats (a multiple of 4, 16-byte aligned) into big and small.
-template <int HD>
+// Splits n floats (a multiple of 4, 16-byte aligned) into big and small, by
+// the CTA's NT threads.
+template <int NT>
 __device__ __forceinline__ void split_tiles(const float* raw, uint32_t* big, uint32_t* small,
                                             int n) {
-  for (int e = threadIdx.x * 4; e < n; e += threads<HD>() * 4) {
+  for (int e = threadIdx.x * 4; e < n; e += NT * 4) {
     const float4 x = *reinterpret_cast<const float4*>(raw + e);
     uint4 b, s;
     b.x = tf32(x.x), b.y = tf32(x.y), b.z = tf32(x.z), b.w = tf32(x.w);
@@ -261,16 +280,17 @@ __device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag
 // come once for 4 steps
 constexpr int kStepGroup = 4;
 
-// This thread's offsets into a staged tile, so that every fragment load is
-// a base plus a constant.  Pattern 1 reads the pair (row r0 + g, columns
-// kk + 2t, kk + 2t + 1): row1[kk & 8 ? 1 : 0] + r0 * ld + kk.  Pattern 2
-// reads (rows j0 + 2t and j0 + 2t + 1, column c0 + n0 + g):
-// row2[n0 & 8 ? 1 : 0] + j0 * ld + n0 (and + ld).  The swizzle of at() is a
-// constant of the thread in both: rows g and 2t fix bit 2 of the row.
-template <int HD> struct Offs {
+// This thread's offsets into a staged tile of D-element rows, so that every
+// fragment load is a base plus a constant.  Pattern 1 reads the pair (row
+// r0 + g, columns kk + 2t, kk + 2t + 1): row1[kk & 8 ? 1 : 0] + r0 * ld +
+// kk.  Pattern 2 reads (rows j0 + 2t and j0 + 2t + 1, column c0 + n0 + g):
+// row2[n0 & 8 ? 1 : 0] + j0 * ld + n0 (and + ld), c0 a multiple of 16.  The
+// swizzle of at() is a constant of the thread in both: rows g and 2t fix
+// bit 2 of the row.
+template <int D> struct Offs {
   int row1[2], row2[2];
   __device__ __forceinline__ explicit Offs(int c0) {
-    constexpr int LD = row_ld<HD>();
+    constexpr int LD = row_ld<D>();
     const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
     const int s1 = (g & 4) << 1, s2 = (t & 2) << 2;
     row1[0] = g * LD + 2 * t + s1;
@@ -282,10 +302,10 @@ template <int HD> struct Offs {
 
 // The A fragment of own rows [m0, m0 + 16) and head-dim columns [kk, kk + 8):
 // k-slot t is column kk + 2t, slot t + 4 is kk + 2t + 1
-template <bool kExact, int HD, typename T>
+template <bool kExact, int D, typename T>
 __device__ __forceinline__ Frag<4> a_rows(const T* tile, int off) {
   const float2 lo = ld_pair(tile + off);
-  const float2 hi = ld_pair(tile + off + 8 * row_ld<HD>());
+  const float2 hi = ld_pair(tile + off + 8 * row_ld<D>());
   Frag<4> f;
   split<kExact>(f, 0, lo.x);
   split<kExact>(f, 1, hi.x);
@@ -297,11 +317,11 @@ __device__ __forceinline__ Frag<4> a_rows(const T* tile, int off) {
 // The B fragment of rows [j0, j0 + 8) (the k dim) and columns [n0, n0 + 8)
 // of a streamed tile: k-slot t is row j0 + 2t and slot t + 4 row j0 + 2t +
 // 1, the order in which an accumulator serves as the A operand (acc_as_a)
-template <int HD, typename V>
+template <int D, typename V>
 __device__ __forceinline__ Frag<2> b_cols(const V& v, int off) {
   Frag<2> f;
   v.one(f, 0, off);
-  v.one(f, 1, off + row_ld<HD>());
+  v.one(f, 1, off + row_ld<D>());
   return f;
 }
 
@@ -390,81 +410,160 @@ dsum_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restri
   }
 }
 
-// The 16 x BC scores and dO.v^T of this warp's rows m0.. (of the own tiles
-// R1 and R2) against the BC rows of the streamed tiles C1 and C2, over the
-// head dim
-template <int HD, typename T>
-__device__ __forceinline__ void scores(float (&s)[Cfg<HD>::BC / 8][4],
-                                       float (&dp)[Cfg<HD>::BC / 8][4], const T* R1,
-                                       const T* R2, const View<T>& C1, const View<T>& C2, int m0,
-                                       const Offs<HD>& o) {
-  constexpr int NT = Cfg<HD>::BC / 8, LD = row_ld<HD>();
-  constexpr bool kExact = exact<T>();
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float x) {
+  x = fmaf(a.x, b.x, x);
+  x = fmaf(a.y, b.y, x);
+  x = fmaf(a.z, b.z, x);
+  return fmaf(a.w, b.w, x);
+}
+
+// The 16 x BC logits of this warp's rows m0.. of the own float32 tile R1
+// against the BC rows of the streamed float32 tile C1 as they arrived, over
+// the q/k head dim, by FFMA in float32 (the accumulator layout of mma's
+// m16n8: rows g and g + 8, columns 2t and 2t + 1 of each 8-column tile)
+template <int HD, int NT>
+__device__ __forceinline__ void logits_f32(float (&s)[NT][4], const float* R1, const float* C1,
+                                           int m0) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD; kk += 8) {
-    const int off = o.row1[(kk >> 3) & 1] + kk;
-    const Frag<4> a1 = a_rows<kExact, HD>(R1, off + m0 * LD);
-    const Frag<4> a2 = a_rows<kExact, HD>(R2, off + m0 * LD);
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < HD; kk += 4) {
+    const float4 a0 = *reinterpret_cast<const float4*>(R1 + at<HD>(m0 + g, kk));
+    const float4 a1 = *reinterpret_cast<const float4*>(R1 + at<HD>(m0 + g + 8, kk));
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      Frag<2> b1, b2;
-      C1.pair(b1, off + nt * 8 * LD);
-      C2.pair(b2, off + nt * 8 * LD);
-      mma3<kExact, kExact>(s[nt], a1, b1);
-      mma3<kExact, kExact>(dp[nt], a2, b2);
+      const float4 b0 = *reinterpret_cast<const float4*>(C1 + at<HD>(nt * 8 + 2 * t, kk));
+      const float4 b1 = *reinterpret_cast<const float4*>(C1 + at<HD>(nt * 8 + 2 * t + 1, kk));
+      s[nt][0] = dot4(a0, b0, s[nt][0]);
+      s[nt][1] = dot4(a0, b1, s[nt][1]);
+      s[nt][2] = dot4(a1, b0, s[nt][2]);
+      s[nt][3] = dot4(a1, b1, s[nt][3]);
     }
   }
 }
 
-// The streamed stage's two tiles as operands: split once (float32, into
-// `split`: big of both tiles, then small of both) or read as they are
-template <int HD, int BC>
+// The 16 x BC scores (over hd) and dO.v^T (over hd_v) of this warp's rows
+// m0.. of the own tiles R1 (hd) and R2 (hd_v) against the BC rows of the
+// streamed tiles C1 and C2; with kF32Logits the scores in float32 from the
+// streamed tile C1raw as it arrived (float32 only)
+template <int HD, int HDV, bool kF32Logits, typename T>
+__device__ __forceinline__ void scores(float (&s)[Cfg<HD>::BC / 8][4],
+                                       float (&dp)[Cfg<HD>::BC / 8][4], const T* R1,
+                                       const T* R2, const View<T>& C1, const View<T>& C2,
+                                       const T* C1raw, int m0, const Offs<HD>& ok,
+                                       const Offs<HDV>& ov) {
+  constexpr int NT = Cfg<HD>::BC / 8, LDK = row_ld<HD>(), LDV = row_ld<HDV>();
+  constexpr bool kExact = exact<T>();
+  if constexpr (HD == HDV && !kF32Logits) {  // one loop over the shared head dim
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 8) {
+      const int off = ok.row1[(kk >> 3) & 1] + kk;
+      const Frag<4> a1 = a_rows<kExact, HD>(R1, off + m0 * LDK);
+      const Frag<4> a2 = a_rows<kExact, HD>(R2, off + m0 * LDK);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        Frag<2> b1, b2;
+        C1.pair(b1, off + nt * 8 * LDK);
+        C2.pair(b2, off + nt * 8 * LDK);
+        mma3<kExact, kExact>(s[nt], a1, b1);
+        mma3<kExact, kExact>(dp[nt], a2, b2);
+      }
+    }
+  } else {
+    if constexpr (kF32Logits) {
+      logits_f32<HD>(s, R1, C1raw, m0);
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD; kk += 8) {
+        const int off = ok.row1[(kk >> 3) & 1] + kk;
+        const Frag<4> a1 = a_rows<kExact, HD>(R1, off + m0 * LDK);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          Frag<2> b1;
+          C1.pair(b1, off + nt * 8 * LDK);
+          mma3<kExact, kExact>(s[nt], a1, b1);
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HDV; kk += 8) {
+      const int off = ov.row1[(kk >> 3) & 1] + kk;
+      const Frag<4> a2 = a_rows<kExact, HDV>(R2, off + m0 * LDV);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        Frag<2> b2;
+        C2.pair(b2, off + nt * 8 * LDV);
+        mma3<kExact, kExact>(dp[nt], a2, b2);
+      }
+    }
+  }
+}
+
+// The streamed stage's two tiles (BC x hd, then BC x hd_v) as operands:
+// split once (float32, into `split`: big of both tiles, then small of
+// both) or read as they are
+template <int HD, int HDV, int BC, int NT>
 __device__ __forceinline__ void views(const float* raw, uint32_t* split, View<float>& c1,
                                       View<float>& c2) {
-  constexpr int n = BC * row_ld<HD>();
-  split_tiles<HD>(raw, split, split + 2 * n, 2 * n);
-  c1 = View<float>{split, split + 2 * n};
-  c2 = View<float>{split + n, split + 3 * n};
+  constexpr int n1 = BC * row_ld<HD>(), n = n1 + BC * row_ld<HDV>();
+  split_tiles<NT>(raw, split, split + n, n);
+  c1 = View<float>{split, split + n};
+  c2 = View<float>{split + n1, split + n + n1};
 }
-template <int HD, int BC>
+template <int HD, int HDV, int BC, int NT>
 __device__ __forceinline__ void views(const __nv_bfloat16* raw, uint32_t*,
                                       View<__nv_bfloat16>& c1, View<__nv_bfloat16>& c2) {
   c1 = View<__nv_bfloat16>{raw};
   c2 = View<__nv_bfloat16>{raw + BC * row_ld<HD>()};
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV, bool kF32Logits>
 __global__ void __launch_bounds__(threads<HD>(), Cfg<HD>::MinB)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ dsum, T* __restrict__ dk, T* __restrict__ dv, int H, int KH,
-            float scale, Grad grad) {
+            int ldk, int ldv, float scale, Grad grad) {
   using C = Cfg<HD>;
-  constexpr int LD = row_ld<HD>(), R = rows<HD>(), BC = C::BC, NT = BC / 8;
-  constexpr int HW = HD / C::WC, ND = HW / 8, kStages = exact<T>() ? 2 : 1;
+  constexpr int LDK = row_ld<HD>(), LDV = row_ld<HDV>(), R = rows<HD>(), BC = C::BC;
+  constexpr int NT = BC / 8, NTH = threads<HD>();
+  constexpr int ND = HD / C::WC / 8, NDV = HDV / C::WC / 8, NDM = ND > NDV ? ND : NDV;
+  constexpr int kStages = exact<T>() ? 2 : 1, STAGE = BC * (LDK + LDV);
   constexpr bool kExact = exact<T>();
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + R * LD;
-  T* raw = Vs + R * LD;  // kStages x (Q tile, dO tile) of (BC, LD)
-  uint32_t* split = reinterpret_cast<uint32_t*>(raw + kStages * 2 * BC * LD);
-  float* lse_s = reinterpret_cast<float*>(split + (kExact ? 0 : 4 * BC * LD));  // 2 x BC
+  T* Vs = Ks + R * LDK;
+  T* raw = Vs + R * LDV;  // kStages x (Q tile (BC, LDK), dO tile (BC, LDV))
+  uint32_t* split = reinterpret_cast<uint32_t*>(raw + kStages * STAGE);
+  float* lse_s = reinterpret_cast<float*>(split + (kExact ? 0 : 2 * STAGE));  // 2 x BC
   float* D_s = lse_s + 2 * BC;
 
   const int S = grad.S, Sk = grad.Sk;
   const int k0 = blockIdx.x * R, kh = blockIdx.y, b = blockIdx.z;
   const int G = H / KH;
   const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  const int m0 = warp / C::WC * 16, c0 = warp % C::WC * HW;
-  const Offs<HD> o(c0);
+  const int m0 = warp / C::WC * 16, c0 = warp % C::WC * (HD / C::WC);
+  const int c0v = warp % C::WC * (HDV / C::WC);
+  const Offs<HD> ok(c0);
+  const Offs<HDV> ov(c0v);
 
-  load_tile<T, HD, R>(Ks, k, b, k0, Sk, KH, kh);
-  load_tile<T, HD, R>(Vs, v, b, k0, Sk, KH, kh);
+  load_tile<T, HD, R, NTH>(Ks, k, b, k0, Sk, KH, kh, ldk);
+  load_tile<T, HDV, R, NTH>(Vs, v, b, k0, Sk, KH, kh, ldv);
 
   // the query rows that see a key of this tile (masks only where Sk == S);
   // step i is query head kh * G + i / n_qt, query tile i % n_qt
@@ -475,10 +574,10 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int n_steps = G * n_qt;
   auto issue = [&](int i) {
     const int h = kh * G + i / n_qt, q0 = q_start + i % n_qt * BC;
-    T* st = raw + i % kStages * 2 * BC * LD;
-    load_tile<T, HD, BC>(st, q, b, q0, S, H, h);
-    load_tile<T, HD, BC>(st + BC * LD, dout, b, q0, S, H, h);
-    for (int r = threadIdx.x; r < BC; r += threads<HD>()) {
+    T* st = raw + i % kStages * STAGE;
+    load_tile<T, HD, BC, NTH>(st, q, b, q0, S, H, h, HD);
+    load_tile<T, HDV, BC, NTH>(st + BC * LDK, dout, b, q0, S, H, h, HDV);
+    for (int r = threadIdx.x; r < BC; r += NTH) {
       const bool in = q0 + r < S;
       const size_t row = ((size_t)b * H + h) * S + (in ? q0 + r : 0);
       cp_async4(lse_s + (i & 1) * BC + r, lse + row, in);
@@ -488,27 +587,35 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   if (n_steps > 0) issue(0);
   cp_async_commit();
 
-  float dk_acc[ND][4], dv_acc[ND][4];
+  float dk_acc[NDM][4], dv_acc[NDM][4];
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
+  for (int nd = 0; nd < NDM; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
 
   for (int i = 0; i < n_steps; ++i) {
     cp_async_wait_all();
     __syncthreads();  // step i's tiles are in; step i - 1's readers are done
+    const T* st = raw + i % kStages * STAGE;
     View<T> Qv, dOv;
-    views<HD, BC>(raw + i % kStages * 2 * BC * LD, split, Qv, dOv);
-    if (!kExact) __syncthreads();  // the split tiles are in; the raw stage is free
-    if (i + 1 < n_steps) issue(i + 1);
-    cp_async_commit();
+    views<HD, HDV, BC, NTH>(st, split, Qv, dOv);
+    if (!kExact) __syncthreads();  // the split tiles are in
+    if constexpr (!kF32Logits) {  // the raw stage is free
+      if (i + 1 < n_steps) issue(i + 1);
+      cp_async_commit();
+    }
     const int q0 = q_start + i % n_qt * BC;
     const float* ls = lse_s + (i & 1) * BC;
     const float* Ds = D_s + (i & 1) * BC;
 
     // s^T = K Q^T and dp^T = V dO^T, then P^T and dS^T in place
     float s[NT][4], dp[NT][4];
-    scores<HD>(s, dp, Ks, Vs, Qv, dOv, m0, o);
+    scores<HD, HDV, kF32Logits>(s, dp, Ks, Vs, Qv, dOv, st, m0, ok, ov);
+    if constexpr (kF32Logits) {  // the raw Q tile is read: its stage is free
+      __syncthreads();
+      if (i + 1 < n_steps) issue(i + 1);
+      cp_async_commit();
+    }
     grad.tile(
         s, dp, grad.all_live(q0, q0 + BC - 1, k0 + m0, k0 + m0 + 15),
         [&](int nt, int e) {
@@ -528,18 +635,21 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         ad[kq] = acc_as_a(dp[k0g + kq]);
       }
 #pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
+      for (int nd = 0; nd < NDM; ++nd) {
         float sv[4] = {0.f, 0.f, 0.f, 0.f}, sk[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int kq = 0; kq < KG; ++kq) {
-          const int off = o.row2[nd & 1] + (k0g + kq) * 8 * LD + nd * 8;
-          mma3_into<false, kExact>(sv, ap[kq], b_cols<HD>(dOv, off));
-          mma3_into<false, kExact>(sk, ad[kq], b_cols<HD>(Qv, off));
+          if (nd < NDV)
+            mma3_into<false, kExact>(
+                sv, ap[kq], b_cols<HDV>(dOv, ov.row2[nd & 1] + (k0g + kq) * 8 * LDV + nd * 8));
+          if (nd < ND)
+            mma3_into<false, kExact>(
+                sk, ad[kq], b_cols<HD>(Qv, ok.row2[nd & 1] + (k0g + kq) * 8 * LDK + nd * 8));
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          dv_acc[nd][e] += sv[e];
-          dk_acc[nd][e] += sk[e];
+          if (nd < NDV) dv_acc[nd][e] += sv[e];
+          if (nd < ND) dk_acc[nd][e] += sk[e];
         }
       }
     }
@@ -550,33 +660,37 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   for (int half = 0; half < 2; ++half) {
     const int kj = k0 + m0 + g + half * 8;
     if (kj >= Sk) continue;
-    const size_t row = (((size_t)b * Sk + kj) * KH + kh) * HD;
+    const size_t row = ((size_t)b * Sk + kj) * KH + kh;
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const int col = c0 + nd * 8 + 2 * t;
-      store2(&dk[row + col], dk_acc[nd][2 * half] * scale, dk_acc[nd][2 * half + 1] * scale);
-      store2(&dv[row + col], dv_acc[nd][2 * half], dv_acc[nd][2 * half + 1]);
+    for (int nd = 0; nd < NDM; ++nd) {
+      if (nd < ND)
+        store2(&dk[row * HD + c0 + nd * 8 + 2 * t], dk_acc[nd][2 * half] * scale,
+               dk_acc[nd][2 * half + 1] * scale);
+      if (nd < NDV)
+        store2(&dv[row * HDV + c0v + nd * 8 + 2 * t], dv_acc[nd][2 * half],
+               dv_acc[nd][2 * half + 1]);
     }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV, bool kF32Logits>
 __global__ void __launch_bounds__(threads<HD>(), Cfg<HD>::MinB)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ dsum, T* __restrict__ dq, int H, int KH, float scale,
-          Grad grad) {
+          const float* __restrict__ dsum, T* __restrict__ dq, int H, int KH, int ldk, int ldv,
+          float scale, Grad grad) {
   using C = Cfg<HD>;
-  constexpr int LD = row_ld<HD>(), R = rows<HD>(), BC = C::BC, NT = BC / 8;
-  constexpr int HW = HD / C::WC, ND = HW / 8, kStages = exact<T>() ? 2 : 1;
+  constexpr int LDK = row_ld<HD>(), LDV = row_ld<HDV>(), R = rows<HD>(), BC = C::BC;
+  constexpr int NT = BC / 8, NTH = threads<HD>(), ND = HD / C::WC / 8;
+  constexpr int kStages = exact<T>() ? 2 : 1, STAGE = BC * (LDK + LDV);
   constexpr bool kExact = exact<T>();
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* dOs = Qs + R * LD;
-  T* raw = dOs + R * LD;  // kStages x (K tile, V tile) of (BC, LD)
-  uint32_t* split = reinterpret_cast<uint32_t*>(raw + kStages * 2 * BC * LD);
-  float* lse_s = reinterpret_cast<float*>(split + (kExact ? 0 : 4 * BC * LD));  // R
+  T* dOs = Qs + R * LDK;
+  T* raw = dOs + R * LDV;  // kStages x (K tile (BC, LDK), V tile (BC, LDV))
+  uint32_t* split = reinterpret_cast<uint32_t*>(raw + kStages * STAGE);
+  float* lse_s = reinterpret_cast<float*>(split + (kExact ? 0 : 2 * STAGE));  // R
   float* D_s = lse_s + R;
 
   const int S = grad.S, Sk = grad.Sk;
@@ -584,12 +698,13 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KH);
   const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  const int m0 = warp / C::WC * 16, c0 = warp % C::WC * HW;
-  const Offs<HD> o(c0);
+  const int m0 = warp / C::WC * 16, c0 = warp % C::WC * (HD / C::WC);
+  const Offs<HD> ok(c0);
+  const Offs<HDV> ov(warp % C::WC * (HDV / C::WC));
 
-  load_tile<T, HD, R>(Qs, q, b, q0, S, H, h);
-  load_tile<T, HD, R>(dOs, dout, b, q0, S, H, h);
-  for (int r = threadIdx.x; r < R; r += threads<HD>()) {
+  load_tile<T, HD, R, NTH>(Qs, q, b, q0, S, H, h, HD);
+  load_tile<T, HDV, R, NTH>(dOs, dout, b, q0, S, H, h, HDV);
+  for (int r = threadIdx.x; r < R; r += NTH) {
     const bool in = q0 + r < S;
     const size_t row = ((size_t)b * H + h) * S + (in ? q0 + r : 0);
     cp_async4(lse_s + r, lse + row, in);
@@ -602,9 +717,9 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int k_start = (k_lo / BC) * BC;
   const int n_steps = k_hi > k_start ? (k_hi - k_start + BC - 1) / BC : 0;
   auto issue = [&](int i) {
-    T* st = raw + i % kStages * 2 * BC * LD;
-    load_tile<T, HD, BC>(st, k, b, k_start + i * BC, Sk, KH, kh);
-    load_tile<T, HD, BC>(st + BC * LD, v, b, k_start + i * BC, Sk, KH, kh);
+    T* st = raw + i % kStages * STAGE;
+    load_tile<T, HD, BC, NTH>(st, k, b, k_start + i * BC, Sk, KH, kh, ldk);
+    load_tile<T, HDV, BC, NTH>(st + BC * LDK, v, b, k_start + i * BC, Sk, KH, kh, ldv);
   };
   if (n_steps > 0) issue(0);
   cp_async_commit();
@@ -626,16 +741,24 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         Dr[half] = D_s[m0 + g + half * 8];
       }
     }
+    const T* st = raw + i % kStages * STAGE;
     View<T> Kv, Vv;
-    views<HD, BC>(raw + i % kStages * 2 * BC * LD, split, Kv, Vv);
-    if (!kExact) __syncthreads();  // the split tiles are in; the raw stage is free
-    if (i + 1 < n_steps) issue(i + 1);
-    cp_async_commit();
+    views<HD, HDV, BC, NTH>(st, split, Kv, Vv);
+    if (!kExact) __syncthreads();  // the split tiles are in
+    if constexpr (!kF32Logits) {  // the raw stage is free
+      if (i + 1 < n_steps) issue(i + 1);
+      cp_async_commit();
+    }
     const int k0 = k_start + i * BC;
 
     // s = Q K^T and dp = dO V^T, then P and dS in place, then dq += dS K
     float s[NT][4], dp[NT][4];
-    scores<HD>(s, dp, Qs, dOs, Kv, Vv, m0, o);
+    scores<HD, HDV, kF32Logits>(s, dp, Qs, dOs, Kv, Vv, st, m0, ok, ov);
+    if constexpr (kF32Logits) {  // the raw K tile is read: its stage is free
+      __syncthreads();
+      if (i + 1 < n_steps) issue(i + 1);
+      cp_async_commit();
+    }
     grad.tile(
         s, dp, grad.all_live(q0 + m0, q0 + m0 + 15, k0, k0 + BC - 1),
         [&](int nt, int e) {
@@ -654,7 +777,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
         for (int kk = 0; kk < KG; ++kk)
           mma3_into<false, kExact>(
-              sq, ad[kk], b_cols<HD>(Kv, o.row2[nd & 1] + (k0g + kk) * 8 * LD + nd * 8));
+              sq, ad[kk], b_cols<HD>(Kv, ok.row2[nd & 1] + (k0g + kk) * 8 * LDK + nd * 8));
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[nd][e] += sq[e];
       }
@@ -680,17 +803,19 @@ cudaError_t opt_in(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV, bool kF32Logits>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* dsum, void* dq, void* dk, void* dv, int B, int S,
-                   int Sk, int H, int KH, int causal, int window, float softcap,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, HD>();
+                   int Sk, int H, int KH, int ldk, int ldv, int causal, int window,
+                   float softcap, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, HD, HDV>();
   constexpr int R = rows<HD>();
+  if (ldk < HD || ldv < HDV || (ldk * sizeof(T)) % 16 || (ldv * sizeof(T)) % 16)
+    return cudaErrorInvalidValue;
   static bool opted_in = false;  // the attributes are set once per instantiation
   if (!opted_in) {
-    cudaError_t err = opt_in(dkdv_kernel<T, HD>, smem);
-    if (err == cudaSuccess) err = opt_in(dq_kernel<T, HD>, smem);
+    cudaError_t err = opt_in(dkdv_kernel<T, HD, HDV, kF32Logits>, smem);
+    if (err == cudaSuccess) err = opt_in(dq_kernel<T, HD, HDV, kF32Logits>, smem);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
@@ -705,52 +830,75 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   constexpr int kRowsPerBlock = kDsumThreads / 32;
   dsum_kernel<T><<<(unsigned)((n_rows + kRowsPerBlock - 1) / kRowsPerBlock), kDsumThreads, 0,
                    stream>>>(
-      static_cast<const T*>(o), dot, dsum, S, H, HD, n_rows);
+      static_cast<const T*>(o), dot, dsum, S, H, HDV, n_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<T, HD><<<dim3((Sk + R - 1) / R, KH, B), threads<HD>(), smem, stream>>>(
-      qt, kt, vt, dot, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), H, KH, scale, grad);
+  dkdv_kernel<T, HD, HDV, kF32Logits><<<dim3((Sk + R - 1) / R, KH, B), threads<HD>(), smem,
+                                        stream>>>(
+      qt, kt, vt, dot, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), H, KH, ldk, ldv,
+      scale, grad);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<T, HD><<<dim3((S + R - 1) / R, H, B), threads<HD>(), smem, stream>>>(
-      qt, kt, vt, dot, lse, dsum, static_cast<T*>(dq), H, KH, scale, grad);
+  dq_kernel<T, HD, HDV, kF32Logits><<<dim3((S + R - 1) / R, H, B), threads<HD>(), smem,
+                                      stream>>>(
+      qt, kt, vt, dot, lse, dsum, static_cast<T*>(dq), H, KH, ldk, ldv, scale, grad);
   return cudaGetLastError();
+}
+
+// a softcap in float32 takes the float32 logits (kF32Logits); bfloat16 is
+// exact in TF32 and keeps its one product
+template <typename T, int HD, int HDV>
+cudaError_t launch_cap(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* dsum, void* dq, void* dk,
+                       void* dv, int B, int S, int Sk, int H, int KH, int ldk, int ldv,
+                       int causal, int window, float softcap, cudaStream_t s) {
+  if constexpr (!exact<T>()) {
+    if (softcap > 0.f)
+      return launch<T, HD, HDV, true>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, Sk, H, KH,
+                                      ldk, ldv, causal, window, softcap, s);
+  }
+  return launch<T, HD, HDV, false>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, Sk, H, KH,
+                                   ldk, ldv, causal, window, softcap, s);
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, float* dsum, void* dq, void* dk,
-                     void* dv, int B, int S, int Sk, int H, int KH, int hd, int causal,
-                     int window, float softcap, cudaStream_t s) {
-#define REPRO_FLASH_BWD_CASE(D)                                                              \
-  case D:                                                                                    \
-    return launch<T, D>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, Sk, H, KH, causal,   \
-                        window, softcap, s)
-  switch (hd) {
-    REPRO_FLASH_BWD_CASE(16);
-    REPRO_FLASH_BWD_CASE(32);
-    REPRO_FLASH_BWD_CASE(64);
-    REPRO_FLASH_BWD_CASE(80);
-    REPRO_FLASH_BWD_CASE(128);
-    REPRO_FLASH_BWD_CASE(256);
-    default: return cudaErrorInvalidValue;
-  }
+                     void* dv, int B, int S, int Sk, int H, int KH, int hd, int hd_v, int ldk,
+                     int ldv, int causal, int window, float softcap, cudaStream_t s) {
+#define REPRO_FLASH_BWD_CASE(D, DV)                                                        \
+  if (hd == D && hd_v == DV)                                                               \
+  return launch_cap<T, D, DV>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, Sk, H, KH,    \
+                              ldk, ldv, causal, window, softcap, s)
+  REPRO_FLASH_BWD_CASE(16, 16);
+  REPRO_FLASH_BWD_CASE(32, 32);
+  REPRO_FLASH_BWD_CASE(64, 64);
+  REPRO_FLASH_BWD_CASE(80, 80);
+  REPRO_FLASH_BWD_CASE(128, 128);
+  REPRO_FLASH_BWD_CASE(256, 256);
+  REPRO_FLASH_BWD_CASE(192, 128);  // MLA: nope + rope against v
 #undef REPRO_FLASH_BWD_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, o, dout, dq: (B, S, H, hd); k, v, dk, dv: (B, Sk, KH, hd); all contiguous,
-// 16-byte aligned, float32 or (when is_bf16) bfloat16; lse: (B, H, S) float32,
-// the forward's row log-sum-exp (flash_attention_launch); dsum: (B, H, S)
-// float32 scratch.  hd one of 16, 32, 64, 80, 128, 256; H % KH == 0; window
-// <= 0 means no window; causal or a window only with Sk == S; softcap <= 0
-// means none.  Three launches on `stream`: D, then dk and dv, then dq.
+// q, dq: (B, S, H, hd); o, dout: (B, S, H, hd_v); all four contiguous.  k:
+// (B, Sk, KH, hd) and v: (B, Sk, KH, hd_v) with their heads ldk and ldv
+// elements apart (the head dim when contiguous; each a multiple of 16
+// bytes); dk, dv: contiguous, of k's and v's shapes.  q, k, v and dout
+// 16-byte aligned, all float32 or (when is_bf16) bfloat16; lse: (B, H, S)
+// float32, the forward's row log-sum-exp (flash_attention_launch); dsum: (B,
+// H, S) float32 scratch.  (hd, hd_v) with hd_v == hd one of 16, 32, 64, 80,
+// 128, 256, or (192, 128); H % KH == 0; window <= 0 means no window; causal
+// or a window only with Sk == S; softcap <= 0 means none.  Three launches on
+// `stream`: D, then dk and dv, then dq.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const float* lse,
                                           float* dsum, void* dq, void* dk, void* dv, int B,
-                                          int S, int Sk, int H, int KH, int hd, int causal,
-                                          int window, int is_bf16, float softcap, void* stream) {
+                                          int S, int Sk, int H, int KH, int hd, int hd_v,
+                                          int ldk, int ldv, int causal, int window, int is_bf16,
+                                          float softcap, void* stream) {
   if (B < 1 || S < 1 || Sk < 1 || KH < 1 || H % KH != 0 || B > 65535 || H > 65535 ||
       (Sk != S && (causal || window > 0)) || !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
@@ -758,7 +906,8 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S,
-                                                 Sk, H, KH, hd, causal, window, softcap, s)
+                                                 Sk, H, KH, hd, hd_v, ldk, ldv, causal, window,
+                                                 softcap, s)
                        : dispatch<float>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, Sk, H,
-                                         KH, hd, causal, window, softcap, s));
+                                         KH, hd, hd_v, ldk, ldv, causal, window, softcap, s));
 }

@@ -18,11 +18,10 @@ the chunk cumsums and the states entering the chunks), and their backwards
 launch ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``) and
 ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``).  With no gradient wanted the
 calls are exactly the serving path's.  The wrappers that have no backward
-kernel (``decode_attention``, ``decode_attention_latent``, and
-``flash_attention`` at split head dims or with v read at a head stride)
-raise ``NotImplementedError`` on the card under autograd, so no gradient is
-cut silently; on the CPU the plain versions are torch operations and
-differentiate as they are.
+kernel (``decode_attention`` and ``decode_attention_latent``: no train step
+decodes) raise ``NotImplementedError`` on the card under autograd, so no
+gradient is cut silently; on the CPU the plain versions are torch
+operations and differentiate as they are.
 
 The model kernels take their inputs in any of ``FLOAT_DTYPES``, as the
 Pallas kernels cast each tile to float32: the combinations a kernel is
@@ -458,8 +457,8 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     16-byte aligned.  Returns (B,S,H,hd_v) in q's dtype.
 
     Under autograd on the card (grad mode on, an input requiring a
-    gradient) the call is ``_FlashAttention``: equal head dims and
-    contiguous k and v only, else ``NotImplementedError``."""
+    gradient) the call is ``_FlashAttention``, at every head-dim pair the
+    forward takes, k and v read in place as the forward reads them."""
     _check_floats(q=q, k=k, v=v)
     if not (q.dtype in _Q_CODES and k.dtype == v.dtype == q.dtype):
         return flash_attention(q.float(), k.float(), v.float(), causal, window,
@@ -467,23 +466,22 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     if not _on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal, window, softcap)
     if _wants_grad(q, k, v):
-        if v.shape[-1] != q.shape[-1] or not (k.is_contiguous() and v.is_contiguous()):
-            raise _no_backward("flash_attention at split head dims or with v read at a head "
-                               "stride", "ROADMAP Queue 1 item 8c: MLA and MoE training")
         return _FlashAttention.apply(q, k, v, causal, window, softcap)
     return _flash_forward(q, k, v, causal, window, softcap, want_lse=False)[0]
 
 
-def _flash_forward(q, k, v, causal: bool, window: Optional[int], softcap: Optional[float],
-                   want_lse: bool):
-    """The forward kernel's launch: (out, lse (B,H,S) float32 or None)."""
+def _flash_layout(name: str, q, k, v, causal: bool, window: Optional[int]):
+    """The checks both flash kernels make of q, k, v and the masks: head
+    counts, head dims (equal in ``ATTN_HEAD_DIMS`` or one of
+    ``FLASH_SPLIT_DIMS``), q contiguous, k and v contiguous or at a head
+    stride, 16-byte storage.  Returns (ldk, ldv), their head strides."""
     B, S, H, hd = q.shape
     Sk, KH, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     ref.check_key_length(S, Sk, causal, window)
     if KH < 1 or H % KH:
         raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {KH}")
     if hd_v != hd and (hd, hd_v) not in FLASH_SPLIT_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dims (q/k, v) equal in "
+        raise ValueError(f"{name} kernel takes head dims (q/k, v) equal in "
                          f"{ATTN_HEAD_DIMS} or one of {FLASH_SPLIT_DIMS}, got ({hd}, {hd_v})")
     if hd_v == hd and hd not in ATTN_HEAD_DIMS:
         raise ValueError(f"attention kernels take head_dim in {ATTN_HEAD_DIMS}, got {hd}")
@@ -491,10 +489,19 @@ def _flash_forward(q, k, v, causal: bool, window: Optional[int], softcap: Option
     ldk = _head_stride("k", k, q.dtype, (B, Sk, KH, hd))
     ldv = _head_stride("v", v, q.dtype, (B, Sk, KH, hd_v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention kernel copies q, k and v 16 bytes at a time: "
-                         "their storage must be 16-byte aligned")
+        raise ValueError(f"{name} kernel copies q, k and v 16 bytes at a time: their storage "
+                         "must be 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
+    return ldk, ldv
+
+
+def _flash_forward(q, k, v, causal: bool, window: Optional[int], softcap: Optional[float],
+                   want_lse: bool):
+    """The forward kernel's launch: (out, lse (B,H,S) float32 or None)."""
+    B, S, H, hd = q.shape
+    Sk, KH, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    ldk, ldv = _flash_layout("flash_attention", q, k, v, causal, window)
     cap = _softcap_arg(softcap)
     out = torch.empty((B, S, H, hd_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if want_lse else None
@@ -512,9 +519,11 @@ def _flash_forward(q, k, v, causal: bool, window: Optional[int], softcap: Option
 
 class _FlashAttention(torch.autograd.Function):
     """``flash_attention`` with a gradient on the card: the forward kernel
-    also writes the rows' log-sum-exp, saved with q, k, v and the output
-    (``torch.utils.checkpoint`` recomputes all of them with the forward), and
-    the backward is ``flash_attention_bwd``."""
+    also writes the rows' log-sum-exp, saved with q, k, v (as the views they
+    are: MLA's v stays the tail of each head's [k_nope | v] row) and the
+    output (``torch.utils.checkpoint`` recomputes all of them with the
+    forward), and the backward is ``flash_attention_bwd``, which reads k and
+    v at their head stride too."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
@@ -533,42 +542,41 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
                         window: Optional[int] = None, softcap: Optional[float] = None):
-    """The gradient of ``flash_attention`` with equal head dims: (dq, dk, dv)
-    in the dtypes of q, k and v, from the forward's output ``out``
-    (B,S,H,hd) and rows' log-sum-exp ``lse`` (B,H,S) float32, and the
+    """The gradient of ``flash_attention``: (dq, dk, dv) in the dtypes and
+    shapes of q, k and v (contiguous), from the forward's output ``out``
+    (B,S,H,hd_v) and rows' log-sum-exp ``lse`` (B,H,S) float32, and the
     output's gradient ``dout``; masks and softcap as the forward's.  On the
-    card q, k, v, out and dout are contiguous, float32 or bfloat16 alike,
-    16-byte aligned, with hd in ``ATTN_HEAD_DIMS``; the kernel runs in three
-    launches (D = rowsum(dout * out) into float32 scratch allocated here, dk
-    and dv, dq), counted as one.  On the CPU this is
-    ``ref.flash_attention_bwd_ref``."""
+    card q, out and dout are contiguous, k and v contiguous or read at a
+    head stride as the forward reads them, float32 or bfloat16 alike, q, k,
+    v and dout 16-byte aligned; (hd, hd_v) equal in ``ATTN_HEAD_DIMS`` or
+    one of ``FLASH_SPLIT_DIMS``.  The kernel runs in three launches (D =
+    rowsum(dout * out) into float32 scratch allocated here, dk and dv, dq),
+    counted as one.  On the CPU this is ``ref.flash_attention_bwd_ref``."""
     if not _on_cuda(q, k, v, out, lse, dout):
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal, window, softcap)
     B, S, H, hd = q.shape
-    Sk, KH = k.shape[1], k.shape[2]
+    Sk, KH, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     if q.dtype not in _Q_CODES:
         raise TypeError(f"q: expected one of {tuple(_Q_CODES)}, got {q.dtype}")
-    ref.check_key_length(S, Sk, causal, window)
-    _attn_checks(q, k, v, (B, S, H, hd), (B, Sk, KH, hd))
-    _check("out", out, q.dtype, (B, S, H, hd))
-    _check("dout", dout, q.dtype, (B, S, H, hd))
+    ldk, ldv = _flash_layout("flash_attention_bwd", q, k, v, causal, window)
+    _check("out", out, q.dtype, (B, S, H, hd_v))
+    _check("dout", dout, q.dtype, (B, S, H, hd_v))
     _check("lse", lse, torch.float32, (B, H, S))
-    if k.dtype != q.dtype:
-        raise TypeError(f"k, v: expected {q.dtype}, got {k.dtype}")
-    if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
-        raise ValueError("flash_attention_bwd kernel copies q, k, v and dout 16 bytes at a "
-                         "time: their storage must be 16-byte aligned")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be positive, got {window}")
+    if dout.data_ptr() % 16:
+        raise ValueError("flash_attention_bwd kernel copies dout 16 bytes at a time: its "
+                         "storage must be 16-byte aligned")
     cap = _softcap_arg(softcap)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq = torch.empty_like(q)
+    dk = torch.empty((B, Sk, KH, hd), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, Sk, KH, hd_v), dtype=v.dtype, device=v.device)
     dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, Sk, H, KH, hd, int(causal), window or 0, _Q_CODES[q.dtype], cap, _stream(q),
+            B, S, Sk, H, KH, hd, hd_v, ldk, ldv, int(causal), window or 0, _Q_CODES[q.dtype],
+            cap, _stream(q),
         )
     _raise_on(err, "flash_attention_bwd")
     _launched("flash_attention_bwd", q, k, v, causal, window, *((cap,) if cap else ()))

@@ -247,32 +247,37 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, causal: bool = Tru
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                             causal: bool = True, window: Optional[int] = None,
-                            softcap: Optional[float] = None, einsum=torch.einsum):
-    """The gradient of ``flash_attention`` (equal head dims) written out, in
-    float32 from the forward's output ``out`` (B,S,H,hd) and row
-    log-sum-exp ``lse`` (B,H,S), as the backward kernel computes it, with
-    the logits s of ``flash_attention_ref`` (any Sk; the masks as there):
+                            softcap: Optional[float] = None, einsum=torch.einsum,
+                            logits_einsum=None):
+    """The gradient of ``flash_attention`` written out, in float32 from the
+    forward's output ``out`` (B,S,H,hd_v) and row log-sum-exp ``lse``
+    (B,H,S), as the backward kernel computes it, with the logits s of
+    ``flash_attention_ref`` (any Sk; the masks as there):
 
         P  = exp(s - lse), 0 where masked      dV = P^T dO
         D  = rowsum(dO * O)                    dS = P * (dO V^T - D)
         dQ = dS K * scale                      dK = dS^T Q * scale
 
-    with scale = 1/sqrt(hd), dS taking the factor ``1 - tanh^2`` of the
-    softcap, and dK, dV summed over each kv head's query group.  ``einsum``
-    computes the five products (the logits, dO V^T, dV, dQ, dK): the tests
-    pass ``einsum_tf32x3`` or ``einsum_tf32`` to see what the tensor cores'
-    rounding does to the gradients.  Returns (dq, dk, dv) in the dtypes of
-    q, k and v."""
+    with scale = 1/sqrt(hd) of the q/k head dim (v's head dim hd_v may
+    differ: MLA's 192 against 128), dS taking the factor ``1 - tanh^2`` of
+    the softcap, and dK, dV summed over each kv head's query group.
+    ``einsum`` computes the products dO V^T, dV, dQ and dK, and the logits
+    too unless ``logits_einsum`` is given: the tests pass ``einsum_tf32x3``
+    or ``einsum_tf32`` to see what the tensor cores' rounding does to the
+    gradients, and ``logits_einsum=torch.einsum`` for the float32 kernel
+    with a softcap, which forms its logits in float32 on the CUDA cores.
+    Returns (dq, dk, dv) in the dtypes of q, k and v, dq and dk at hd, dv at
+    hd_v."""
     B, S, H, hd = q.shape
-    Sk, KH = k.shape[1], k.shape[2]
+    Sk, KH, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     G = H // KH
-    logits, ok, t = _flash_logits(q, k, causal, window, softcap, einsum)
+    logits, ok, t = _flash_logits(q, k, causal, window, softcap, logits_einsum or einsum)
     p = torch.exp(logits - lse.float().reshape(B, KH, G, S, 1))
     if ok is not None:
         p = p.masked_fill(~ok, 0.0)
-    do = dout.float().reshape(B, S, KH, G, hd)
+    do = dout.float().reshape(B, S, KH, G, hd_v)
     dv = einsum("bkgqs,bqkgh->bskh", p, do)
-    d = (do * out.float().reshape(B, S, KH, G, hd)).sum(-1)         # (B,S,KH,G)
+    d = (do * out.float().reshape(B, S, KH, G, hd_v)).sum(-1)       # (B,S,KH,G)
     dp = einsum("bqkgh,bskh->bkgqs", do, v.float())
     ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
     if t is not None:

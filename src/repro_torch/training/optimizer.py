@@ -9,7 +9,13 @@ are written where they lie, so a step holds no second copy of the model; at
 minicpm-2b width in float32 that is 10.9 GB of parameters, as many of
 gradients and twice as many of moments.  Leaves are visited in the JAX
 package's order (dict keys sorted), so the global norm sums in the same
-order.  The arithmetic is the JAX version's, op for op, in float32.
+order.  The arithmetic is the JAX version's, op for op, in float32.  A
+leaf is updated in flat slices of at most ``UPDATE_CHUNK`` elements, so
+the update's temporaries stay a few slices large whatever the leaf: whole,
+deepseek-v3's 129,280 x 7,168 embedding alone made three 3.7 GB
+temporaries, past one card beside 4 B parameters, their gradients and
+moments.  Elementwise, the slices give the whole leaf's update bit for
+bit.
 """
 
 from __future__ import annotations
@@ -19,6 +25,9 @@ import math
 from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
+
+#: elements of a leaf that ``adamw_update`` updates at a time (64 MB in float32)
+UPDATE_CHUNK = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,12 +128,29 @@ def adamw_update(grads, state: OptState, params,
                  tree_leaves(state.v))
     for p, g, m, v in leaves:
         g = g.mul_(scale) if g.dtype == torch.float32 else g.float() * scale
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        p32 = p if p.dtype == torch.float32 else p.float()
-        delta = (m / c1).div_(torch.sqrt(v / c2).add_(cfg.eps)).add_(cfg.weight_decay * p32)
-        if p.dtype == torch.float32:
-            p.sub_(delta.mul_(lr))
-        else:
-            p.copy_(p32 - lr * delta)
+        for part in _slices(p, g, m, v):
+            _adamw_part(*part, b1, b2, c1, c2, lr, cfg)
     return params, OptState(state.m, state.v, step), {"grad_norm": gnorm, "lr": lr}
+
+
+def _adamw_part(p, g, m, v, b1, b2, c1, c2, lr, cfg: OptConfig) -> None:
+    """The moments and the parameter of one slice, in place."""
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * g * g)
+    p32 = p if p.dtype == torch.float32 else p.float()
+    delta = (m / c1).div_(torch.sqrt(v / c2).add_(cfg.eps)).add_(cfg.weight_decay * p32)
+    if p.dtype == torch.float32:
+        p.sub_(delta.mul_(lr))
+    else:
+        p.copy_(p32 - lr * delta)
+
+
+def _slices(p, g, m, v):
+    """(p, g, m, v) as views of flat slices of at most ``UPDATE_CHUNK``
+    elements, written through to the leaves; the leaves whole where one is
+    not contiguous or they fit one slice."""
+    n = p.numel()
+    if n <= UPDATE_CHUNK or not all(t.is_contiguous() for t in (p, g, m, v)):
+        return [(p, g, m, v)]
+    flat = [t.view(-1) for t in (p, g, m, v)]
+    return [tuple(t[i:i + UPDATE_CHUNK] for t in flat) for i in range(0, n, UPDATE_CHUNK)]

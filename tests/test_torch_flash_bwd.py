@@ -5,7 +5,8 @@ the JAX package, on the CPU.
   out as formulas) against ``jax.vjp`` of the reference's
   ``kernels/ref.py::flash_attention_ref`` (causal, window, GQA), and of its
   ``models/attention.py::sdpa`` where that kernel takes no case (keys of
-  another length, a softcap), at ``atol=1e-5, rtol=1e-4``; and against
+  another length, a softcap, v's head dim other than q's, v a strided
+  view), at ``atol=1e-5, rtol=1e-4``; and against
   ``torch.autograd`` through the port's ``flash_attention_ref``;
 * ``flash_attention_lse_ref`` against ``jax.nn.logsumexp`` of the same
   logits;
@@ -27,31 +28,41 @@ from repro_torch.kernels import ops, ref
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 
-# B, S, H, KH, hd, causal, window, Sk, softcap
+# B, S, H, KH, hd, causal, window, Sk, softcap, hd_v (None: hd), v_row (None:
+# v contiguous; else v is the last hd_v of each head's row of v_row, as
+# mla_forward passes MLA's v)
 CASES = {
-    "causal": (2, 40, 4, 4, 16, True, None, None, None),
-    "window": (1, 50, 4, 4, 32, True, 12, None, None),
-    "gqa": (2, 33, 8, 2, 16, True, None, None, None),
-    "gqa_window_bidir": (1, 37, 6, 3, 16, False, 9, None, None),
-    "bidirectional": (1, 24, 2, 1, 64, False, None, None, None),
-    "cross": (2, 12, 4, 2, 16, False, None, 30, None),
-    "softcap": (1, 30, 4, 2, 16, True, 10, None, 5.0),
+    "causal": (2, 40, 4, 4, 16, True, None, None, None, None, None),
+    "window": (1, 50, 4, 4, 32, True, 12, None, None, None, None),
+    "gqa": (2, 33, 8, 2, 16, True, None, None, None, None, None),
+    "gqa_window_bidir": (1, 37, 6, 3, 16, False, 9, None, None, None, None),
+    "bidirectional": (1, 24, 2, 1, 64, False, None, None, None, None, None),
+    "cross": (2, 12, 4, 2, 16, False, None, 30, None, None, None),
+    "softcap": (1, 30, 4, 2, 16, True, 10, None, 5.0, None, None),
+    "split_dims": (2, 35, 4, 4, 48, True, None, None, None, 32, None),
+    "split_dims_gqa": (1, 41, 6, 2, 48, True, None, None, None, 32, None),
+    "split_dims_v_slice": (2, 29, 4, 4, 48, True, None, None, None, 32, 64),
 }
 
 
-def _inputs(B, S, H, KH, hd, Sk, seed=0):
+def _inputs(B, S, H, KH, hd, Sk, seed=0, hd_v=None, v_row=None):
+    """q, k, v, dout as float32 numpy arrays; with ``v_row`` v is a strided
+    view, the tail of each head's row of that width."""
     rng = np.random.default_rng(seed)
-    Sk = Sk or S
-    shapes = [(B, S, H, hd), (B, Sk, KH, hd), (B, Sk, KH, hd), (B, S, H, hd)]
-    return [(rng.standard_normal(s) * (2.0 if i == 0 else 1.0)).astype(np.float32)
-            for i, s in enumerate(shapes)]
+    Sk, hd_v = Sk or S, hd_v or hd
+    shapes = [(B, S, H, hd), (B, Sk, KH, hd), (B, Sk, KH, v_row or hd_v), (B, S, H, hd_v)]
+    q, k, v, do = [(rng.standard_normal(s) * (2.0 if i == 0 else 1.0)).astype(np.float32)
+                   for i, s in enumerate(shapes)]
+    return q, k, v[..., v.shape[-1] - hd_v:], do
 
 
-def _jax_attention(causal, window, softcap):
+def _jax_attention(causal, window, softcap, split=False):
     """The reference's attention as one JAX function of (q, k, v): its
     kernels' ``flash_attention_ref`` where that takes the case, else its
-    models' ``sdpa`` with the mask its ``attn_forward`` builds."""
-    if softcap is None:
+    models' ``sdpa`` with the mask its ``attn_forward`` builds (a softcap,
+    or v's head dim other than q's: the kernel's reference reshapes its
+    output with q's)."""
+    if softcap is None and not split:
         def f(q, k, v):
             if k.shape[1] == q.shape[1]:
                 return jax_ref.flash_attention_ref(q, k, v, causal, window)
@@ -66,18 +77,21 @@ def _jax_attention(causal, window, softcap):
         pos = jnp.arange(S)
         bias = jax_attn._mask_bias(pos, pos, window or 2**30, causal)[None, None, None]
         return jax_attn.sdpa(q.reshape(B, S, KH, H // KH, hd), k, v, bias,
-                             softcap).reshape(q.shape)
+                             softcap).reshape(B, S, H, v.shape[-1])
     return f
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_bwd_ref_matches_jax_vjp(case):
-    B, S, H, KH, hd, causal, window, Sk, cap = CASES[case]
-    q, k, v, do = _inputs(B, S, H, KH, hd, Sk)
-    jout, vjp = jax.vjp(_jax_attention(causal, window, cap), jnp.asarray(q), jnp.asarray(k),
-                        jnp.asarray(v))
+    """At split head dims (MLA's shape, smaller) too: dq and dk at hd, dv at
+    hd_v, the scale 1/sqrt(hd); with v a strided view as MLA passes it."""
+    B, S, H, KH, hd, causal, window, Sk, cap, hd_v, v_row = CASES[case]
+    q, k, v, do = _inputs(B, S, H, KH, hd, Sk, 0, hd_v, v_row)
+    jout, vjp = jax.vjp(_jax_attention(causal, window, cap, hd_v is not None), jnp.asarray(q),
+                        jnp.asarray(k), jnp.asarray(v))
     want = vjp(jnp.asarray(do))
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    assert tv.is_contiguous() == (v_row is None)
     out = ref.flash_attention_ref(tq, tk, tv, causal, window, cap)
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
     lse = ref.flash_attention_lse_ref(tq, tk, causal, window, cap)
@@ -89,9 +103,10 @@ def test_bwd_ref_matches_jax_vjp(case):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_bwd_ref_matches_torch_autograd(case):
-    B, S, H, KH, hd, causal, window, Sk, cap = CASES[case]
-    leaves = [torch.from_numpy(a).requires_grad_() for a in _inputs(B, S, H, KH, hd, Sk, 1)[:3]]
-    do = torch.from_numpy(_inputs(B, S, H, KH, hd, Sk, 1)[3])
+    B, S, H, KH, hd, causal, window, Sk, cap, hd_v, v_row = CASES[case]
+    arrays = _inputs(B, S, H, KH, hd, Sk, 1, hd_v, v_row)
+    leaves = [torch.from_numpy(np.ascontiguousarray(a)).requires_grad_() for a in arrays[:3]]
+    do = torch.from_numpy(arrays[3])
     out = ref.flash_attention_ref(*leaves, causal, window, cap)
     out.backward(do)
     q, k, v = (t.detach() for t in leaves)
@@ -104,7 +119,7 @@ def test_bwd_ref_matches_torch_autograd(case):
 
 @pytest.mark.parametrize("case", ["causal", "gqa_window_bidir", "cross", "softcap"])
 def test_lse_ref_matches_jax_logsumexp(case):
-    B, S, H, KH, hd, causal, window, Sk, cap = CASES[case]
+    B, S, H, KH, hd, causal, window, Sk, cap, _, _ = CASES[case]
     q, k, _, _ = _inputs(B, S, H, KH, hd, Sk, 2)
     Sk = k.shape[1]
     logits = jnp.einsum("bqkgh,bskh->bkgqs", jnp.asarray(q).reshape(B, S, KH, H // KH, hd),
@@ -149,7 +164,7 @@ def test_wrappers_on_cpu_take_the_plain_paths():
     """On CPU tensors ``ops.flash_attention`` differentiates through its
     plain version and launches nothing; ``ops.flash_attention_bwd`` is the
     plain backward."""
-    B, S, H, KH, hd, causal, window, Sk, cap = CASES["softcap"]
+    B, S, H, KH, hd, causal, window, Sk, cap, _, _ = CASES["softcap"]
     q, k, v, do = map(torch.from_numpy, _inputs(B, S, H, KH, hd, Sk, 4))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ops.reset_launches()

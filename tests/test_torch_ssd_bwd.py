@@ -210,16 +210,25 @@ def test_ssd_chunked_computes_float64_inputs_in_float64(case):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), **TOL)
 
 
-@pytest.mark.parametrize("seed", range(4))
-def test_ssd_plain_grad_float32_within_tol_of_float64(seed):
+@pytest.mark.parametrize("S,chunk,seed", [
+    *[pytest.param(256, 128, seed, id=str(seed)) for seed in range(4)],
+    *[pytest.param(1000, 256, seed, id=f"1000-{seed}") for seed in range(4)],
+])
+def test_ssd_plain_grad_float32_within_tol_of_float64(S, chunk, seed):
     """At the data of the card's ``test_ssd_autograd_matches_plain_autograd
-    [256-1-False-seed]`` (S=256, G=1, H=8, P=32, N=64, chunk 128; x, dt, A,
-    B, C from numpy seed 9, dy and the final state's gradient from a torch
-    generator seeded with ``seed``) the float32 plain scan's gradient lies
-    within TOL of the same scan run in float64, every leaf (dA, the worst,
-    at most ~0.7 of TOL over these seeds).  The card's test holds the
-    kernel's gradient to that float64 gradient, not to this float32 one."""
-    S, H, P, N, chunk = 256, 8, 32, 64, 128
+    [S-1-False-seed]`` (G=1, H=8, P=32, N=64; S=256 at chunk 128, or
+    S=1000 padded to chunk 256; x, dt, A, B, C from numpy seed 9, dy and
+    the final state's gradient from a torch generator seeded with ``seed``)
+    the float32 plain scan's gradient lies within TOL of the same scan run
+    in float64, every leaf (at S=256 dA, the worst, at most ~0.7 of TOL over
+    these seeds), but dA at S=1000: there it is held to ``dA_limit``, the
+    limit the card's test sets for the float32 plain route's dA.  Each head's
+    dA sums S x P x N (~2 M) products of both signs: at seed 0 one head sums
+    to 0.219 while the largest reaches 159.8, and float32 leaves that head
+    7.9e-4 off, an error that scales with the terms summed, not with their
+    cancelled sum.  The card's test holds the kernel's gradient, dA
+    included, to the float64 gradient at TOL."""
+    H, P, N = 8, 32, 64
     rng = np.random.default_rng(9)
     x = rng.standard_normal((1, S, H, P)) * 0.5
     dt = np.log1p(np.exp(rng.standard_normal((1, S, H))))
@@ -231,11 +240,24 @@ def test_ssd_plain_grad_float32_within_tol_of_float64(seed):
     dy = torch.randn(1, S, H, P, generator=g)
     dst = torch.randn(1, H, P, N, generator=g)
     grads = []
+    pad = (-S) % chunk
     for dtype in (torch.float32, torch.float64):
         leaves = [t.to(dtype).clone().requires_grad_() for t in base]
-        y, st = ref.ssd_scan_ref(*leaves, chunk)
+        xp, dtp, Bp, Cp = (torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+                           for t in (leaves[0], leaves[1], leaves[3], leaves[4]))
+        y, st = ref.ssd_scan_ref(xp, dtp, leaves[2], Bp, Cp, chunk)
+        y = y[:, :S]
         assert y.dtype == st.dtype == dtype
         ((y * dy.to(dtype)).sum() + (st * dst.to(dtype)).sum()).backward()
         grads.append([t.grad for t in leaves])
     for name, a, w in zip(NAMES, *grads):
-        torch.testing.assert_close(a.double(), w, **TOL, msg=name)
+        tol = dA_limit(w) if name == "dA" and S == 1000 else TOL
+        torch.testing.assert_close(a.double(), w, **tol, msg=name)
+
+
+def dA_limit(dA64):
+    """The float32 plain route's dA against float64 (the card's
+    ``test_ssd_autograd_matches_plain_autograd``): TOL, plus a norm-wise
+    term of 1e-5 of the largest head's value, ~170 float32 ulps of it, for a
+    sum of ~2 M signed terms."""
+    return dict(atol=TOL["atol"] + 1e-5 * float(dA64.abs().max()), rtol=TOL["rtol"])

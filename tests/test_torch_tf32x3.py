@@ -232,3 +232,32 @@ def test_softcap_plain_bwd_against_float64(causal, window):
     assert float((dk.double() - want[1]).abs().max()) < 5e-5
     for g, w in ((dq, want[0]), (dv, want[2])):
         torch.testing.assert_close(g.double(), w, **TOL_ATTN)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48), (False, None)])
+def test_softcap_bwd_float32_logits_within_limit(causal, window):
+    """The float32 backward with a softcap as the kernel computes it: the
+    logits q.k^T in float32 (FFMA on the CUDA cores), the other four
+    products in split precision.  At the card's softcap data (cap 50, logits
+    of +-60) each of dq, dk and dv lies within the float32 plain version's
+    own error + 2e-5 of the float64 gradient, the limit
+    ``tests/test_torch_gpu.py::test_softcap_kernels_match_plain`` holds the
+    kernel to.  With all five products split (the logits too: ~2^-21 of
+    +-60 moves P where the cap bends it) the gradient misses that limit."""
+    q, k, v, do = _softcap_data()
+    cap = 50.0
+    out = ref.flash_attention_ref(q, k, v, causal, window, cap)
+    lse = ref.flash_attention_lse_ref(q, k, causal, window, cap)
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window, cap)
+    kernel = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window, cap,
+                                         einsum=ref.einsum_tf32x3, logits_einsum=torch.einsum)
+    split = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window, cap,
+                                        einsum=ref.einsum_tf32x3)
+    want = _flash_bwd_float64(q, k, v, do, causal, window, cap)
+
+    def within(got):
+        return [float((g.double() - w).abs().max()) <= float((p.double() - w).abs().max())
+                + TOL_ATTN["atol"] for g, p, w in zip(got, plain, want)]
+
+    assert all(within(kernel)), within(kernel)
+    assert not all(within(split))

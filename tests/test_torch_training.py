@@ -200,15 +200,21 @@ def test_simulate_dispatch_matches_jax(kw):
         assert np.array_equal(got.per_replica_counts, want.per_replica_counts)
 
 
-def test_train_step_matches_jax():
-    """``make_train_step`` on reduced minicpm-2b against the JAX package's
-    ``make_train_step(model, opt_cfg=...)`` (mesh=None), from the same
-    weights and the same non-zero optimizer state (one JAX step taken
-    first): the metrics and the gradients to the model tolerance, the
-    parameters and moments after the step within 1e-5 (a moment of the
-    non-zero state keeps the update smooth in the gradient, so the model's
-    gradient tolerance carries over scaled by lr)."""
-    jcfg, cfg = jax_get_config("minicpm_2b").reduced(), get_config("minicpm_2b").reduced()
+@pytest.mark.parametrize("arch,extra", [("minicpm_2b", set()),
+                                        ("mixtral_8x22b", {"moe_aux"}),
+                                        ("deepseek_v3_671b", {"moe_aux", "mtp_ce"})])
+def test_train_step_matches_jax(arch, extra):
+    """``make_train_step`` on reduced minicpm-2b, mixtral-8x22b (softmax
+    top-2 over 4 experts, capacity dispatch) and deepseek-v3 (MLA, a dense
+    layer, sigmoid top-2 with a shared expert, the MTP head) against the JAX
+    package's ``make_train_step(model, opt_cfg=...)`` (mesh=None), from the
+    same weights and the same non-zero optimizer state (one JAX step taken
+    first): the metrics (``moe_aux`` and ``mtp_ce`` where the family has
+    them) and the gradients to the model tolerance, the parameters and
+    moments after the step within 1e-5 (a moment of the non-zero state keeps
+    the update smooth in the gradient, so the model's gradient tolerance
+    carries over scaled by lr)."""
+    jcfg, cfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
     jmodel = jax_build_model(jcfg, remat=False)
     jparams, _ = unzip(jmodel.init(jax.random.key(0)))
     kw = dict(lr=1e-3, warmup_steps=2, total_steps=20, schedule="wsd")
@@ -222,7 +228,7 @@ def test_train_step_matches_jax():
     jparams, jstate, jm = jstep(jparams, jstate, {"tokens": jnp.asarray(batch["tokens"])})
     step = make_train_step(Model(cfg, device="cpu"), OptConfig(**kw))
     params, state, m = step(params, state, device_put_batch(batch, device="cpu"))
-    assert set(m) == set(jm) == {"loss", "ce", "grad_norm", "lr"}
+    assert set(m) == set(jm) == {"loss", "ce", "grad_norm", "lr"} | extra
     for key in jm:
         np.testing.assert_allclose(m[key].numpy(), np.asarray(jm[key]), **TOL_MODEL)
     assert int(state.step) == int(jstate.step) == 2
@@ -255,6 +261,33 @@ def test_loss_decreases_small_model():
     assert losses[-1] < losses[0] * 0.35, (losses[0], losses[-1])
     # the chain's floor is ~0.9 nats, far below ln(V) = 5.5
     assert losses[-1] < 2.0, losses[-1]
+
+
+def test_adamw_update_in_slices_is_the_whole_leaf_update(monkeypatch):
+    """``adamw_update`` over flat slices of ``UPDATE_CHUNK`` elements (here 7,
+    so that slices end mid-row and one is short) gives the whole-leaf
+    update bit for bit: parameters (float32 and bfloat16), moments and the
+    step's metrics, from a non-zero state; a non-contiguous gradient leaf
+    takes the whole-leaf path."""
+    from repro_torch.training import optimizer
+
+    rng = np.random.default_rng(3)
+    leaf = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    params = {"a": leaf(5, 9), "b": leaf(30), "c": leaf(4, 6).to(torch.bfloat16)}
+    grads = {"a": leaf(5, 9), "b": leaf(30), "c": leaf(6, 4).t()}
+    state = OptState({k: leaf(*t.shape) for k, t in params.items()},
+                     {k: leaf(*t.shape).abs() for k, t in params.items()},
+                     torch.tensor(3, dtype=torch.int32))
+    cfg = OptConfig(lr=1e-2, warmup_steps=0)
+    runs = []
+    for chunk in (optimizer.UPDATE_CHUNK, 7):
+        monkeypatch.setattr(optimizer, "UPDATE_CHUNK", chunk)
+        copy = lambda tree: {k: t.clone() for k, t in tree.items()}  # noqa: E731
+        s = OptState(copy(state.m), copy(state.v), state.step.clone())
+        runs.append(adamw_update(copy(grads), s, copy(params), cfg))
+    (p1, s1, m1), (p2, s2, m2) = runs
+    for a, b in zip(tree_leaves((p1, s1.m, s1.v, m1)), tree_leaves((p2, s2.m, s2.v, m2))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_step_updates_in_place():
