@@ -63,6 +63,20 @@ line):
              each run's chunks); then one fused run under
              ``torch.profiler``: the device's busy share and the scheduling
              kernels' share of it.
+3b. sim   — the port's cluster simulator.  (a) The paper's §V protocol of
+             ``examples/quickstart.py`` (5 workers, 40 functions, 50
+             closed-loop VUs, 60 s, ``SimConfig()``) for hiku, ch_bl,
+             least_connections and random at seeds 42 and 7: mean and p99
+             ms, cold rate, load CV, rps, host seconds and records/s; at 42
+             the orderings of ``tests/test_simulator.py`` must hold.  (b)
+             The W=1,600 anchor of ``sim_speed_baseline.json`` (16,000 VUs,
+             6 s, 8,192 MB pools, seed 0) under a recording ``HikuScheduler``
+             with lowest-id ties: its ARRIVAL/FINISH/EVICT stream, padded to
+             bursts of 1,024, through ``sched_many_fused`` on the card (the
+             ``sim`` path); every ARRIVAL must be the Python scheduler's
+             choice, the final state its ``conns``/``idle_counts`` bit for
+             bit, the first 64 bursts ``sched_many`` on the CPU's; then the
+             whole stream's ns/event as back-to-back bursts in CUDA events.
 4. serve   — the main serving path: a ``ServingEngine`` on the card with
              three full-width mamba2-130m endpoints (24 layers, d_model 768,
              vocab 50280; random weights from seeds 0-2), 2 workers, hiku;
@@ -232,7 +246,7 @@ line):
              test's data (cap 50, logits of ~+-60); and the logit softcap
              (50) in the forward, the backward and ``decode_attention``.
 
-The launch counters are set to 0 just before each main path (phases 3, 4,
+The launch counters are set to 0 just before each main path (phases 3, 3b, 4,
 5, 8, 9, 10, the five of 13 and the parts of 11 and 12) and read just after: the wrappers' own launches plus, for each
 replay of a captured step, the launches recorded when it was captured
 (``serving/captured.py``); launches made in phase 2 do not count.  Before the last line it prints one
@@ -243,8 +257,8 @@ checkout of the repository.
 
     python3 chip_smoke.py --sched-only
 
-runs only the scheduling kernels' timings (no latency probe), phase 3 and its
-trace, and prints no result line.  To compare the scheduling kernels of two
+runs only the scheduling kernels' timings (no latency probe), phase 3 with its
+trace and phase 3b, and prints no result line.  To compare the scheduling kernels of two
 trees on one card, copy this script into a checkout of the other tree (a
 ``git archive`` unpacked under ``build/``) and run it there and here, in
 turns, with ``--sched-only``.  ``--bwd-only`` does the same for the float32
@@ -633,7 +647,10 @@ def sched_kernels(torch, np, ops, ref, probe=None):
 
 
 def phase_kernels(torch, np, build, ops, ref, rows):
-    rows.update(sched_kernels(torch, np, ops, ref, chain_probe(torch, np, build)))
+    """Each kernel against its plain version, timed; returns the scheduling
+    chain's probe (t_arr, t_step) ms, the sched rows' latency bound."""
+    probe = chain_probe(torch, np, build)
+    rows.update(sched_kernels(torch, np, ops, ref, probe))
 
     # ssd_scan at mamba2-130m width
     H, P, N, Q = 24, 64, 128, 256
@@ -705,6 +722,7 @@ def phase_kernels(torch, np, build, ops, ref, rows):
                 "zamba2": ssd_bwd_row(torch, ops, ref, "zamba2-2.7b train", zamba, f32, seed=23),
                 "zamba2_bf16": ssd_bwd_row(torch, ops, ref, "zamba2-2.7b train", zamba, bf16,
                                            seed=23)})
+    return probe
 
 
 def ssd_row(torch, ops, ref, B, H, P, N, Q, label):
@@ -1322,6 +1340,236 @@ def trace_sched(torch, np, core):
         f"({100 * sched_ms / busy_ms:.1f}% of busy), {sum(e.count for e in dev)} device entries")
     for e in sorted(dev, key=self_us, reverse=True)[:6]:
         log(f"[sched trace]   {self_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+# ------------------------------------------------------------ the sim phase
+# the §V protocol of examples/quickstart.py: 5 workers, make_functions(n_copies=5)
+# (40 functions), 50 closed-loop VUs, 60 simulated seconds, SimConfig() defaults
+SIM_SCHEDULERS = ("hiku", "ch_bl", "least_connections", "random")
+SIM_PROTOCOL = dict(n_workers=5, n_vus=50, duration_s=60.0)
+SIM_SEEDS = (42, 7)  # tests/test_simulator.py's orderings are checked at 42; the example's 7
+# the W=1,600 cluster anchor (scale_1600w_16000vu_8g of
+# benchmarks/results/sim_speed_baseline.json), F=40 as the sched phase
+SIM_ANCHOR = dict(n_workers=1600, n_vus=16000, duration_s=6.0, mem_pool_mb=8192.0, seed=0)
+SIM_PLAIN_BURSTS = 64  # bursts of the stream held bit for bit against the plain scan on the CPU
+
+
+class LowestId:
+    """The array form's tie order as a Python scheduler's ``rng``: ``choice``
+    gives the least id, and ``randrange`` 0, the first of the ascending ties
+    that the least-connections fallback draws from."""
+
+    def choice(self, xs):
+        return min(xs)
+
+    def randrange(self, n):
+        return 0
+
+
+def recording_hiku(core, n_workers):
+    """The port's ``HikuScheduler`` with the lowest-id tie order, logging each
+    callback of the simulator as ``(kind, function index, worker)``:
+    ``schedule`` an ARRIVAL (with the worker it chose), ``on_finish`` a FINISH,
+    ``on_evict`` an EVICT.  ``index`` maps function names to the simulator's
+    function order; set it before the run.  A cancellation or a worker
+    joining or leaving has no event in the array form, so those raise."""
+
+    class Recording(core.HikuScheduler):
+        def __init__(self):
+            super().__init__(n_workers, seed=0)
+            self.rng = LowestId()
+            self.index = {}
+            self.log = []
+
+        def schedule(self, func):
+            w = super().schedule(func)
+            self.log.append((core.ARRIVAL, self.index[func], w))
+            return w
+
+        def on_finish(self, worker, func):
+            super().on_finish(worker, func)
+            self.log.append((core.FINISH, self.index[func], worker))
+
+        def on_evict(self, worker, func):
+            super().on_evict(worker, func)
+            self.log.append((core.EVICT, self.index[func], worker))
+
+        def on_cancel(self, worker, func):
+            raise RuntimeError(f"on_cancel({worker}, {func!r}): the array form has no such event")
+
+        def on_worker_added(self, worker):
+            raise RuntimeError(f"on_worker_added({worker}): the array form has no such event")
+
+        def on_worker_removed(self, worker):
+            raise RuntimeError(f"on_worker_removed({worker}): the array form has no such event")
+
+    return Recording()
+
+
+def record_sim_stream(np, core, n_workers, n_vus, duration_s, seed, **cfg):
+    """Run the port's simulator under ``recording_hiku``.  Returns (events
+    (N, 3) int32 with worker -1 on the ARRIVALs, as ``core/sched.py`` takes
+    them; the worker the Python scheduler chose for each ARRIVAL, -1
+    elsewhere; the scheduler; the simulator; its records; host seconds)."""
+    sched = recording_hiku(core, n_workers)
+    sim = core.Simulator(sched, cfg=core.SimConfig(n_workers=n_workers, **cfg), seed=seed)
+    sched.index = {f.name: i for i, f in enumerate(sim.funcs)}
+    t0 = time.perf_counter()
+    recs = sim.run(n_vus=n_vus, duration_s=duration_s)
+    wall = time.perf_counter() - t0
+    logged = np.array(sched.log, np.int32).reshape(-1, 3)
+    arrival = logged[:, 0] == core.ARRIVAL
+    chosen = np.where(arrival, logged[:, 2], -1).astype(np.int32)
+    events = logged.copy()
+    events[arrival, 2] = -1
+    return events, chosen, sched, sim, recs, wall
+
+
+def python_state(np, sched, n_funcs, n_workers):
+    """The Python scheduler's ``idle_counts`` and ``conns`` as the array
+    form's ``(idle (F, W), conns (W,))`` int32 arrays."""
+    idle = np.zeros((n_funcs, n_workers), np.int32)
+    for name, counts in sched.idle_counts.items():
+        for w, n in counts.items():
+            idle[sched.index[name], w] = n
+    conns = np.array([sched.conns[w] for w in range(n_workers)], np.int32)
+    return idle, conns
+
+
+def pad_events(np, events, chunk):
+    """Pad the stream to a whole number of ``chunk``-event bursts with no-op
+    events (kind 3), as a fixed-size launch pads its last burst."""
+    pad = (-len(events)) % chunk
+    return np.concatenate([events, np.tile(np.array([[3, 0, 0]], np.int32), (pad, 1))])
+
+
+def sim_protocol(np, core):
+    """(a) The paper's §V protocol on the port's simulator for the four
+    schedulers at each of ``SIM_SEEDS``: mean and p99 latency, cold rate,
+    load CV, requests/s, and the host's seconds and records/s.  At seed 42
+    the orderings ``tests/test_simulator.py`` asserts must hold."""
+    W, vus, dur = SIM_PROTOCOL["n_workers"], SIM_PROTOCOL["n_vus"], SIM_PROTOCOL["duration_s"]
+    for seed in SIM_SEEDS:
+        log(f"[sim] §V protocol, seed {seed}: {W} workers, 40 functions, {vus} VUs, {dur:g} s")
+        log(f"[sim]   {'scheduler':<20}{'mean ms':>9}{'p99 ms':>9}{'cold':>7}{'CV':>7}{'rps':>7}"
+            f"{'host s':>9}{'records/s':>11}")
+        res = {}
+        for name in SIM_SCHEDULERS:
+            sim = core.Simulator(core.make_scheduler(name, W, seed=seed), cfg=core.SimConfig(),
+                                 seed=seed)
+            t0 = time.perf_counter()
+            recs = sim.run(n_vus=vus, duration_s=dur)
+            wall = time.perf_counter() - t0
+            m = res[name] = core.summarize(recs, sim.assignments, list(range(W)), dur)
+            log(f"[sim]   {name:<20}{m.mean_latency_ms:>9.1f}{m.p99_ms:>9.1f}{m.cold_rate:>7.1%}"
+                f"{m.load_cv:>7.3f}{m.throughput_rps:>7.2f}{wall:>9.3f}{len(recs) / wall:>11,.0f}")
+        if seed != 42:
+            continue
+        h = res["hiku"]
+        checks = {
+            "hiku's cold rate below least_connections'": h.cold_rate < res["least_connections"].cold_rate,
+            "hiku's cold rate below random's": h.cold_rate < res["random"].cold_rate,
+            "hiku's mean latency below random's": h.mean_latency_ms < res["random"].mean_latency_ms,
+            "hiku's mean latency below ch_bl's": h.mean_latency_ms < res["ch_bl"].mean_latency_ms,
+            "hiku's requests above random's": h.n_requests > res["random"].n_requests}
+        if not all(checks.values()):
+            fail("§V orderings at seed 42: " + ", ".join(k for k, ok in checks.items() if not ok))
+        log("[sim]   seed 42: " + "; ".join(checks) + ": all hold")
+
+
+def phase_sim(torch, np, core, ops, counted, probe=None):
+    """(b) The simulator's own Hiku decision stream at the W=1,600 anchor on
+    the card.  The port's simulator runs ``SIM_ANCHOR`` under
+    ``recording_hiku``; the logged stream, padded to bursts of
+    ``SCHED_CHUNK``, goes through ``sched_many_fused`` (the path, counted as
+    ``sim``).  Every ARRIVAL's worker must be the Python scheduler's choice,
+    the final state its ``conns`` and ``idle_counts`` bit for bit, the first
+    ``SIM_PLAIN_BURSTS`` bursts the plain scan's on the CPU, and the state
+    must keep ``check_invariants``.  Returns ({kernel: events it carried},
+    {kernel: bursts}, the sched_events row's ``sim`` entry)."""
+    a = SIM_ANCHOR
+    F, W = 40, a["n_workers"]
+    events, chosen, sched, sim, recs, wall = record_sim_stream(
+        np, core, a["n_workers"], a["n_vus"], a["duration_s"], a["seed"],
+        mem_pool_mb=a["mem_pool_mb"])
+    if len(sim.funcs) != F:
+        fail(f"the simulator has {len(sim.funcs)} functions, not {F}")
+    n = len(events)
+    by_kind = {k: int((events[:, 0] == v).sum())
+               for k, v in (("ARRIVAL", core.ARRIVAL), ("FINISH", core.FINISH), ("EVICT", core.EVICT))}
+    log(f"[sim] W={W}, {a['n_vus']:,} VUs, {a['duration_s']:g} s, pool {a['mem_pool_mb']:g} MB, "
+        f"seed {a['seed']}: {len(recs):,} records in {wall:.2f} s on the host "
+        f"({len(recs) / wall:,.0f} records/s, {sim.n_events:,} simulator events); scheduler "
+        f"events {n:,}: " + ", ".join(f"{k} {v:,}" for k, v in by_kind.items()))
+    padded = pad_events(np, events, SCHED_CHUNK)
+    ev = torch.from_numpy(padded)
+    kinds = padded[:, 0]
+    carried, bursts = kernel_events(kinds, [(0, len(padded), SCHED_CHUNK)])
+    state, (ws, warm) = counted("sim", tuple(k for k, b in bursts.items() if b),
+                                lambda: core.sched_many_fused(core.init_state(F, W), ev,
+                                                              chunk=SCHED_CHUNK))
+    ws, warm = ws.cpu().numpy()[:n], warm.cpu().numpy()[:n]
+    arrival = events[:, 0] == core.ARRIVAL
+    bad = np.flatnonzero(arrival & (ws != chosen))
+    if len(bad):
+        i = int(bad[0])
+        fail(f"sim: {len(bad)} ARRIVALs differ from the Python scheduler's choice; the first, "
+             f"event {i} (function {events[i, 1]}): card {ws[i]}, Python {chosen[i]}")
+    idle, conns = python_state(np, sched, F, W)
+    if not (np.array_equal(state.idle.cpu().numpy(), idle)
+            and np.array_equal(state.conns.cpu().numpy(), conns)):
+        fail("sim: the final idle/conns on the card differ from the Python scheduler's")
+    if not core.check_invariants(state):
+        fail("sim: the final state breaks check_invariants")
+    if int(warm[arrival].sum()) != sched.pull_hits:
+        fail(f"sim: {int(warm[arrival].sum())} warm ARRIVALs on the card, {sched.pull_hits} pulls "
+             "in the Python scheduler")
+    # the first bursts against the plain scan on the CPU, and the card's state
+    # after them (that run's launches are a comparison's, not the path's)
+    m = min(SIM_PLAIN_BURSTS * SCHED_CHUNK, len(padded))
+    t0 = time.perf_counter()
+    s_ref, (w_ref, warm_ref) = core.sched_many(core.init_state(F, W, "cpu"), ev[:m])
+    plain_s = time.perf_counter() - t0
+    s_m, _ = core.sched_many_fused(core.init_state(F, W), ev[:m], chunk=SCHED_CHUNK)
+    if not (np.array_equal(ws[:min(m, n)], w_ref.numpy()[:min(m, n)])
+            and np.array_equal(warm[:min(m, n)], warm_ref.numpy()[:min(m, n)])
+            and torch.equal(s_m.idle.cpu(), s_ref.idle) and torch.equal(s_m.conns.cpu(), s_ref.conns)):
+        fail(f"sim: the first {m // SCHED_CHUNK} bursts differ from sched_many on the CPU")
+    # the whole stream as back-to-back bursts, in CUDA events (the fused
+    # path's dispatch: an all-ARRIVAL burst goes to sched_step)
+    ev_dev = ev.to(DEVICE)
+    cuts = [(lo, bool((kinds[lo: lo + SCHED_CHUNK] == core.ARRIVAL).all()))
+            for lo in range(0, len(padded), SCHED_CHUNK)]
+    cols = [(ev_dev[lo: lo + SCHED_CHUNK, 0], ev_dev[lo: lo + SCHED_CHUNK, 1],
+             ev_dev[lo: lo + SCHED_CHUNK, 2], arr) for lo, arr in cuts]
+    s0 = core.init_state(F, W)
+
+    def stream():
+        idle_, conns_ = s0
+        for k, f, w, arr in cols:
+            if arr:
+                _, _, idle_, conns_ = ops.sched_step(f, idle_, conns_)
+            else:
+                _, _, idle_, conns_ = ops.sched_events(k, f, w, idle_, conns_)
+
+    ms = time_cuda(torch, stream, reps=5)
+    row = dict(events=n, padded=len(padded), bursts=bursts, ms=ms,
+               ns_per_event=ms * 1e6 / len(padded), records=len(recs), sim_s=wall,
+               records_per_s=len(recs) / wall)
+    line = (f"[sim] the stream on the card: {len(padded) // SCHED_CHUNK} bursts of {SCHED_CHUNK} "
+            f"({len(padded) - n} padding events; sched_events {bursts['sched_events']}, sched_step "
+            f"{bursts['sched_step']}), {ms:.3f} ms back to back, {row['ns_per_event']:.1f} ns/event")
+    if probe is not None:
+        b_ms = sum(chain_bound(np, kinds[lo: lo + SCHED_CHUNK], *probe)[0] for lo, _ in cuts)
+        row.update(bound_ms=b_ms, bound_ns_per_event=b_ms * 1e6 / len(padded))
+        line += (f", latency bound {b_ms:.3f} ms ({row['bound_ns_per_event']:.1f} ns/event), "
+                 f"{ms - b_ms:.3f} ms over it")
+    log(line)
+    log(f"[sim] every ARRIVAL is the Python scheduler's choice ({by_kind['ARRIVAL']:,}, "
+        f"{sched.pull_hits:,} pulled warm), the final idle/conns are its idle_counts/conns bit "
+        f"for bit, check_invariants holds; the first {m // SCHED_CHUNK} bursts equal sched_many on "
+        f"the CPU ({m / plain_s:,.0f} events/s there)")
+    return carried, bursts, row
 
 
 def serve(torch, np, eng, prefix, vocab, label, order=None, prompt_len=1024):
@@ -2467,13 +2715,41 @@ def _clone(tree):
     return tree.clone()
 
 
+def make_counted(torch, ops, captured, launches, path_launches, path_shapes):
+    """``counted(path, kernels, fn)``: drive one main path with the counters
+    at 0 just before it and read just after (the wrappers' launches plus
+    those of the replays of captured steps, into ``path_launches[path]``,
+    ``path_shapes[path]`` and the running totals ``launches``); each of
+    ``kernels`` must have launched."""
+
+    def counted(path, kernels, fn):
+        ops.reset_launches()
+        captured.reset_replays()
+        out = fn()
+        torch.cuda.synchronize()
+        got = captured.launches()
+        path_launches[path] = (dict(ops.LAUNCHES), dict(captured.REPLAYED))
+        path_shapes[path] = captured.launches_by_shape()
+        log(f"[{path}] launches {got} (of which by {captured.REPLAYED['steps']} replays of "
+            f"captured steps: { {k: v for k, v in captured.REPLAYED.items() if k != 'steps'} })")
+        for name in kernels:
+            if got[name] < 1:
+                fail(f"the {path} path never launched {name}")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        return out
+
+    return counted
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sched-only", action="store_true",
-                    help="run only the scheduling kernels' timings and the scheduling path "
-                         "(with its trace), and print no result line: for comparing the "
+                    help="run only the scheduling kernels' timings, the scheduling path "
+                         "(with its trace) and the sim phase, and print no result line: for "
+                         "comparing the "
                          "kernels of two trees on one card, run from a copy of this script "
                          "in each")
     ap.add_argument("--bwd-only", action="store_true",
@@ -2522,41 +2798,30 @@ def main(argv=None) -> int:
         phase_sched(torch, np, core)
         log(f"[sched] launches {dict(ops.LAUNCHES)}")
         trace_sched(torch, np, core)
+        sim_protocol(np, core)
+        phase_sim(torch, np, core, ops, make_counted(torch, ops, captured, {}, {}, {}))
         print(card)
         return 0
     default_device()  # full float32 matmuls on the card (TF32 off)
     t_start = time.perf_counter()
     card = phase_device(torch, build)
     rows = {}
-    phase_kernels(torch, np, build, ops, ref, rows)
+    probe = phase_kernels(torch, np, build, ops, ref, rows)
     phase_attention(torch, np, ops, ref, rows)
     launches, path_launches, path_shapes = {}, {}, {}
-
-    def counted(path, kernels, fn):
-        """Drive one main path with the counters at 0 just before it and read
-        just after: the wrappers' launches plus those of the replays of
-        captured steps; each of ``kernels`` must have launched."""
-        ops.reset_launches()
-        captured.reset_replays()
-        out = fn()
-        torch.cuda.synchronize()
-        got = captured.launches()
-        path_launches[path] = (dict(ops.LAUNCHES), dict(captured.REPLAYED))
-        path_shapes[path] = captured.launches_by_shape()
-        log(f"[{path}] launches {got} (of which by {captured.REPLAYED['steps']} replays of "
-            f"captured steps: { {k: v for k, v in captured.REPLAYED.items() if k != 'steps'} })")
-        for name in kernels:
-            if got[name] < 1:
-                fail(f"the {path} path never launched {name}")
-        for name, n in got.items():
-            launches[name] = launches.get(name, 0) + n
-        return out
-
+    counted = make_counted(torch, ops, captured, launches, path_launches, path_shapes)
     events, bursts = counted("sched", ("sched_events", "sched_step"),
                              lambda: phase_sched(torch, np, core))
     if any(launches[name] != n for name, n in bursts.items()):
         fail(f"the scheduling path launched {launches} for the bursts {bursts} of its plan")
     trace_sched(torch, np, core)
+    sim_protocol(np, core)
+    sim_events, sim_bursts, sim_row = phase_sim(torch, np, core, ops, counted, probe)
+    if any(path_launches["sim"][0][name] != n for name, n in sim_bursts.items()):
+        fail(f"the sim path launched {path_launches['sim'][0]} for its bursts {sim_bursts}")
+    for name, n in sim_events.items():
+        events[name] += n
+    rows["sched_events"]["sim"] = sim_row
 
     mcfg = full_width(get_config, "mamba2_130m", FULL_WIDTH)
     m_eng = ServingEngine([Endpoint(f"mamba{i}", mcfg, seed=i) for i in range(3)],
@@ -2872,7 +3137,7 @@ def main(argv=None) -> int:
         kernels.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms", "burst", "ns_per_event",
-                                            "ms_4096", "batch", "shapes") if k in row})
+                                            "ms_4096", "sim", "batch", "shapes") if k in row})
     if whisper_keys:
         fail(f"the whisper paths launched at shapes that no whisper_* row holds: {whisper_keys}")
     log("[done] time over the bound on the main paths: " + ", ".join(
