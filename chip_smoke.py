@@ -77,6 +77,22 @@ line):
              choice, the final state its ``conns``/``idle_counts`` bit for
              bit, the first 64 bursts ``sched_many`` on the CPU's; then the
              whole stream's ns/event as back-to-back bursts in CUDA events.
+3c. cluster — the port's multi-cluster tier at the scale-out anchor
+             ``1600w_16000vu_8g`` of ``benchmarks/bench_shard_scale.py``
+             (1,600 workers, 16,000 VUs, 3.0 s, 8,192 MB pools, seed 0) at 8
+             shards of 200 workers: ``ShardedSimulator`` (serial backend) and
+             ``AdmissionSimulator`` (``pull`` admission; no bus, autoscaler,
+             stealing or faults), every shard's scheduler a recording
+             ``HikuScheduler`` with lowest-id ties registered for the run;
+             records, host seconds and records/s of each.  Each shard's
+             stream, padded to bursts of 1,024, through ``sched_many_fused``
+             on the card from that shard's own (40, 200) state (the
+             ``cluster`` path); every ARRIVAL must be the shard's Python
+             choice, the final state its ``conns``/``idle_counts`` bit for
+             bit, the warm count its pulls, ``check_invariants`` must hold,
+             and the first 16 bursts of each driver's shard 0 must be
+             ``sched_many``'s on the CPU; then each driver's streams back to
+             back in CUDA events, ns/event against the chain's latency bound.
 4. serve   — the main serving path: a ``ServingEngine`` on the card with
              three full-width mamba2-130m endpoints (24 layers, d_model 768,
              vocab 50280; random weights from seeds 0-2), 2 workers, hiku;
@@ -246,7 +262,7 @@ line):
              test's data (cap 50, logits of ~+-60); and the logit softcap
              (50) in the forward, the backward and ``decode_attention``.
 
-The launch counters are set to 0 just before each main path (phases 3, 3b, 4,
+The launch counters are set to 0 just before each main path (phases 3, 3b, 3c, 4,
 5, 8, 9, 10, the five of 13 and the parts of 11 and 12) and read just after: the wrappers' own launches plus, for each
 replay of a captured step, the launches recorded when it was captured
 (``serving/captured.py``); launches made in phase 2 do not count.  Before the last line it prints one
@@ -258,7 +274,7 @@ checkout of the repository.
     python3 chip_smoke.py --sched-only
 
 runs only the scheduling kernels' timings (no latency probe), phase 3 with its
-trace and phase 3b, and prints no result line.  To compare the scheduling kernels of two
+trace, phases 3b and 3c, and prints no result line.  To compare the scheduling kernels of two
 trees on one card, copy this script into a checkout of the other tree (a
 ``git archive`` unpacked under ``build/``) and run it there and here, in
 turns, with ``--sched-only``.  ``--bwd-only`` does the same for the float32
@@ -280,7 +296,11 @@ launch of the whisper paths falls in one of the ``whisper_*`` rows.  The two
 scheduling rows also carry
 ``burst`` (the events of the timed burst, the path's chunk of 1,024),
 ``ns_per_event`` and ``ms_4096`` (the time of a 4,096-event burst): their
-``ms`` is one 1,024-event burst, averaged over 10 back-to-back calls.
+``ms`` is one 1,024-event burst, averaged over 10 back-to-back calls.  The
+``sched_events`` row's ``sim`` and ``cluster`` entries hold those paths'
+streams: events, bursts, ms back to back, ns/event and the latency bound;
+``cluster`` also each driver's records, host seconds and records/s, and the
+path's ``launches`` by kernel.
 """
 
 from __future__ import annotations
@@ -291,6 +311,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from contextlib import ExitStack, contextmanager, nullcontext
 from pathlib import Path
 
@@ -1417,12 +1438,20 @@ def record_sim_stream(np, core, n_workers, n_vus, duration_s, seed, **cfg):
     t0 = time.perf_counter()
     recs = sim.run(n_vus=n_vus, duration_s=duration_s)
     wall = time.perf_counter() - t0
+    events, chosen = split_log(np, core, sched)
+    return events, chosen, sched, sim, recs, wall
+
+
+def split_log(np, core, sched):
+    """A recording scheduler's log as (events (N, 3) int32 with worker -1 on
+    the ARRIVALs; the worker the Python scheduler chose for each ARRIVAL, -1
+    elsewhere)."""
     logged = np.array(sched.log, np.int32).reshape(-1, 3)
     arrival = logged[:, 0] == core.ARRIVAL
     chosen = np.where(arrival, logged[:, 2], -1).astype(np.int32)
     events = logged.copy()
     events[arrival, 2] = -1
-    return events, chosen, sched, sim, recs, wall
+    return events, chosen
 
 
 def python_state(np, sched, n_funcs, n_workers):
@@ -1571,6 +1600,206 @@ def phase_sim(torch, np, core, ops, counted, probe=None):
         f"the CPU ({m / plain_s:,.0f} events/s there)")
     return carried, bursts, row
 
+
+
+# -------------------------------------------------------- the cluster phase
+# the scale-out anchor 1600w_16000vu_8g of benchmarks/bench_shard_scale.py
+# (1,600 workers, 16,000 VUs, 3.0 s, 8,192 MB pools) at 8 shards of 200
+# workers and 40 functions each, seed 0
+CLUSTER_ANCHOR = dict(n_shards=8, n_workers=1600, n_vus=16000, duration_s=3.0,
+                      mem_pool_mb=8192.0, seed=0)
+CLUSTER_DRIVERS = ("sharded", "admission")
+CLUSTER_PLAIN_BURSTS = 16  # bursts of each driver's shard 0 held against the plain scan on the CPU
+RECORDING = "hiku_recording"  # the recording scheduler's name in the port's registry
+
+
+@contextmanager
+def recording_schedulers(core):
+    """Register ``recording_hiku`` in the port's scheduler registry under
+    ``RECORDING`` for the block, and yield ``{seed: scheduler}``, which
+    collects each instance a driver builds (a shard's scheduler is seeded
+    with its ``shard_seed``).  Every instance maps function names to the
+    order of ``make_functions``, whose names every shard's simulator shares."""
+    made = {}
+    index = {f.name: i for i, f in enumerate(core.make_functions())}
+
+    def factory(n_workers, seed=0):
+        sched = recording_hiku(core, n_workers)
+        sched.index = index
+        made[seed] = sched
+        return sched
+
+    core.scheduler.register(RECORDING)(factory)
+    try:
+        yield made
+    finally:
+        core.scheduler._REGISTRY.pop(RECORDING, None)
+
+
+def record_cluster_streams(np, core, driver, n_shards, n_workers, n_vus, duration_s, seed,
+                           **cfg):
+    """Run one of the port's multi-cluster drivers with every shard under the
+    recording scheduler: ``"sharded"`` is ``ShardedSimulator`` on the serial
+    backend (a forked child's log would not come back), ``"admission"`` is
+    ``AdmissionSimulator`` with ``pull`` admission and no bus, autoscaler,
+    stealing or faults (stealing cancels and worker changes have no event in
+    the array form: the recorder raises on them).  Returns (per shard, in
+    shard order, ``(events, chosen, scheduler, workers)`` as ``split_log``
+    gives them; the run; host seconds)."""
+    split = core.shard.split_even(n_workers, n_shards)
+    with recording_schedulers(core) as made:
+        sim_cfg = core.SimConfig(**cfg)
+        t0 = time.perf_counter()
+        if driver == "sharded":
+            run = core.ShardedSimulator(n_shards, n_workers, scheduler=RECORDING, cfg=sim_cfg,
+                                        seed=seed, backend="serial").run(n_vus, duration_s)
+        elif driver == "admission":
+            adm = core.AdmissionSimulator(n_shards, n_workers, scheduler=RECORDING, cfg=sim_cfg,
+                                          seed=seed, admission=core.AdmissionConfig(policy="pull"))
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)  # VUs the deadline left queued
+                run = adm.run(n_vus, duration_s)
+        else:
+            raise ValueError(f"unknown driver {driver!r}")
+        wall = time.perf_counter() - t0
+    seeds = [core.shard_seed(seed, k) for k in range(n_shards)]
+    if sorted(made) != sorted(seeds):
+        fail(f"cluster: {driver} built schedulers seeded {sorted(made)}, not its shards' {seeds}")
+    return [(*split_log(np, core, made[s]), made[s], split[k]) for k, s in enumerate(seeds)], \
+        run, wall
+
+
+def phase_cluster(torch, np, core, ops, counted, probe=None):
+    """The port's multi-cluster drivers at ``CLUSTER_ANCHOR``, then each
+    shard's own Hiku stream on the card.  Both drivers run on the host under
+    the recording scheduler; every shard's stream, padded to bursts of
+    ``SCHED_CHUNK``, goes through ``sched_many_fused`` from that shard's own
+    ``(40, 200)`` state (all of them one counted path, ``cluster``).  Every
+    ARRIVAL's worker must be the shard's Python choice, the final state its
+    ``conns``/``idle_counts`` bit for bit, the warm count its pulls, the state
+    must keep ``check_invariants``, and the first ``CLUSTER_PLAIN_BURSTS``
+    bursts of each driver's shard 0 must be the plain scan's on the CPU.
+    Returns ({kernel: events it carried}, {kernel: bursts}, the sched_events
+    row's ``cluster`` entry)."""
+    a = CLUSTER_ANCHOR
+    F, K = 40, a["n_shards"]
+    t_phase = time.perf_counter()
+    jobs, drivers = [], {}
+    for driver in CLUSTER_DRIVERS:
+        streams, run, wall = record_cluster_streams(
+            np, core, driver, K, a["n_workers"], a["n_vus"], a["duration_s"], a["seed"],
+            mem_pool_mb=a["mem_pool_mb"])
+        allev = np.concatenate([e for e, _, _, _ in streams])
+        by_kind = {k: int((allev[:, 0] == v).sum()) for k, v in
+                   (("ARRIVAL", core.ARRIVAL), ("FINISH", core.FINISH), ("EVICT", core.EVICT))}
+        extra = (f", {run.admitted:,} VUs admitted, {run.unadmitted:,} still queued"
+                 if driver == "admission" else "")
+        log(f"[cluster] {driver}: {K} shards x {streams[0][3]} workers, {a['n_vus']:,} VUs, "
+            f"{a['duration_s']:g} s, pool {a['mem_pool_mb']:g} MB, seed {a['seed']}: "
+            f"{len(run.records):,} records in {wall:.2f} s on the host "
+            f"({len(run.records) / wall:,.0f} records/s, {run.n_events:,} simulator events"
+            f"{extra}); scheduler events {len(allev):,}: "
+            + ", ".join(f"{k} {v:,}" for k, v in by_kind.items()))
+        drivers[driver] = dict(records=len(run.records), host_s=wall,
+                               records_per_s=len(run.records) / wall, events=len(allev),
+                               by_kind=by_kind)
+        for k, (events, chosen, sched, W) in enumerate(streams):
+            jobs.append((driver, k, events, chosen, sched, W, pad_events(np, events, SCHED_CHUNK)))
+    carried, bursts = {"sched_events": 0, "sched_step": 0}, {"sched_events": 0, "sched_step": 0}
+    for *_, padded in jobs:
+        c, b = kernel_events(padded[:, 0], [(0, len(padded), SCHED_CHUNK)])
+        for name in carried:
+            carried[name] += c[name]
+            bursts[name] += b[name]
+    outs = counted("cluster", tuple(k for k, b in bursts.items() if b), lambda: [
+        core.sched_many_fused(core.init_state(F, W), torch.from_numpy(padded), chunk=SCHED_CHUNK)
+        for _, _, _, _, _, W, padded in jobs])
+    pulls = 0
+    for (driver, k, events, chosen, sched, W, padded), (state, (ws, warm)) in zip(jobs, outs):
+        tag, n = f"cluster: {driver} shard {k}", len(events)
+        ws, warm = ws.cpu().numpy()[:n], warm.cpu().numpy()[:n]
+        arrival = events[:, 0] == core.ARRIVAL
+        bad = np.flatnonzero(arrival & (ws != chosen))
+        if len(bad):
+            i = int(bad[0])
+            fail(f"{tag}: {len(bad)} ARRIVALs differ from the Python scheduler's choice; the "
+                 f"first, event {i} (function {events[i, 1]}): card {ws[i]}, Python {chosen[i]}")
+        idle, conns = python_state(np, sched, F, W)
+        if not (np.array_equal(state.idle.cpu().numpy(), idle)
+                and np.array_equal(state.conns.cpu().numpy(), conns)):
+            fail(f"{tag}: the final idle/conns on the card differ from the Python scheduler's")
+        if not core.check_invariants(state):
+            fail(f"{tag}: the final state breaks check_invariants")
+        if int(warm[arrival].sum()) != sched.pull_hits:
+            fail(f"{tag}: {int(warm[arrival].sum())} warm ARRIVALs on the card, "
+                 f"{sched.pull_hits} pulls in the Python scheduler")
+        pulls += sched.pull_hits
+        if k == 0:  # the first bursts against the plain scan on the CPU
+            m = min(CLUSTER_PLAIN_BURSTS * SCHED_CHUNK, len(padded))
+            ev = torch.from_numpy(padded[:m])
+            s_ref, (w_ref, warm_ref) = core.sched_many(core.init_state(F, W, "cpu"), ev)
+            s_m, _ = core.sched_many_fused(core.init_state(F, W), ev, chunk=SCHED_CHUNK)
+            h = min(m, n)
+            if not (np.array_equal(ws[:h], w_ref.numpy()[:h])
+                    and np.array_equal(warm[:h], warm_ref.numpy()[:h])
+                    and torch.equal(s_m.idle.cpu(), s_ref.idle)
+                    and torch.equal(s_m.conns.cpu(), s_ref.conns)):
+                fail(f"{tag}: the first {m // SCHED_CHUNK} bursts differ from sched_many on "
+                     "the CPU")
+    # each driver's shards back to back, each from its own initial state, in
+    # CUDA events (the fused path's dispatch: an all-ARRIVAL burst goes to
+    # sched_step)
+    row = dict(anchor=a, drivers=drivers, bursts=bursts, events=sum(len(j[2]) for j in jobs),
+               padded=sum(len(j[6]) for j in jobs))
+    total_ms = total_bound = 0.0
+    for driver in CLUSTER_DRIVERS:
+        shards = []
+        for d, _, _, _, _, W, padded in jobs:
+            if d != driver:
+                continue
+            ev_dev = torch.from_numpy(padded).to(DEVICE)
+            cuts = [(lo, bool((padded[lo: lo + SCHED_CHUNK, 0] == core.ARRIVAL).all()))
+                    for lo in range(0, len(padded), SCHED_CHUNK)]
+            cols = [(ev_dev[lo: lo + SCHED_CHUNK, 0], ev_dev[lo: lo + SCHED_CHUNK, 1],
+                     ev_dev[lo: lo + SCHED_CHUNK, 2], arr) for lo, arr in cuts]
+            shards.append((core.init_state(F, W), cols, padded, cuts))
+
+        def stream():
+            for s0, cols, _, _ in shards:
+                idle_, conns_ = s0
+                for kk, f, w, arr in cols:
+                    if arr:
+                        _, _, idle_, conns_ = ops.sched_step(f, idle_, conns_)
+                    else:
+                        _, _, idle_, conns_ = ops.sched_events(kk, f, w, idle_, conns_)
+
+        ms = time_cuda(torch, stream, reps=5)
+        n_pad = sum(len(p) for _, _, p, _ in shards)
+        d = drivers[driver]
+        d.update(padded=n_pad, bursts=n_pad // SCHED_CHUNK, ms=ms, ns_per_event=ms * 1e6 / n_pad)
+        line = (f"[cluster] {driver}'s {K} streams on the card: {d['bursts']} bursts of "
+                f"{SCHED_CHUNK} ({n_pad - d['events']:,} padding events), {ms:.3f} ms back to "
+                f"back, {d['ns_per_event']:.1f} ns/event")
+        total_ms += ms
+        if probe is not None:
+            b_ms = sum(chain_bound(np, p[lo: lo + SCHED_CHUNK, 0], *probe)[0]
+                       for _, _, p, cuts in shards for lo, _ in cuts)
+            d.update(bound_ms=b_ms, bound_ns_per_event=b_ms * 1e6 / n_pad)
+            total_bound += b_ms
+            line += (f", latency bound {b_ms:.3f} ms ({d['bound_ns_per_event']:.1f} ns/event), "
+                     f"{ms - b_ms:.3f} ms over it")
+        log(line)
+    row.update(ms=total_ms, ns_per_event=total_ms * 1e6 / row["padded"])
+    if probe is not None:
+        row.update(bound_ms=total_bound, bound_ns_per_event=total_bound * 1e6 / row["padded"])
+    arrivals = sum(d["by_kind"]["ARRIVAL"] for d in drivers.values())
+    log(f"[cluster] both drivers, {len(jobs)} shard streams: every ARRIVAL is its shard's Python "
+        f"choice ({arrivals:,}, {pulls:,} pulled warm), every final idle/conns its shard's "
+        f"idle_counts/conns bit for bit, check_invariants holds; the first "
+        f"{CLUSTER_PLAIN_BURSTS} bursts of each driver's shard 0 equal sched_many on the CPU; "
+        f"sched_events {bursts['sched_events']} bursts, sched_step {bursts['sched_step']}; "
+        f"{row['ns_per_event']:.1f} ns/event over both; phase {time.perf_counter() - t_phase:.1f} s")
+    return carried, bursts, row
 
 def serve(torch, np, eng, prefix, vocab, label, order=None, prompt_len=1024):
     """Submit the 8 requests of ``ORDER`` (seeded prompts of ``prompt_len``
@@ -2748,7 +2977,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sched-only", action="store_true",
                     help="run only the scheduling kernels' timings, the scheduling path "
-                         "(with its trace) and the sim phase, and print no result line: for "
+                         "(with its trace), the sim and cluster phases, and print no result "
+                         "line: for "
                          "comparing the "
                          "kernels of two trees on one card, run from a copy of this script "
                          "in each")
@@ -2800,6 +3030,7 @@ def main(argv=None) -> int:
         trace_sched(torch, np, core)
         sim_protocol(np, core)
         phase_sim(torch, np, core, ops, make_counted(torch, ops, captured, {}, {}, {}))
+        phase_cluster(torch, np, core, ops, make_counted(torch, ops, captured, {}, {}, {}))
         print(card)
         return 0
     default_device()  # full float32 matmuls on the card (TF32 off)
@@ -2822,6 +3053,14 @@ def main(argv=None) -> int:
     for name, n in sim_events.items():
         events[name] += n
     rows["sched_events"]["sim"] = sim_row
+    cl_events, cl_bursts, cl_row = phase_cluster(torch, np, core, ops, counted, probe)
+    cl_launches = {name: path_launches["cluster"][0][name] for name in cl_bursts}
+    if cl_launches != cl_bursts:
+        fail(f"the cluster path launched {cl_launches} for its bursts {cl_bursts}")
+    for name, n in cl_events.items():
+        events[name] += n
+    cl_row["launches"] = cl_launches
+    rows["sched_events"]["cluster"] = cl_row
 
     mcfg = full_width(get_config, "mamba2_130m", FULL_WIDTH)
     m_eng = ServingEngine([Endpoint(f"mamba{i}", mcfg, seed=i) for i in range(3)],
@@ -3137,7 +3376,8 @@ def main(argv=None) -> int:
         kernels.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms", "burst", "ns_per_event",
-                                            "ms_4096", "sim", "batch", "shapes") if k in row})
+                                            "ms_4096", "sim", "cluster", "batch", "shapes")
+                        if k in row})
     if whisper_keys:
         fail(f"the whisper paths launched at shapes that no whisper_* row holds: {whisper_keys}")
     log("[done] time over the bound on the main paths: " + ", ".join(

@@ -1,13 +1,16 @@
-"""``examples/quickstart_torch.py`` against ``examples/quickstart.py``: the
-simulated §V table printed byte for byte the same, and the real-model part
-on the CPU's plain path."""
+"""``examples/quickstart_torch.py`` against ``examples/quickstart.py`` and
+``examples/serve_cluster_torch.py`` against ``examples/serve_cluster.py``: the
+simulated sections printed byte for byte the same (the host's wall-clock
+rates masked), and the real-model parts on the CPU's plain path."""
 
 import contextlib
 import importlib.util
 import io
+import re
 from pathlib import Path
 
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
 
@@ -48,3 +51,42 @@ def test_real_models_has_no_silent_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _load("quickstart_torch").real_models()
+
+
+# ------------------------------------------------------------ serve_cluster
+#: the wall-clock figures the sharded section prints: a shard's events/s, the
+#: makespan and the two rates
+_WALL = re.compile(r"@ [\d,]+ ev/s|makespan [\d.]+s \([\d,]+ ev/s end-to-end\), "
+                   r"aggregate capacity [\d,]+ ev/s")
+
+
+@pytest.mark.parametrize("section", ["replay_paper_protocol", "sharded_scale_out",
+                                     "admission_tier", "work_stealing", "policy_comparison"])
+def test_serve_cluster_simulated_sections_are_the_reference_output(section):
+    port, ref = _load("serve_cluster_torch"), _load("serve_cluster")
+    args = (True,) if section == "replay_paper_protocol" else (True, 4)
+    got, _ = _printed(getattr(port, section), *args)
+    want, _ = _printed(getattr(ref, section), *args)
+    assert len(got.splitlines()) >= 3
+    if section == "sharded_scale_out":
+        assert len(_WALL.findall(got)) == 5 == len(_WALL.findall(want))
+        got, want = _WALL.sub("<wall>", got), _WALL.sub("<wall>", want)
+    assert got == want
+
+
+def test_serve_cluster_real_models_on_the_cpu():
+    text, eng = _printed(_load("serve_cluster_torch").serve_real_batched, True, device="cpu")
+    lines = text.strip().splitlines()
+    assert "cpu" in lines[0] and eng.device.type == "cpu"
+    assert any("failing worker" in ln for ln in lines) and any("worker 99" in ln for ln in lines)
+    s = eng.summary()
+    assert s["n"] == 8 and 0.0 < s["cold_rate"] < 1.0
+    assert 99 in eng.workers
+
+
+def test_serve_cluster_real_models_has_no_silent_cpu_fallback(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _load("serve_cluster_torch").serve_real_batched(True)

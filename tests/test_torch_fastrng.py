@@ -8,6 +8,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 
 from repro.core import fastrng as ref_fastrng
 from repro.core import trace as ref_trace

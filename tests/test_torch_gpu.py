@@ -10,6 +10,7 @@ JAX package, so it also runs where only PyTorch is installed:
 
 import numpy as np
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 import torch
 
 from repro_torch.core import sched as T

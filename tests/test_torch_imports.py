@@ -9,6 +9,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]

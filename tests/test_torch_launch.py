@@ -6,6 +6,7 @@ differ and are not compared."""
 import re
 
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 import torch
 
 from repro.launch import serve as jax_serve

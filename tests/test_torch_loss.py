@@ -8,6 +8,7 @@ rtol=1e-3``, the tolerance of ``test_torch_models_smoke.py``."""
 import jax
 import numpy as np
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 import torch
 
 from repro_torch.configs import ARCH_IDS
@@ -23,7 +24,7 @@ TOL = dict(atol=1e-4, rtol=1e-3)
 def test_loss_and_grads_match_jax(arch):
     jmodel, jparams, tmodel, tparams = _models(arch)
     jb, tb = _batch(tmodel.cfg, 2, 32)
-    (jloss, jmetrics), jgrads = jax.value_and_grad(jmodel.loss, has_aux=True)(jparams, jb)
+    (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))(jparams, jb)
     loss, metrics, grads = loss_and_grads(tmodel, tparams, tb)
     assert set(metrics) == set(jmetrics)
     np.testing.assert_allclose(loss.numpy(), np.asarray(jloss), **TOL)

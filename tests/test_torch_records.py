@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 from hypothesis import given, settings
 from hypothesis import strategies as st
 

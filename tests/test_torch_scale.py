@@ -3,6 +3,7 @@
 stream and assignment trace byte for byte the reference simulator's."""
 
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 
 from repro.core import SimConfig as RefSimConfig
 from repro.core import Simulator as RefSimulator

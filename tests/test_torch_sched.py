@@ -7,6 +7,7 @@ The CUDA kernel's tests are in test_torch_gpu.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 import torch
 
 from repro.core import jax_sched as J

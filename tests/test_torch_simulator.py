@@ -15,6 +15,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 
 from legacy import SimConfig as LegacySimConfig
 from legacy import Simulator as LegacySimulator

@@ -5,6 +5,7 @@ the wrapper's padding.  The CUDA kernel's tests are in test_torch_gpu.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 import torch
 
 from repro.kernels import ref as jref

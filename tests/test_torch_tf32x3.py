@@ -11,6 +11,7 @@ misses them, so the split is needed.  Inputs come from numpy seeds.
 
 import numpy as np
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 import torch
 
 from repro_torch.kernels import ref

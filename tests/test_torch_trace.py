@@ -6,6 +6,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 
 from repro.core import trace as ref
 from repro_torch.core import trace

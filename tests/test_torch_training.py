@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_test_threads  # noqa: F401  (shares the cores among test workers)
 import torch
 
 from repro.configs import get_config as jax_get_config
@@ -218,7 +219,7 @@ def test_train_step_matches_jax(arch, extra):
     jmodel = jax_build_model(jcfg, remat=False)
     jparams, _ = unzip(jmodel.init(jax.random.key(0)))
     kw = dict(lr=1e-3, warmup_steps=2, total_steps=20, schedule="wsd")
-    jstep = jax_make_train_step(jmodel, opt_cfg=JOptConfig(**kw))
+    jstep = jax.jit(jax_make_train_step(jmodel, opt_cfg=JOptConfig(**kw)))
     data = MarkovLM(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=0))
     jparams, jstate, _ = jstep(jparams, jax_init_opt_state(jparams),
                                {"tokens": jnp.asarray(data.batch_at(0)["tokens"])})
