@@ -338,6 +338,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -512,6 +513,14 @@ def peak_ops(torch, dtype) -> float:
     return PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else PEAK_F32_TC_OPS_PER_S
 
 
+def kcounts():
+    """``repro_torch.kernels.counts``, each kernel's bytes and operations
+    (importable once ``main`` has put the checkout's ``src`` on the path)."""
+    from repro_torch.kernels import counts
+
+    return counts
+
+
 def max_abs(a, b) -> float:
     return float((a.float().cpu() - b.float().cpu()).abs().max()) if a.numel() else 0.0
 
@@ -552,37 +561,6 @@ def ssd_inputs(torch, B, S, H=24, P=64, N=128, seed=0, G=1):
     return [t.to(DEVICE) for t in (x, dt, A, Bm, Cm)]
 
 
-def ssd_counts(B, S, H, P, N, Q, elem):
-    """Bytes each input read once / output written once, and float32
-    operations counted once (C.B^T shared by the heads, ngroups=1)."""
-    Sp = -(-S // Q) * Q
-    nc = Sp // Q
-    tri = Q * (Q + 1) // 2
-    ops = B * nc * (2 * tri * N + H * (2 * tri * P + 4 * Q * N * P))
-    nbytes = (2 * B * S * H * P * elem + 2 * B * S * N * elem + B * S * H * 4 + H * 4
-              + B * H * P * N * 4)
-    return nbytes, ops
-
-
-def ssd_bwd_counts(B, S, H, P, N, G, Q, elem, d_final=False):
-    """The gradient's least work, counted once: x, dy, B, C, dt, A read with
-    the forward's scratch the backward starts from (the chunk cumsums, the
-    states entering the chunks, C.B^T on and below the diagonal) and
-    d_final_state where given; dx, dB, dC, ddt, dA and d_init_state written.
-    Operations, per chunk: each head's dh = exp(cs) dy^T C, its carried dC
-    = exp(cs) dy h, G B^T (dx's state term and dw), dB's state term w x^T G
-    (each Q P N), D = dy x^T and dx's quadratic term (each Q(Q+1)/2 P); each
-    group's dC and dB from dCB (each Q(Q+1)/2 N); two operations each."""
-    Sp = -(-S // Q) * Q
-    nc = Sp // Q
-    tri = Q * (Q + 1) // 2
-    ops = 2 * B * nc * (H * (4 * Q * P * N + 2 * tri * P) + G * 2 * tri * N)
-    nbytes = (3 * B * Sp * H * P * elem + 4 * B * Sp * G * N * elem + 2 * B * Sp * H * 4
-              + 2 * H * 4 + B * nc * H * (Q + N * P) * 4 + B * nc * G * tri * 4
-              + (2 if d_final else 1) * B * H * P * N * 4)
-    return nbytes, ops
-
-
 def chain_bound(np, kinds, t_arr, t_step):
     """The serial-chain bound (ms) of one burst: every ARRIVAL is one
     dependent step of ``t_arr``; the FINISH/EVICT events between two ARRIVALs
@@ -593,14 +571,6 @@ def chain_bound(np, kinds, t_arr, t_step):
     prev = np.concatenate([[0], arr[:-1] + 1])
     runs = int((upd[arr] > upd[prev]).sum())
     return len(arr) * t_arr + runs * t_step, len(arr), runs
-
-
-def sched_counts(kinds, F, W):
-    """Bytes (events read, idle/conns read and written, outputs written) and
-    operations (two compares per worker per ARRIVAL of this run's data)."""
-    R = len(kinds)
-    nbytes = 3 * R * 4 + 2 * F * W * 4 + 2 * W * 4 + 2 * R * 4
-    return nbytes, 2 * W * int((kinds == 0).sum())
 
 
 # ------------------------------------------------------------------ phases
@@ -672,7 +642,7 @@ def sched_kernels(torch, np, ops, ref, probe=None):
                 fail(f"{name} R={R} differs from its plain version (max abs {err})")
             ms = time_cuda(torch, kern, reps=5, calls=10)
             k = kinds.cpu().numpy()
-            nbytes, nops = sched_counts(k, F, W)
+            nbytes, nops = kcounts().sched_counts(k, F, W)
             line = (f"[kernels] {name} R={R} F={F} W={W}: bitwise equal; {ms:.4f} ms "
                     f"({ms * 1e6 / R:.1f} ns/event)")
             if probe is not None:
@@ -751,7 +721,7 @@ def phase_kernels(torch, np, build, ops, ref, rows):
     # inputs, so they sit in L2; the wrapper's host overhead is not counted
     ms = time_graph(torch, [lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)] * 10)
     plain_ms = time_graph(torch, [lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q)] * 3)
-    nbytes, nops = ssd_counts(1, 1024, H, P, N, Q, 4)
+    nbytes, nops = kcounts().ssd_counts(1, 1024, H, P, N, Q, 4)
     b_ms, b_by = bound(nbytes, nops)
     rows["ssd_scan"] = dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -799,7 +769,7 @@ def ssd_row(torch, ops, ref, B, H, P, N, Q, label):
     err = max(max_abs(y, yr), max_abs(st, sr))
     ms = time_graph(torch, [lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)] * 10)
     plain_ms = time_graph(torch, [lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q)] * 3)
-    nbytes, nops = ssd_counts(B, 1024, H, P, N, Q, 4)
+    nbytes, nops = kcounts().ssd_counts(B, 1024, H, P, N, Q, 4)
     b_ms, b_by = bound(nbytes, nops)
     log(f"[kernels] ssd_scan {label} B={B} S=1024 H={H} P={P} N={N} Q={Q} f32: max abs err "
         f"{err:.3e} (atol 1e-4, rtol 1e-3); {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -846,7 +816,8 @@ def ssd_bwd_row(torch, ops, ref, label, shape, dtype, G=1, seed=0, state=False):
         err = max(err, max_abs(a, w))
     ms = time_cuda(torch, lambda: ops.ssd_scan_bwd(*args, saved), 5, calls=10)
     plain_ms = time_cuda(torch, lambda: ref.ssd_scan_bwd_ref(*args), 3, calls=3)
-    nbytes, nops = ssd_bwd_counts(B, S, H, P, N, G, Q, x.element_size(), dfin is not None)
+    nbytes, nops = kcounts().ssd_bwd_counts(B, S, H, P, N, G, Q, x.element_size(),
+                                            dfin is not None)
     b_ms, b_by = bound(nbytes, nops, peak_ops(torch, dtype))
     log(f"[kernels] ssd_scan_bwd {label} B={B} S={S} H={H} P={P} N={N} G={G} Q={Q} "
         f"{str(dtype)[6:]}{' init and final state' if state else ''}: max abs err {err:.3e} "
@@ -859,36 +830,6 @@ def ssd_bwd_row(torch, ops, ref, label, shape, dtype, G=1, seed=0, state=False):
 def attn_inputs(torch, shapes, seed):
     g = torch.Generator(device="cpu").manual_seed(seed)
     return [torch.randn(*sh, generator=g).to(DEVICE) for sh in shapes]
-
-
-def live_pairs(S, causal, window, Sk=None):
-    """(query, key) pairs the masks leave live in one head, for S queries
-    over Sk keys (S unless given; with Sk != S there is no mask)."""
-    Sk = Sk or S
-    n = 0
-    for i in range(S):
-        lo = max(0, i - window + 1) if window else 0
-        n += (i if causal else Sk - 1) - lo + 1
-    return n
-
-
-def flash_counts(B, S, H, KH, hd, causal, window, elem, hd_v=None, Sk=None):
-    """q, k, v read once and out written once; 2*hd + 2*hd_v operations (q.k
-    and p*v) per live pair (hd_v: v's head dim, hd unless given; Sk: the
-    keys' length, S unless given)."""
-    hd_v, Sk = hd_v or hd, Sk or S
-    nbytes = (B * S * H * (hd + hd_v) + B * Sk * KH * (hd + hd_v)) * elem
-    return nbytes, 2 * (hd + hd_v) * B * H * live_pairs(S, causal, window, Sk)
-
-
-def decode_counts(S, H, KH, hd, lengths, window, q_elem, cache_elem):
-    """q and out at q's element size, and the live K/V rows only (the kernel
-    reads no other) at the cache's, for one length a batch row; operations
-    4*hd per query head and live row."""
-    n_live = sum(max(0, min(n, S - 1) - (max(0, n - window + 1) if window else 0) + 1)
-                 for n in lengths)
-    B = len(lengths)
-    return 2 * B * H * hd * q_elem + 2 * n_live * KH * hd * cache_elem, 4 * hd * H * n_live
 
 
 def check_close(torch, name, got, want, dtype):
@@ -1062,7 +1003,8 @@ def flash_row(torch, ops, ref, label, shape, window, dtype, hd_v=None, causal=Tr
     ms = time_graph(torch, [lambda: ops.flash_attention(q, k, v, causal, window)] * 10)
     plain_ms = time_graph(torch, [lambda: ref.flash_attention_ref(q, k, v, causal, window)] * 3)
     lib_ms = time_graph(torch, [lib] * 10)
-    nbytes, nops = flash_counts(B, S, H, KH, hd, causal, window, q.element_size(), hd_v, Sk)
+    nbytes, nops = kcounts().flash_counts(B, S, H, KH, hd, causal, window, q.element_size(),
+                                          hd_v, Sk)
     b_ms, b_by = bound(nbytes, nops, peak_ops(torch, dtype))
     log(f"[kernels] flash_attention {label} B={B} S={S} {f'Sk={Sk} ' if Sk != S else ''}H={H} "
         f"KH={KH} hd={hd} {f'hd_v={hd_v} (v strided) ' if hd_v else ''}"
@@ -1099,7 +1041,7 @@ def decode_timing(torch, ops, ref, rows):
                                       for kv in caches])
         lib_ms = time_graph(torch, [lambda kv=kv: F.scaled_dot_product_attention(
             qt, *kv, enable_gqa=True) for kv in live])
-        nbytes, nops = decode_counts(S, H, KH, hd, [valid] * B, window, 4, 4)
+        nbytes, nops = kcounts().decode_counts(S, H, KH, hd, [valid] * B, window, 4, 4)
         b_ms, b_by = bound(nbytes, nops)
         log(f"[kernels] decode_attention {label} cache {S} H={H} KH={KH} hd={hd} "
             f"valid_len={valid} window={window} f32, {n} caches in turn: {ms:.4f} ms, plain "
@@ -1202,7 +1144,7 @@ def decode_row(torch, ops, ref, label, shape, lengths, window, q_dtype, cache_dt
                                   for kv in caches])
     lib_ms = time_graph(torch, [lambda kv=kv: F.scaled_dot_product_attention(
         qt, *kv, attn_mask=mask, enable_gqa=True) for kv in lib_kv])
-    nbytes, nops = decode_counts(S, H, KH, hd, lengths, window, q.element_size(),
+    nbytes, nops = kcounts().decode_counts(S, H, KH, hd, lengths, window, q.element_size(),
                                  caches[0][0].element_size())
     b_ms, b_by = bound(nbytes, nops, peak_ops(torch, q_dtype))
     log(f"[kernels] decode_attention {label} B={B} cache {S} H={H} KH={KH} hd={hd} lengths "
@@ -1212,16 +1154,6 @@ def decode_row(torch, ops, ref, label, shape, lengths, window, q_dtype, cache_dt
         f"{b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {nops / 1e6:.2f} MFLOP)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, key=ops.shape_key(q, *caches[0], window))
-
-
-def latent_counts(H, dc, dr, lengths, S, q_elem, cache_elem):
-    """The latent decode's bytes (q_lat, q_rope and out at q's element size,
-    the live c and r rows once at the cache's) and operations (2 x (dc + dr)
-    for the score and 2 x dc for the value, per head and live row)."""
-    n_live = sum(min(n, S - 1) + 1 for n in lengths)
-    B = len(lengths)
-    nbytes = B * H * (2 * dc + dr) * q_elem + n_live * (dc + dr) * cache_elem
-    return nbytes, 2 * H * (2 * dc + dr) * n_live
 
 
 def latent_row(torch, ops, ref, label, B, S, lengths, q_dtype, cache_dtype, seed, n=8):
@@ -1263,7 +1195,7 @@ def latent_row(torch, ops, ref, label, B, S, lengths, q_dtype, cache_dtype, seed
     plain_ms = time_graph(torch, [lambda kv=kv: ref.decode_attention_latent_ref(
         q_lat, q_rope, *kv, valid, scale) for kv in caches])
     lib_ms = time_graph(torch, [lambda kv=kv: lib(kv) for kv in lib_kv])
-    nbytes, nops = latent_counts(H, dc, dr, lengths, S, q_lat.element_size(),
+    nbytes, nops = kcounts().latent_counts(H, dc, dr, lengths, S, q_lat.element_size(),
                                  caches[0][0].element_size())
     b_ms, b_by = bound(nbytes, nops, peak_ops(torch, q_dtype))
     log(f"[kernels] decode_attention_latent {label} B={B} cache {S} H={H} latent {dc}+{dr} "
@@ -2485,19 +2417,6 @@ def whisper_audio(torch, np, Model, frontends, inst, label):
     return n_prefill, n_steps
 
 # ------------------------------------------------------------------ training
-def flash_bwd_counts(B, S, H, KH, hd, causal, window, elem, Sk=None, hd_v=None):
-    """q, k, v, out and dout read once with the forward's lse, dq, dk and dv
-    written once; five products per live pair (the scores again, since P
-    is not kept, and dq and dk: 2*hd operations each; dO.v and dv: 2*hd_v
-    each): the least work of the gradient.  Returns (bytes, operations, the
-    kernel's operations: seven products, q.k and dO.v twice)."""
-    Sk, hd_v = Sk or S, hd_v or hd
-    nbytes = ((2 * hd + 2 * hd_v) * B * S * H + 2 * (hd + hd_v) * B * Sk * KH) * elem \
-        + B * H * S * 4
-    pairs = B * H * live_pairs(S, causal, window, Sk)
-    return nbytes, 2 * (3 * hd + 2 * hd_v) * pairs, 2 * (4 * hd + 3 * hd_v) * pairs
-
-
 def sdpa_call(torch, q, k, v, causal, window):
     """One ``scaled_dot_product_attention`` call computing ``flash_attention``
     on (B, S, heads, hd) tensors (transposed to its (B, heads, S, hd)): the
@@ -2576,7 +2495,7 @@ def flash_bwd_row(torch, ops, ref, label, shape, dtype, causal=True, window=None
         lib_ms = time_cuda(torch, lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
                            5, calls=10)
         lib_note = f"sdpa backward {lib_ms:.4f} ms (max abs diff {lib_err:.2e})"
-    nbytes, nops, kernel_ops = flash_bwd_counts(B, S, H, KH, hd, causal, window,
+    nbytes, nops, kernel_ops = kcounts().flash_bwd_counts(B, S, H, KH, hd, causal, window,
                                                 q.element_size(), hd_v=hd_v)
     b_ms, b_by = bound(nbytes, nops, peak_ops(torch, dtype))
     log(f"[kernels] flash_attention_bwd {label} B={B} S={S} H={H} KH={KH} hd={hd} "
@@ -2618,7 +2537,7 @@ def flash_lse_row(torch, ops, ref, label, shape, dtype, window=None, hd_v=None):
     plain_ms = time_graph(torch, [lambda: (ref.flash_attention_ref(q, k, v, True, window),
                                            ref.flash_attention_lse_ref(q, k, True, window))] * 3)
     lib_ms = time_graph(torch, [sdpa_call(torch, q, k, v, True, window)] * 10)
-    nbytes, nops = flash_counts(B, S, H, KH, hd, True, window, q.element_size(), hd_v)
+    nbytes, nops = kcounts().flash_counts(B, S, H, KH, hd, True, window, q.element_size(), hd_v)
     nbytes += B * H * S * 4
     b_ms, b_by = bound(nbytes, nops, peak_ops(torch, dtype))
     log(f"[kernels] flash_attention {label} B={B} S={S} H={H} KH={KH} hd={hd} "
@@ -2714,7 +2633,8 @@ def phase_train(torch, np, ops, ref, cfg, Model, training, data, counted, path_s
     grad_norm the steps report and the loss after them; (3) the main path,
     counted as ``path``: TRAIN_STEPS steps on that batch, the loss falling,
     each kernel's launches counted by shape; then one step traced.  Returns
-    (losses, ms a step)."""
+    (losses, ms a step, the step's bound operations, the main path's peak
+    device memory in GiB)."""
     tag = f"[{path}]"
     model = Model(cfg, device=DEVICE, remat=True)
     params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
@@ -2852,7 +2772,7 @@ def phase_train(torch, np, ops, ref, cfg, Model, training, data, counted, path_s
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB (parameters "
         f"{n_params * 4 / 2**30:.1f} GiB, moments twice that)")
     trace_train_step(torch, lambda: step(params, opt, batch), tag)
-    return losses, ms
+    return losses, ms, n_ops, peak
 
 
 def train_launches(torch, ops, cfg, steps=TRAIN_STEPS):
@@ -2904,8 +2824,8 @@ def train_attn_ops(torch, ops, cfg):
     KH, hd_v = k.shape[2], v.shape[-1]
     total = 0
     for window, n_remat, n_once in _train_attn_layers(cfg):
-        fwd = flash_counts(B, S, H, KH, hd, True, window, 4, hd_v)[1]
-        bwd = flash_bwd_counts(B, S, H, KH, hd, True, window, 4, hd_v=hd_v)[1]
+        fwd = kcounts().flash_counts(B, S, H, KH, hd, True, window, 4, hd_v)[1]
+        bwd = kcounts().flash_bwd_counts(B, S, H, KH, hd, True, window, 4, hd_v=hd_v)[1]
         total += (2 * n_remat + n_once) * fwd + (n_remat + n_once) * bwd
     return total
 
@@ -3231,6 +3151,98 @@ def phase_ep(torch, get_config, moe):
         f"float32 contributions over \"model\": {out['combine_ms']:.2f} ms a layer, gloo staging "
         f"through the host (not an NCCL or NVLink figure)")
     return out
+
+
+# ------------------------------------------------------------------ dry run
+DRYRUN_CELLS = (  # (arch, shape, --mesh-shape or None for the production 16 x 16 mesh)
+    ("mamba2-130m", "decode_32k", "4x4"),  # the reference's CI cell
+    ("mamba2-130m", "train_4k", None),
+    ("mixtral-8x22b", "prefill_32k", None),
+)
+DRYRUN_TIMEOUT_S = 600  # one cell's process
+DRYRUN_OUT = ROOT / "benchmarks" / "results" / "local" / "dryrun_torch"
+DRYRUN_RATIO = (0.5, 2.0)  # the train_mamba accounting against the card's figures
+
+
+def phase_dryrun(torch, get_config, Model, training, mamba_train):
+    """(a) ``python -m repro_torch.launch.dryrun`` for each of DRYRUN_CELLS
+    in a process of its own (it opens a fake world of the mesh's size), all
+    started together, on a "cuda" mesh: each must exit 0; prints its
+    roofline terms and trace seconds.  (b) In this process, the accounting of the step that
+    ``train_mamba`` timed (mamba2-130m whole, float32, ``remat``, AdamW,
+    TRAIN_BATCH x TRAIN_SEQ tokens, no mesh) on fake tensors on the card:
+    its ``ssd_scan`` and ``ssd_scan_bwd`` twin calls must equal the
+    launches the card counted for one step (48 and 24); its FLOPs beside
+    the phase's bound operations and its peak live bytes beside the
+    phase's ``max_memory_allocated``, each ratio within DRYRUN_RATIO."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.specs import abstract_params
+    from repro_torch.utils.comms import Accounting
+
+    out = DRYRUN_OUT
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    runs = []  # one process a cell, all started together
+    for arch, shape, mesh_shape in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", "single", "--out", str(out), "--force"]
+        cmd += ["--mesh-shape", mesh_shape] if mesh_shape else []
+        runs.append(subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True))
+    try:
+        logs = [r.communicate(timeout=DRYRUN_TIMEOUT_S)[0] for r in runs]
+    finally:
+        for r in runs:
+            if r.poll() is None:
+                r.kill()
+                r.wait()
+    for (arch, shape, _), r, text in zip(DRYRUN_CELLS, runs, logs):
+        if r.returncode != 0:
+            fail(f"dry run of {arch} {shape}: rc {r.returncode}\n{text[-3000:]}")
+        cell = json.loads((out / f"{arch.replace('-', '_')}__{shape}__single.json").read_text())
+        rl = cell["roofline"]
+        log(f"[dryrun] {arch} {shape} on {cell['mesh_shape']} ({cell['n_chips']} ranks, plan "
+            f"{cell['plan']}, {cell['device']} mesh): trace {cell['trace_s']} s; per device "
+            f"{cell['cost_analysis']['flops']:.4e} FLOP, args {cell['arg_bytes_per_device']} B, "
+            f"outs {cell['out_bytes_per_device']} B, peak "
+            f"{cell['memory_analysis']['peak_size_in_bytes']} B; terms (data-sheet constants) "
+            f"compute {rl['compute_s']:.4e} s, memory {rl['memory_s']:.4e} s, collective "
+            f"{rl['collective_s']:.4e} s, dominant {rl['dominant']}; collectives "
+            + ", ".join(f"{k} {v['count']}" for k, v in cell["collectives"].items())
+            + f"; census {cell['op_census']}")
+    log(f"[dryrun] the {len(runs)} cells' processes together {time.perf_counter() - t0:.1f} s")
+
+    cfg = full_width(get_config, "mamba2_130m", FULL_WIDTH)
+    model = Model(cfg, device=DEVICE, remat=True)
+    meta, _ = abstract_params(model, max_seq=TRAIN_SEQ)
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        params = training.optimizer.tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, device=DEVICE), meta)
+        opt = training.init_opt_state(params)
+        batch = {"tokens": torch.empty(TRAIN_BATCH, TRAIN_SEQ, dtype=torch.int32,
+                                       device=DEVICE)}
+        acc = Accounting()
+        acc.track((params, opt, batch))
+        with acc:
+            training.make_train_step(model, opt_cfg=training.OptConfig(lr=TRAIN_LR))(
+                params, opt, batch)
+    _, step_ms, n_ops, peak_gib = mamba_train
+    want = {"ssd_scan": 2 * cfg.n_layers, "ssd_scan_bwd": cfg.n_layers}
+    got = {k: acc.census[k] for k in want}
+    r_flops, r_peak = acc.flops / n_ops, acc.peak_bytes / 2**30 / peak_gib
+    log(f"[dryrun] train_mamba's step accounted on fake tensors on the card in "
+        f"{time.perf_counter() - t0:.1f} s: twin calls {got} (the card launched {want} a step); "
+        f"{acc.flops / 1e12:.4f} TFLOP against the phase's bound {n_ops / 1e12:.4f} (ratio "
+        f"{r_flops:.3f}); peak live {acc.peak_bytes / 2**30:.3f} GiB against the phase's "
+        f"max_memory_allocated {peak_gib:.3f} GiB (ratio {r_peak:.3f}); the step {step_ms:.1f} ms")
+    if got != want:
+        fail(f"dry run: train_mamba's step made twin calls {got}, the card launched {want}")
+    lo, hi = DRYRUN_RATIO
+    if not (lo <= r_flops <= hi and lo <= r_peak <= hi):
+        fail(f"dry run: train_mamba's FLOP ratio {r_flops:.3f} or peak ratio {r_peak:.3f} "
+             f"outside [{lo}, {hi}]")
 
 
 def _to_cpu(tree):
@@ -3614,9 +3626,10 @@ def main(argv=None) -> int:
             xcfg, n_layers=MLA_TRAIN_LAYERS,
             moe=dataclasses.replace(xcfg.moe, n_experts=MLA_TRAIN_EXPERTS,
                                     n_dense_layers=MLA_TRAIN_LAYERS - 1))))
+    trained = {}
     for path, cfg in train_paths:
-        phase_train(torch, np, ops, ref, cfg, Model, training, train_data, counted, path_shapes,
-                    path)
+        trained[path] = phase_train(torch, np, ops, ref, cfg, Model, training, train_data,
+                                    counted, path_shapes, path)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3627,6 +3640,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_ep(torch, get_config, moe)
+    phase_dryrun(torch, get_config, Model, training, trained["train_mamba"])
 
     # each row of the kernels line, and the launches of the path its shape is
     # on: a ``batch`` or ``whisper_*`` row's are those at its own shape

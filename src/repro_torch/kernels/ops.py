@@ -28,6 +28,25 @@ Pallas kernels cast each tile to float32: the combinations a kernel is
 instantiated for run as they are, any other is cast to float32 first and
 the output cast back to q's (or x's) dtype, which is the Pallas kernels'
 arithmetic exactly.
+
+Twins.  On tensors that hold no data (the ``meta`` device, or fake tensors
+under ``FakeTensorMode``), on whatever device they claim, each wrapper is
+its kernel's twin: it makes the checks the card's path makes (dtypes, head
+dims, shapes, layout; not the storage's alignment, which such a tensor
+lacks), returns empty outputs of the kernel's shapes and dtypes (under
+autograd through the same ``autograd.Function``s, whose backwards reach the
+backward twins), adds the kernel's least work (``kernels/counts.py``) to the
+active accounting (``counts.account``: the dry run's), and counts nothing in
+``LAUNCHES`` or ``SHAPE_LAUNCHES``.  Where a twin's work depends on data it
+cannot read (a decode's ``valid_len`` as a tensor, a burst's kinds), it
+counts the most: every cache row, every event an ARRIVAL.
+
+Sharded inputs.  The model kernels take ``DTensor``s too: sharded only on
+the batch dim over the data axes ("pod", "data") and on the head dim over
+"model" (where each rank then holds whole GQA query groups, or SSM head
+groups), each rank runs the wrapper on its local shards
+(``torch.distributed.tensor.experimental.local_map``); any other placement
+is first redistributed to those.
 """
 
 from __future__ import annotations
@@ -38,7 +57,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import build, ref
+from ..sharding.ctx import model_size, on_local_shards, sharded
+from . import build, counts, ref
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"sched_events": 0, "sched_step": 0, "ssd_scan": 0,
@@ -81,6 +101,12 @@ DECODE_CTAS_PER_SM = 4
 DECODE_SHARE_ROWS = 16
 DECODE_MERGE_FLOATS = 16384
 DECODE_MAX_SPLITS = 1024
+
+#: the longest ``ssd_scan`` chunk and the most query heads a kv head that
+#: the kernels take (``csrc/ssd_scan.cu``'s ``kMaxQ``,
+#: ``csrc/decode_attention.cu``'s ``kMaxG``), for the twins' checks
+SSD_MAX_CHUNK = 1024
+DECODE_MAX_GROUP = 32
 
 #: input dtypes the model kernels' wrappers take
 FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float8_e4m3fn,
@@ -139,6 +165,19 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     return True
 
 
+def _abstract(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether any of ``tensors`` holds no data: on ``meta``, or fake."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return any(t is not None and (t.device.type == "meta" or is_fake(t)) for t in tensors)
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Whether the storage of each of ``tensors`` is 16-byte aligned (a twin's
+    tensors have none to check)."""
+    return _abstract(*tensors) or not any(t.data_ptr() % 16 for t in tensors)
+
+
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...]) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -179,7 +218,9 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _sched_launch(kinds, funcs, workers, idle, conns, arrival_only: bool):
+def _sched_checks(kinds, funcs, workers, idle, conns) -> int:
+    """The burst's shapes, dtypes and strides; returns the event columns'
+    element stride."""
     R = funcs.shape[0]
     F_, W = idle.shape
     if W < 1:
@@ -197,9 +238,32 @@ def _sched_launch(kinds, funcs, workers, idle, conns, arrival_only: bool):
                          f"{[t.stride(0) for t in cols.values()]}")
     _check("idle", idle, torch.int32, (F_, W))
     _check("conns", conns, torch.int32, (W,))
-    idle_out, conns_out = torch.empty_like(idle), torch.empty_like(conns)
+    return stride
+
+
+def _sched_outputs(idle, conns, R: int):
+    """(assign, warm, idle', conns'), empty."""
     assign = torch.empty((R,), dtype=torch.int32, device=idle.device)
     warm = torch.empty((R,), dtype=torch.int32, device=idle.device)
+    return assign, warm, torch.empty_like(idle), torch.empty_like(conns)
+
+
+def _sched_twin(name: str, kinds, funcs, workers, idle, conns):
+    """A burst's twin: every event counted an ARRIVAL (its kinds are not
+    read)."""
+    import numpy as np
+
+    _sched_checks(kinds, funcs, workers, idle, conns)
+    R = funcs.shape[0]
+    counts.account(name, *counts.sched_counts(np.zeros(R, np.int32), *idle.shape))
+    return _sched_outputs(idle, conns, R)
+
+
+def _sched_launch(kinds, funcs, workers, idle, conns, arrival_only: bool):
+    stride = _sched_checks(kinds, funcs, workers, idle, conns)
+    R = funcs.shape[0]
+    F_, W = idle.shape
+    assign, warm, idle_out, conns_out = _sched_outputs(idle, conns, R)
     lib = build.load("sched")
     with torch.cuda.device(idle.device):
         err = lib.sched_events_launch(
@@ -219,6 +283,8 @@ def sched_events(kinds, funcs, workers, idle, conns):
     Precondition: ``idle`` and ``conns`` non-negative, conns below 2**30.
     The event columns may be strided views (the columns of one (R, 3)
     tensor); on the card they must share one element stride."""
+    if _abstract(kinds, funcs, workers, idle, conns):
+        return _sched_twin("sched_events", kinds, funcs, workers, idle, conns)
     if not _on_cuda(kinds, funcs, workers, idle, conns):
         return ref.sched_events_ref(kinds, funcs, workers, idle, conns)
     out = _sched_launch(kinds, funcs, workers, idle, conns, arrival_only=False)
@@ -229,6 +295,8 @@ def sched_events(kinds, funcs, workers, idle, conns):
 def sched_step(funcs, idle, conns):
     """ARRIVAL-only burst.  Returns (assign (R,) int32, warm (R,) int32,
     idle', conns').  Inputs untouched."""
+    if _abstract(funcs, idle, conns):
+        return _sched_twin("sched_step", None, funcs, None, idle, conns)
     if not _on_cuda(funcs, idle, conns):
         a, warm, i2, c2 = ref.sched_step_ref(funcs, idle, conns)
         return a, warm.to(torch.int32), i2, c2
@@ -253,6 +321,14 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tens
     requiring a gradient) the call is ``_SsdScan``, whose backward is
     ``ssd_scan_bwd``; the padding and the casts stay torch operations."""
     _check_floats(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, init_state=init_state)
+    if sharded(x, dt, A, Bm, Cm, init_state):
+        H, G = x.shape[2], Bm.shape[2]
+        n = model_size(x, dt, A, Bm, Cm, init_state)
+        g_dim = 2 if G > 1 else None  # one group: every rank's heads read it whole
+        ts = [x, dt, A, Bm, Cm] + ([init_state] if init_state is not None else [])
+        dims = [(0, 2), (0, 2), (None, 0), (0, g_dim), (0, g_dim), (0, 1)][:len(ts)]
+        return on_local_shards(lambda *loc: ssd_scan(*loc[:5], chunk, *loc[5:]), ts, dims,
+                               [(0, 2), (0, 1)], H % n == 0 and (G == 1 or G % n == 0))
     f32 = torch.float32
     if not (x.dtype in _Q_CODES and Bm.dtype == Cm.dtype == x.dtype and dt.dtype == A.dtype == f32
             and (init_state is None or init_state.dtype == f32)):
@@ -260,11 +336,12 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, init_state: Optional[torch.Tens
                          init_state.float() if init_state is not None else None)
         return y.to(x.dtype), st
     S = x.shape[1]
-    on_cuda = _on_cuda(*(t for t in (x, dt, A, Bm, Cm, init_state) if t is not None))
+    given = [t for t in (x, dt, A, Bm, Cm, init_state) if t is not None]
+    kernel = _abstract(*given) or _on_cuda(*given)  # the card's route, or its twin
     pad = (-S) % chunk
     if pad:
         x, dt, Bm, Cm = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in (x, dt, Bm, Cm))
-    if on_cuda and _wants_grad(x, dt, A, Bm, Cm, init_state):
+    if kernel and _wants_grad(x, dt, A, Bm, Cm, init_state):
         y, st = _SsdScan.apply(x, dt, A, Bm, Cm, chunk, init_state)
     else:
         y, st, _ = _ssd_forward(x, dt, A, Bm, Cm, chunk, init_state, keep=False)
@@ -293,22 +370,28 @@ def _ssd_forward(x, dt, A, Bm, Cm, chunk: int, init_state, keep: bool):
     state, and with ``keep`` the scratch the backward starts from: (scores
     C.B^T (B,nc,G,Q,Q), cumsum (B,nc,H,Q), states (B,nc,H,N,P), the state
     entering each chunk), else None).  On the CPU the plain version, with
-    no scratch."""
-    if not _on_cuda(*(t for t in (x, dt, A, Bm, Cm, init_state) if t is not None)):
+    no scratch; the twin's scratch is empty."""
+    given = [t for t in (x, dt, A, Bm, Cm, init_state) if t is not None]
+    twin = _abstract(*given)
+    if not twin and not _on_cuda(*given):
         y, st = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init_state)
         return y, st, None
     _ssd_checks(x, dt, A, Bm, Cm, chunk, init_state)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    lib = build.load("ssd_scan")
-    if chunk > lib.ssd_scan_max_chunk():
-        raise ValueError(f"ssd_scan kernel takes chunk <= {lib.ssd_scan_max_chunk()}, got {chunk}")
+    lib = None if twin else build.load("ssd_scan")
+    most = SSD_MAX_CHUNK if twin else lib.ssd_scan_max_chunk()
+    if chunk > most:
+        raise ValueError(f"ssd_scan kernel takes chunk <= {most}, got {chunk}")
     nc = S // chunk
     y = torch.empty_like(x)
     st = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     scores = torch.empty((Bsz, nc, G, chunk, chunk), dtype=torch.float32, device=x.device)
     cumsum = torch.empty((Bsz, nc, H, chunk), dtype=torch.float32, device=x.device)
     states = torch.empty((Bsz, nc, H, N, P), dtype=torch.float32, device=x.device)
+    if twin:
+        counts.account("ssd_scan", *counts.ssd_counts(Bsz, S, H, P, N, chunk, x.element_size()))
+        return y, st, ((scores, cumsum, states) if keep else None)
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
@@ -363,7 +446,8 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, chunk: int, init_state, dy, d_final_state, sa
     ``ref.ssd_scan_bwd_ref``, its float32 results cast to the inputs'
     dtypes."""
     tensors = [t for t in (x, dt, A, Bm, Cm, init_state, dy, d_final_state) if t is not None]
-    if not _on_cuda(*tensors):
+    twin = _abstract(*tensors)
+    if not twin and not _on_cuda(*tensors):
         dx, ddt, dA, dB, dC, d_init = ref.ssd_scan_bwd_ref(x, dt, A, Bm, Cm, chunk, init_state, dy,
                                                            d_final_state)
         return dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(Bm.dtype), dC.to(Cm.dtype), \
@@ -386,12 +470,16 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, chunk: int, init_state, dy, d_final_state, sa
     _check("dy", dy, x.dtype, (Bsz, S, H, P))
     if d_final_state is not None:
         _check("d_final_state", d_final_state, torch.float32, (Bsz, H, P, N))
-    lib = build.load("ssd_scan_bwd")
-    work = torch.empty((lib.ssd_scan_bwd_scratch_floats(Bsz, S, H, G, P, N, chunk),),
-                       dtype=torch.float32, device=x.device)
     dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
     ddt, dA = torch.empty_like(dt), torch.empty_like(A)
     d_init = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    if twin:
+        counts.account("ssd_scan_bwd", *counts.ssd_bwd_counts(
+            Bsz, S, H, P, N, G, chunk, x.element_size(), d_final_state is not None))
+        return dx, ddt, dA, dB, dC, d_init
+    lib = build.load("ssd_scan_bwd")
+    work = torch.empty((lib.ssd_scan_bwd_scratch_floats(Bsz, S, H, G, P, N, chunk),),
+                       dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_bwd_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
@@ -460,10 +548,14 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     gradient) the call is ``_FlashAttention``, at every head-dim pair the
     forward takes, k and v read in place as the forward reads them."""
     _check_floats(q=q, k=k, v=v)
+    if sharded(q, k, v):
+        return on_local_shards(lambda *loc: flash_attention(*loc, causal, window, softcap),
+                               [q, k, v], [(0, 2)] * 3, [(0, 2)],
+                               k.shape[2] % model_size(q, k, v) == 0)
     if not (q.dtype in _Q_CODES and k.dtype == v.dtype == q.dtype):
         return flash_attention(q.float(), k.float(), v.float(), causal, window,
                                softcap).to(q.dtype)
-    if not _on_cuda(q, k, v):
+    if not _abstract(q, k, v) and not _on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal, window, softcap)
     if _wants_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window, softcap)
@@ -488,7 +580,7 @@ def _flash_layout(name: str, q, k, v, causal: bool, window: Optional[int]):
     _check("q", q, q.dtype, (B, S, H, hd))
     ldk = _head_stride("k", k, q.dtype, (B, Sk, KH, hd))
     ldv = _head_stride("v", v, q.dtype, (B, Sk, KH, hd_v))
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if not _aligned(q, k, v):
         raise ValueError(f"{name} kernel copies q, k and v 16 bytes at a time: their storage "
                          "must be 16-byte aligned")
     if window is not None and window < 1:
@@ -505,6 +597,10 @@ def _flash_forward(q, k, v, causal: bool, window: Optional[int], softcap: Option
     cap = _softcap_arg(softcap)
     out = torch.empty((B, S, H, hd_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if want_lse else None
+    if _abstract(q, k, v):
+        counts.account("flash_attention", *counts.flash_counts(
+            B, S, H, KH, hd, causal, window, q.element_size(), hd_v, Sk))
+        return out, lse
     lib = build.load("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
@@ -552,7 +648,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     one of ``FLASH_SPLIT_DIMS``.  The kernel runs in three launches (D =
     rowsum(dout * out) into float32 scratch allocated here, dk and dv, dq),
     counted as one.  On the CPU this is ``ref.flash_attention_bwd_ref``."""
-    if not _on_cuda(q, k, v, out, lse, dout):
+    twin = _abstract(q, k, v, out, lse, dout)
+    if not twin and not _on_cuda(q, k, v, out, lse, dout):
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal, window, softcap)
     B, S, H, hd = q.shape
     Sk, KH, hd_v = k.shape[1], k.shape[2], v.shape[-1]
@@ -562,13 +659,17 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     _check("out", out, q.dtype, (B, S, H, hd_v))
     _check("dout", dout, q.dtype, (B, S, H, hd_v))
     _check("lse", lse, torch.float32, (B, H, S))
-    if dout.data_ptr() % 16:
+    if not _aligned(dout):
         raise ValueError("flash_attention_bwd kernel copies dout 16 bytes at a time: its "
                          "storage must be 16-byte aligned")
     cap = _softcap_arg(softcap)
     dq = torch.empty_like(q)
     dk = torch.empty((B, Sk, KH, hd), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, Sk, KH, hd_v), dtype=v.dtype, device=v.device)
+    if twin:
+        counts.account("flash_attention_bwd", *counts.flash_bwd_counts(
+            B, S, H, KH, hd, causal, window, q.element_size(), Sk, hd_v)[:2])
+        return dq, dk, dv
     dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
@@ -705,11 +806,21 @@ def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = Non
     per device (``_decode_tickets``).  Calls on one device share those
     tickets, so they must run on one stream."""
     _check_floats(q=q, k_cache=k_cache, v_cache=v_cache)
+    if sharded(q, k_cache, v_cache, valid_len):
+        ts, dims = [q, k_cache, v_cache], [(0, 1), (0, 2), (0, 2)]
+        if isinstance(valid_len, torch.Tensor):
+            ts.append(valid_len)
+            dims.append((0 if valid_len.ndim else None, None))
+        return on_local_shards(
+            lambda *loc: decode_attention(*loc[:3], loc[3] if len(loc) > 3 else valid_len,
+                                          window, softcap),
+            ts, dims, [(0, 1)], k_cache.shape[2] % model_size(q, k_cache, v_cache) == 0)
     if not (q.dtype in _Q_CODES and k_cache.dtype == v_cache.dtype
             and k_cache.dtype in _CACHE_CODES):
         return decode_attention(q.float(), k_cache.float(), v_cache.float(), valid_len,
                                 window, softcap).to(q.dtype)
-    if not _on_cuda(q, k_cache, v_cache):
+    twin = _abstract(q, k_cache, v_cache)
+    if not twin and not _on_cuda(q, k_cache, v_cache):
         return ref.decode_attention_ref(q, k_cache, v_cache, valid_len, window, softcap)
     if _wants_grad(q, k_cache, v_cache):
         raise _no_backward("decode_attention", "ROADMAP Queue 1 item 8: no train step decodes; "
@@ -718,17 +829,22 @@ def decode_attention(q, k_cache, v_cache, valid_len, window: Optional[int] = Non
     B, S, KH, hd = k_cache.shape
     H = q.shape[1]
     _attn_checks(q, k_cache, v_cache, (B, H, hd), (B, S, KH, hd))
-    if any(t.data_ptr() % 16 for t in (k_cache, v_cache)):
+    if not _aligned(k_cache, v_cache):
         raise ValueError("decode_attention kernel reads the caches 16 bytes at a time: "
                          "their storage must be 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     valid_dev, valid_host = _valid_len_args(valid_len, q, B, S, window)
-    lib = build.load("decode_attention")
+    lib = None if twin else build.load("decode_attention")
     G = H // KH
-    if G > lib.decode_attention_max_group():
-        raise ValueError(f"decode kernel takes at most {lib.decode_attention_max_group()} "
-                         f"query heads per kv head, got {G}")
+    most = DECODE_MAX_GROUP if twin else lib.decode_attention_max_group()
+    if G > most:
+        raise ValueError(f"decode kernel takes at most {most} query heads per kv head, got {G}")
+    if twin:
+        lengths = [S - 1 if valid_dev is not None else valid_host] * B
+        counts.account("decode_attention", *counts.decode_counts(
+            S, H, KH, hd, lengths, window, q.element_size(), k_cache.element_size()))
+        return torch.empty_like(q)
     gb, n_hg, splits = decode_geometry(B, KH, G, hd, k_cache.element_size(), _sm_count(q.device))
     units = B * KH * n_hg
     out = torch.empty_like(q)
@@ -800,11 +916,22 @@ def decode_attention_latent(q_lat, q_rope, c_cache, r_cache, valid_len, scale: f
     each (batch, head group) merges the splits through the tickets that
     ``decode_attention`` uses (one stream per device)."""
     _check_floats(q_lat=q_lat, q_rope=q_rope, c_cache=c_cache, r_cache=r_cache)
+    if sharded(q_lat, q_rope, c_cache, r_cache, valid_len):
+        ts, dims = [q_lat, q_rope, c_cache, r_cache], [(0, 1), (0, 1), (0, None), (0, None)]
+        if isinstance(valid_len, torch.Tensor):
+            ts.append(valid_len)
+            dims.append((0 if valid_len.ndim else None, None))
+        n, H = model_size(*ts), q_lat.shape[1]
+        return on_local_shards(
+            lambda *loc: decode_attention_latent(*loc[:4], loc[4] if len(loc) > 4 else valid_len,
+                                                 scale),
+            ts, dims, [(0, 1)], H % n == 0 and (H // n) % LATENT_F32_HEADS == 0)
     if not (q_lat.dtype in _Q_CODES and q_rope.dtype == q_lat.dtype
             and c_cache.dtype == r_cache.dtype and c_cache.dtype in _LATENT_CACHE_CODES):
         return decode_attention_latent(q_lat.float(), q_rope.float(), c_cache.float(),
                                        r_cache.float(), valid_len, scale).to(q_lat.dtype)
-    if not _on_cuda(q_lat, q_rope, c_cache, r_cache):
+    twin = _abstract(q_lat, q_rope, c_cache, r_cache)
+    if not twin and not _on_cuda(q_lat, q_rope, c_cache, r_cache):
         return ref.decode_attention_latent_ref(q_lat, q_rope, c_cache, r_cache, valid_len, scale)
     if _wants_grad(q_lat, q_rope, c_cache, r_cache):
         raise _no_backward("decode_attention_latent", "ROADMAP Queue 1 item 8: no train step "
@@ -824,12 +951,17 @@ def decode_attention_latent(q_lat, q_rope, c_cache, r_cache, valid_len, scale: f
     _check("r_cache", r_cache, c_cache.dtype, (B, S, dr))
     tensor_cores = q_lat.dtype == c_cache.dtype == torch.bfloat16
     copied = (c_cache, r_cache, q_lat, q_rope) if tensor_cores else (c_cache, r_cache)
-    if any(t.data_ptr() % 16 for t in copied):
+    if not _aligned(*copied):
         raise ValueError("latent decode kernel copies the caches (and bfloat16 q) 16 bytes at "
                          "a time: their storage must be 16-byte aligned")
     if not scale > 0:
         raise ValueError(f"scale must be positive, got {scale}")
     valid_dev, valid_host = _valid_len_args(valid_len, q_lat, B, S, None)
+    if twin:
+        lengths = [S - 1 if valid_dev is not None else valid_host] * B
+        counts.account("decode_attention_latent", *counts.latent_counts(
+            H, dc, dr, lengths, S, q_lat.element_size(), c_cache.element_size()))
+        return torch.empty_like(q_lat)
     lib = build.load("decode_attention")
     heads, _, n_hg, splits = latent_geometry(B, H, S, _sm_count(q_lat.device), tensor_cores)
     units = B * n_hg

@@ -20,12 +20,14 @@ from .. import default_device
 
 AXES = ("data", "model")
 MULTI_POD_AXES = ("pod", "data", "model")
+SHAPE = (16, 16)
+MULTI_POD_SHAPE = (2, 16, 16)
 
 
 def make_production_mesh(*, multi_pod: bool = False):
     from torch.distributed.device_mesh import init_device_mesh
 
-    shape = (2, 16, 16) if multi_pod else (16, 16)
+    shape = MULTI_POD_SHAPE if multi_pod else SHAPE
     return init_device_mesh("cuda", shape, mesh_dim_names=MULTI_POD_AXES if multi_pod else AXES)
 
 

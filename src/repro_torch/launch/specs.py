@@ -1,21 +1,26 @@
 """Abstract inputs and parameters of the (arch x shape) cells (counterpart of
-the JAX package's ``launch/specs.py``, in part).
+the JAX package's ``launch/specs.py``).
 
 The counterpart of ``jax.ShapeDtypeStruct`` / ``jax.eval_shape`` is a tensor
 on the ``meta`` device: its shape and dtype, no allocation.
 ``input_specs(cfg, shape_name)`` gives the abstract inputs each step
 consumes and ``abstract_params(model)`` the abstract parameters with their
-logical axes tree.
+logical axes tree.  ``step_fn_and_specs`` assembles a cell's whole
+(step, arguments, shardings): train, prefill or decode, with the abstract
+parameters, the optimizer state and the caches.
 """
 
 from __future__ import annotations
 
 import os as _os
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from ..configs.base import SHAPES, ModelConfig
+from ..sharding.ctx import mesh_sizes
+from ..sharding.rules import NamedSharding, ShardingPlan, auto_plan, logical_to_mesh, \
+    map_axes, param_shardings
 
 PARAM_DTYPE = torch.bfloat16
 #: KV-cache dtype; REPRO_CACHE_DTYPE=float8_e4m3fn halves the decode memory
@@ -66,3 +71,77 @@ def abstract_params(model, max_seq: int = 4096):
     meta = Model(model.cfg, model.dtype, device="meta", remat=model.remat)
     params = meta.init(torch.Generator().manual_seed(0), max_seq=max_seq)
     return params, meta.param_axes(params)
+
+
+def step_fn_and_specs(
+    cfg: ModelConfig,
+    shape_name: str,
+    mesh,
+    plan: Optional[ShardingPlan] = None,
+    remat: bool = True,
+    level: str = "baseline",
+    hbm_bytes: Optional[int] = None,
+    device="meta",
+):
+    """Returns (fn, args, in_shardings, out_shardings, plan) of one cell on
+    ``mesh``: ``args`` are tensors on the ``meta`` device and the shardings
+    trees of ``sharding.rules.NamedSharding`` of the same structure (a
+    single sharding stands for a whole subtree: the train step's metrics).
+    A train cell takes (params, an ``OptState`` of float32 ``m``/``v`` at the
+    parameters' shardings and a replicated step, batch); prefill (params,
+    batch); decode (params, tokens, the ``CACHE_DTYPE`` cache of ``init_cache``
+    at ``cache_axes``' shardings, a replicated 0-d int32 index).  The plan is
+    ``auto_plan``'s unless given, on a budget of ``hbm_bytes`` (default: an
+    H100's).  ``fn`` is the model's step on ``device``, the device its
+    arguments will be materialised on."""
+    from ..models import build_model
+    from ..models.frontends import AUDIO_MEMORY_T
+    from ..training.optimizer import OptConfig, OptState
+    from ..training.train_step import make_serve_steps, make_train_step
+
+    seq, batch, kind = SHAPES[shape_name]
+    n_model = mesh_sizes(mesh).get("model", 1)
+    plan = plan or auto_plan(cfg, kind, n_model=n_model, batch=batch, level=level,
+                             hbm_bytes=hbm_bytes)
+    model = build_model(cfg, param_dtype=PARAM_DTYPE, device=device, remat=remat)
+    params, axes = abstract_params(model, max_seq=seq)
+    p_shard = param_shardings(mesh, plan, axes, params)
+    repl = NamedSharding(mesh, ())
+
+    batch_sds = input_specs(cfg, shape_name)
+    b_ax = batch_axes(cfg, shape_name)
+    b_shard = {k: logical_to_mesh(mesh, plan.activation_rules, b_ax[k], v.shape)
+               for k, v in batch_sds.items()}
+
+    def cache_shardings(cache):
+        return map_axes(lambda names, t: logical_to_mesh(mesh, plan.activation_rules, names,
+                                                         t.shape), model.cache_axes(), cache)
+
+    if kind == "train":
+        f32 = lambda t: _sds(t.shape, torch.float32)  # noqa: E731
+        opt = OptState(m=map_axes(lambda _, t: f32(t), axes, params),
+                       v=map_axes(lambda _, t: f32(t), axes, params),
+                       step=_sds((), torch.int32))
+        opt_shard = OptState(m=p_shard, v=p_shard, step=repl)
+        fn = make_train_step(model, mesh, plan, opt_cfg=OptConfig(schedule=cfg.lr_schedule))
+        return (fn, (params, opt, batch_sds), (p_shard, opt_shard, b_shard),
+                (p_shard, opt_shard, repl), plan)
+
+    prefill_step, decode_step = make_serve_steps(model, mesh, plan)
+    logits_sh = logical_to_mesh(mesh, plan.activation_rules, ("batch", "vocab"),
+                                (batch, cfg.vocab))
+    meta = build_model(cfg, param_dtype=PARAM_DTYPE, device="meta", remat=remat)
+    if kind == "prefill":
+        # the prefill's cache shapes: one row's prefill on meta, its batch dim widened
+        one = {k: _sds((1, *v.shape[1:]), v.dtype) for k, v in batch_sds.items()}
+        cache = map_axes(lambda names, t: _sds(tuple(batch if n == "cache_batch" else d
+                                                     for n, d in zip(names, t.shape)), t.dtype),
+                         model.cache_axes(), meta.prefill(params, one)[0])
+        return (prefill_step, (params, batch_sds), (p_shard, b_shard),
+                (cache_shardings(cache), logits_sh), plan)
+
+    cache = meta.init_cache(batch, seq, dtype=CACHE_DTYPE, memory_t=AUDIO_MEMORY_T)
+    c_shard = cache_shardings(cache)
+    args = (params, batch_sds["tokens"], cache, _sds((), torch.int32))
+    return (decode_step, args, (p_shard, b_shard["tokens"], c_shard, repl),
+            (logits_sh, c_shard), plan)

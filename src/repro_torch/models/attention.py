@@ -27,6 +27,8 @@ import torch
 
 from ..kernels import ops
 from ..kernels.ref import attn_scale
+from ..sharding.ctx import (hold_grad, merge_heads, model_size, on_local_shards, sharded,
+                             write_rows)
 from .layers import apply_rope, rmsnorm, stacked_normal
 
 GLOBAL_WINDOW = 2**30  # "window" value meaning full attention
@@ -80,10 +82,22 @@ def _kernel_window(window: int) -> Optional[int]:
     return None if window >= GLOBAL_WINDOW else int(window)
 
 
+def _project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhe->bshe")``.  On ``DTensor``s each rank projects its
+    own rows onto its own heads (all of them where they do not split over
+    "model"): ``DTensor``'s own einsum may split the flattened heads where
+    they cannot be unflattened."""
+    if sharded(x, w):
+        return on_local_shards(lambda a, b: torch.einsum("bsd,dhe->bshe", a, b), [x, w],
+                               [(0, None), (None, 1)], [(0, 2)],
+                               w.shape[1] % model_size(x, w) == 0)
+    return torch.einsum("bsd,dhe->bshe", x, w)
+
+
 def _qkv(p, x: torch.Tensor, src: torch.Tensor):
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
-    k = torch.einsum("bsd,dhe->bshe", src, p["wk"])
-    v = torch.einsum("bsd,dhe->bshe", src, p["wv"])
+    q = _project_heads(x, p["wq"])
+    k = _project_heads(src, p["wk"])
+    v = _project_heads(src, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if "q_norm" in p:
@@ -105,7 +119,7 @@ def _out_proj(p, out: torch.Tensor) -> torch.Tensor:
     """``einsum("bshe,hed->bsd")`` as one matmul over (h, e) flattened: the
     einsum copies ``wo`` into (e, h, d) order first, a whole weight a call."""
     H, hd, d = p["wo"].shape
-    y = out.reshape(*out.shape[:2], H * hd) @ p["wo"].reshape(H * hd, d)
+    y = hold_grad(merge_heads(out) @ p["wo"].reshape(H * hd, d))
     return y + p["bo"] if "bo" in p else y
 
 
@@ -195,8 +209,8 @@ def attn_decode(
         q = apply_rope(q, idx_vec[:, None], th)
         k_new = apply_rope(k_new, idx_vec[:, None], th)
     rows, wr = torch.arange(B, device=x.device), idx_vec.clamp(max=S - 1)
-    k_cache[rows, wr] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, wr] = v_new[:, 0].to(v_cache.dtype)
+    write_rows(k_cache, rows, wr, k_new[:, 0])
+    write_rows(v_cache, rows, wr, v_new[:, 0])
     w = window if window is not None else GLOBAL_WINDOW
     kc, vc = (k_cache, v_cache) if x.is_cuda else (k_cache.to(q.dtype), v_cache.to(q.dtype))
     out = ops.decode_attention(q.reshape(B, H, hd).contiguous(), kc, vc, cache_index,
@@ -210,11 +224,11 @@ def _mla_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
     (B,S,rope)): the low-rank projections, rmsnorm on both latents and the
     rotary embedding on the rope dims only."""
     m, H = cfg.mla, cfg.n_heads
-    q = rmsnorm(x @ p["wq_a"], p["q_norm"])
-    q = (q @ p["wq_b"].reshape(m.q_lora_rank, -1)).reshape(*x.shape[:2], H, -1)
+    q = rmsnorm(hold_grad(x @ p["wq_a"]), p["q_norm"])
+    q = hold_grad(q @ p["wq_b"].reshape(m.q_lora_rank, -1)).reshape(*x.shape[:2], H, -1)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    c_kv, k_rope = (x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv, k_rope = hold_grad(x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     c_kv = rmsnorm(c_kv, p["kv_norm"])
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
     return q_nope, q_rope, c_kv, k_rope
@@ -235,13 +249,23 @@ def mla_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor) -> Tuple[torch
     B, S, _ = x.shape
     H = cfg.n_heads
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
-    kv = (c_kv @ p["wkv_b"].reshape(m.kv_lora_rank, -1)).reshape(B, S, H, -1)
+    kv = hold_grad(c_kv @ p["wkv_b"].reshape(m.kv_lora_rank, -1)).reshape(B, S, H, -1)
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     # the kernel's 1/sqrt(hd) of q's head dim nope + rope is _mla_scale(m)
     out = ops.flash_attention(q, k, v, causal=True)
     return _out_proj(p, out), (c_kv, k_rope)
+
+
+def _per_head(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, x, w)`` of x (B, H, .) and w (r, H, .) head by head.  On
+    ``DTensor``s each rank takes its own rows and heads: ``DTensor``'s own
+    einsum may leave the rows split in a way the next product cannot take."""
+    if sharded(x, w):
+        return on_local_shards(lambda a, b: torch.einsum(eq, a, b), [x, w], [(0, 1), (None, 1)],
+                               [(0, 1)], w.shape[1] % model_size(x, w) == 0)
+    return torch.einsum(eq, x, w)
 
 
 def mla_decode(p, x: torch.Tensor, cache: KV, cfg, cache_index) -> Tuple[torch.Tensor, KV]:
@@ -260,12 +284,12 @@ def mla_decode(p, x: torch.Tensor, cache: KV, cfg, cache_index) -> Tuple[torch.T
     cache_index, idx_vec = _positions(cache_index, B, x.device)
     q_nope, q_rope, c_new, r_new = _mla_qkv(p, x, cfg, idx_vec[:, None])
     rows, wr = torch.arange(B, device=x.device), idx_vec.clamp(max=S - 1)
-    c_cache[rows, wr] = c_new[:, 0].to(c_cache.dtype)
-    r_cache[rows, wr] = r_new[:, 0].to(r_cache.dtype)
+    write_rows(c_cache, rows, wr, c_new[:, 0])
+    write_rows(r_cache, rows, wr, r_new[:, 0])
     w_uk, w_uv = p["wkv_b"].split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
-    q_lat = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], w_uk)
+    q_lat = _per_head("bhe,rhe->bhr", q_nope[:, 0], w_uk)
     c, r = (c_cache, r_cache) if x.is_cuda else (c_cache.to(x.dtype), r_cache.to(x.dtype))
     o_lat = ops.decode_attention_latent(q_lat.contiguous(), q_rope[:, 0].contiguous(), c, r,
                                         cache_index, _mla_scale(m))
-    out = torch.einsum("bhr,rhe->bhe", o_lat, w_uv)
+    out = _per_head("bhr,rhe->bhe", o_lat, w_uv)
     return _out_proj(p, out[:, None]), (c_cache, r_cache)

@@ -11,6 +11,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.ctx import hold_grad, reduce_partial, sharded
+
 
 # ------------------------------------------------------------- logical axes
 #: logical axis names of each parameter leaf, by (parent key, leaf key), as
@@ -150,11 +152,11 @@ def init_mlp(cfg, generator: torch.Generator, device, dtype=torch.float32,
 
 def apply_mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
     act = act_fn(cfg.act)
-    up = x @ p["wi_up"]
+    up = hold_grad(x @ p["wi_up"])
     if "bi" in p:
         up = up + p["bi"]
-    h = act(x @ p["wi_gate"]) * up if "wi_gate" in p else act(up)
-    y = h @ p["wo"]
+    h = act(hold_grad(x @ p["wi_gate"])) * up if "wi_gate" in p else act(up)
+    y = hold_grad(h @ p["wo"])
     if "bo" in p:
         y = y + p["bo"]
     return y
@@ -199,17 +201,21 @@ def init_embedding(cfg, generator: torch.Generator, device, dtype=torch.float32)
 
 
 def embed_tokens(p, tokens: torch.Tensor, cfg, dtype) -> torch.Tensor:
-    x = p["tokens"][tokens.long()].to(dtype)
+    table = p["tokens"]
+    if sharded(table):  # a vocab-sharded table: each rank looks up its own rows, then they add
+        x = reduce_partial(F.embedding(tokens.long(), table)).to(dtype)
+    else:
+        x = table[tokens.long()].to(dtype)
     return x * cfg.scale_emb if cfg.scale_emb != 1.0 else x
 
 
 def unembed(p, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.tied_embeddings:
-        logits = x @ p["tokens"].to(x.dtype).T
+        logits = hold_grad(x @ p["tokens"].to(x.dtype).T)
         if cfg.scale_emb != 1.0:  # MiniCPM: 1/scale_emb folded into the tied head
             logits = logits / cfg.scale_emb
     else:
-        logits = x @ p["unembed"].to(x.dtype)
+        logits = hold_grad(x @ p["unembed"].to(x.dtype))
     if cfg.logit_soft_cap:
         c = cfg.logit_soft_cap
         logits = c * torch.tanh(logits / c)

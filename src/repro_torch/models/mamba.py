@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from .. import default_device
 from ..kernels import ops
 from ..sharding import shard
+from ..sharding.ctx import hold_grad, merge_heads, model_size, on_local_shards, sharded
 from .layers import normal_param, rmsnorm
 
 
@@ -132,7 +133,7 @@ def mamba_forward(p, x: torch.Tensor, cfg, init_state: Optional[MambaState] = No
     """Full-sequence Mamba2 block. x: (B, S, d)."""
     s, d_in, H, P, N, G = _dims(cfg)
     B_, S, _ = x.shape
-    z, xBC, dt = _split_proj(cfg, x @ p["in_proj"])
+    z, xBC, dt = _split_proj(cfg, hold_grad(x @ p["in_proj"]))
     prev = init_state.conv if init_state is not None else None
     xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"], prev)
     xs, Bm, Cm = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
@@ -147,9 +148,16 @@ def mamba_forward(p, x: torch.Tensor, cfg, init_state: Optional[MambaState] = No
     y, h = ops.ssd_scan(xs.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous(),
                         chunk=s.chunk, init_state=ssm0)
     y = y + xs * p["D"][None, None, :, None]  # skip connection (D term)
-    y = y.reshape(B_, S, d_in).to(x.dtype)
+    y = merge_heads(y).to(x.dtype)  # (B, S, d_in)
     y = rmsnorm(y * F.silu(z), p["norm"])
-    return y @ p["out_proj"], MambaState(conv_state, h)
+    return hold_grad(y @ p["out_proj"]), MambaState(conv_state, h)
+
+
+def _ssm_step(h, dA, dt, BH, CH, xs, D):
+    """The SSM state's one-token update and the output read from it, per
+    (row, head): (y (B,H,P), h' (B,H,P,N) float32)."""
+    h = h * dA[..., None, None] + torch.einsum("bh,bhn,bhp->bhpn", dt, BH.float(), xs.float())
+    return torch.einsum("bhn,bhpn->bhp", CH.float(), h) + xs * D[None, :, None], h
 
 
 def mamba_decode(p, x: torch.Tensor, cfg, state: MambaState) -> Tuple[torch.Tensor, MambaState]:
@@ -169,10 +177,12 @@ def mamba_decode(p, x: torch.Tensor, cfg, state: MambaState) -> Tuple[torch.Tens
     dt = F.softplus(dt.float() + p["dt_bias"])  # (B,H)
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt * A)
-    h = state.ssm * dA[..., None, None] + torch.einsum(
-        "bh,bhn,bhp->bhpn", dt, BH.float(), xs.float()
-    )
-    y = torch.einsum("bhn,bhpn->bhp", CH.float(), h) + xs * p["D"][None, :, None]
+    args = (state.ssm, dA, dt, BH, CH, xs, p["D"])
+    if sharded(*args):  # each head's update on its own shard (DTensor leaves)
+        y, h = on_local_shards(_ssm_step, args, [(0, 1)] * 6 + [(None, 0)], [(0, 1)] * 2,
+                               H % model_size(*args) == 0)
+    else:
+        y, h = _ssm_step(*args)
     y = y.reshape(B_, d_in).to(x.dtype)
     y = rmsnorm(y * F.silu(z), p["norm"])
     return (y @ p["out_proj"])[:, None, :], MambaState(new_conv, h)

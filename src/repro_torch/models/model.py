@@ -28,6 +28,7 @@ import torch
 
 from .. import default_device
 from ..sharding import shard
+from ..sharding.ctx import hold_grad, reduce_partial, sharded
 from .attention import _positions
 from .layers import (apply_norm, embed_tokens, init_embedding, init_norm, normal_param,
                      param_axes, unembed)
@@ -166,7 +167,7 @@ class Model:
         e_next = torch.cat([x_emb[:, 1:], x_emb[:, -1:]], dim=1)
         hcat = torch.cat([apply_norm(m["norm_h"], h_final, cfg),
                           apply_norm(m["norm_e"], e_next, cfg)], dim=-1)
-        h = hcat @ m["proj"]
+        h = hold_grad(hcat @ m["proj"])
         B, S, _ = h.shape
         positions = torch.arange(S, device=h.device).expand(B, S)
         return block_forward(m["block"], h, cfg, positions, mode="train")[0]
@@ -228,9 +229,9 @@ class Model:
             p_l = _index(layers, i)
             if mode == "train":
                 x = remat_call(self.remat, lambda x, p_l=p_l: x + mamba_forward(
-                    p_l["mamba"], apply_norm(p_l["ln"], x, cfg), cfg)[0], x)
+                    p_l["mamba"], _mamba_in(p_l, x, cfg), cfg)[0], x)
                 continue
-            hn = apply_norm(p_l["ln"], x, cfg)
+            hn = _mamba_in(p_l, x, cfg)
             if mode == "decode":
                 st = MambaState(states["layers"].conv[i], states["layers"].ssm[i])
                 y, new_st = mamba_decode(p_l["mamba"], hn, cfg, st)
@@ -290,7 +291,7 @@ class Model:
         new_states = []
         for e in range(cfg.hybrid.every):
             p_l = _index(pg, e)
-            hn = apply_norm(p_l["ln"], x, cfg)
+            hn = _mamba_in(p_l, x, cfg)
             if mode == "decode":
                 y, st = mamba_decode(p_l["mamba"], hn, cfg,
                                      MambaState(states.conv[e], states.ssm[e]))
@@ -299,7 +300,7 @@ class Model:
             x = x + y
             new_states.append(st)
         inp = torch.cat([x, x_emb], dim=-1) if cfg.hybrid.concat_embedding else x
-        hb = inp @ sb["proj"]
+        hb = hold_grad(inp @ sb["proj"])
         yb, kv, _ = block_forward(sb["block"], hb, cfg, positions, mode=mode, cache=kv,
                                   cache_index=cache_index)
         return x + (yb - hb), new_states, kv  # the block returns hb + delta; add only the delta
@@ -460,12 +461,23 @@ class Model:
         return cfg.n_layers // cfg.hybrid.every if cfg.family == "hybrid" else cfg.n_layers
 
 
+def _mamba_in(p_l, x: torch.Tensor, cfg) -> torch.Tensor:
+    """A Mamba2 layer's normed input, at the activation rules' (batch, seq,
+    embed) placement under a sharding context, as a transformer block's is:
+    else a sharded step may leave the residual stream split over the
+    sequence, which the next projection cannot take."""
+    return shard(apply_norm(p_l["ln"], x, cfg), ("batch", "seq", "embed"))
+
+
 def _xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked mean cross-entropy in float32: (logsumexp - gold logit) over
     the positions where ``mask`` is 1, divided by their count (at least 1)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None])[..., 0]
+    gold = logits.gather(-1, labels[..., None])
+    if sharded(gold):  # over vocab-sharded logits each rank holds its vocab's part: add them
+        gold = reduce_partial(gold)
+    gold = gold[..., 0]
     return ((lse - gold) * mask).sum() / mask.sum().clamp(min=1.0)
 
 

@@ -38,7 +38,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from ..sharding.ctx import get_ctx, mesh_sizes
+from ..sharding.ctx import get_ctx, mesh_sizes, on_local_shards, sharded
 from .layers import act_fn, apply_mlp, init_mlp, stacked_normal
 
 
@@ -169,7 +169,17 @@ def apply_moe(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     ``apply_moe_sharded``."""
     ctx = get_ctx()
     if ctx is not None and ctx[2].get("moe_mode") in ("capacity", "resident"):
+        if sharded(x):  # each rank's own token shard, as apply_moe_sharded takes it
+            return on_local_shards(lambda xl: apply_moe_sharded(p, xl, cfg, ctx), [x],
+                                   [(0, None)], [(0, None), (None, None)], False)
         return apply_moe_sharded(p, x, cfg, ctx)
+    if sharded(x, *_leaves(p)):
+        return _apply_moe_on_shards(p, x, cfg)
+    return _apply_moe_whole(p, x, cfg)
+
+
+def _apply_moe_whole(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``apply_moe`` of plain tensors, unsharded."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -181,6 +191,81 @@ def apply_moe(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     if "shared" in p:
         y = y + apply_mlp(p["shared"], x_flat, cfg)
     return y.reshape(B, S, d), aux
+
+
+_F_DIM = {"wi_gate": 2, "wi_up": 2, "wo": 1}  # each expert weight's FFN dim
+_F_DIM_SHARED = {"wi_gate": 1, "wi_up": 1, "wo": 0}
+
+
+def _leaves(p) -> list:
+    return [t for v in p.values() for t in (v.values() if isinstance(v, dict) else (v,))]
+
+
+def _apply_moe_on_shards(p, x, cfg):
+    """The unsharded dispatch on ``DTensor`` leaves (no EP mode): each rank
+    routes its own tokens (x's batch split over the data axes) to every
+    expert, on its slice of the experts' FFN dim over "model" (the weights
+    redistributed so where they lie otherwise; whole where the dim does not
+    split), the slices' contributions summed through the output's partial
+    placement over "model"; the aux is each rank's tokens', averaged over
+    the data axes (a share of it on each "model" rank, so that the router's
+    gradient, a partial sum over every split axis, counts it once)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(t.device_mesh for t in (x, *_leaves(p)) if isinstance(t, DTensor))
+    names = mesh.mesh_dim_names
+    sizes = mesh_sizes(mesh)
+    data = [a for a in ("pod", "data") if a in sizes]
+    if x.shape[0] % math.prod(sizes[a] for a in data):
+        data = []  # the batch does not split: every rank routes all of it
+    m = cfg.moe
+    split_f = "model" in sizes and all(
+        f % sizes["model"] == 0 for f in (m.expert_dff, m.expert_dff * max(m.n_shared, 1)))
+
+    def pl(bdim=None, fdim=None, model_sum=False, data_avg=False):
+        out = []
+        for a in names:
+            if a in data and bdim is not None:
+                out.append(Shard(bdim))
+            elif a in data and data_avg:
+                out.append(Partial("avg"))
+            elif a == "model" and split_f and fdim is not None:
+                out.append(Shard(fdim))
+            elif a == "model" and split_f and model_sum:
+                out.append(Partial())
+            else:
+                out.append(Replicate())
+        return tuple(out)
+
+    keys = [(k, None) for k in p if k != "shared"] + [("shared", k) for k in p.get("shared", {})]
+    ws = [p[k] if sub is None else p[k][sub] for k, sub in keys]
+    w_pl = [pl(fdim=(_F_DIM.get(k) if sub is None else _F_DIM_SHARED[sub])) for k, sub in keys]
+
+    n_split = sizes["model"] if split_f else 1
+
+    def local(xl, *wl):
+        tree = {}
+        for (k, sub), w in zip(keys, wl):
+            if sub is None:
+                tree[k] = w
+            else:
+                tree.setdefault(k, {})[sub] = w
+        y, aux = _apply_moe_whole(tree, xl, cfg)
+        return y, aux / n_split
+
+    def grads(pls):  # an input replicated over a split axis: a partial gradient
+        split = set(data) | ({"model"} if split_f else set())
+        return tuple(Partial() if a in split and isinstance(q, Replicate) else q
+                     for a, q in zip(names, pls))
+
+    ts = [t if isinstance(t, DTensor) else
+          DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+          for t in (x, *ws)]
+    ins = [pl(bdim=0)] + w_pl
+    return local_map(local, (pl(bdim=0, model_sum=True), pl(model_sum=True, data_avg=True)),
+                     in_placements=ins, in_grad_placements=[grads(q) for q in ins],
+                     device_mesh=mesh, redistribute_inputs=True)(*ts)
 
 
 # ------------------------------------------------------- expert parallelism

@@ -26,6 +26,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
+from ..sharding.ctx import sharded
+
 #: elements of a leaf that ``adamw_update`` updates at a time (64 MB in float32)
 UPDATE_CHUNK = 1 << 24
 
@@ -116,21 +118,39 @@ def adamw_update(grads, state: OptState, params,
     learning rate of ``schedule_lr`` at the new step.  In place: ``params``,
     ``state.m`` and ``state.v`` are updated where they lie and returned
     (a float32 gradient is scaled in place too).  Returns (params, the new
-    OptState, {"grad_norm", "lr"}), with no host sync."""
-    gnorm = global_norm(grads)
+    OptState, {"grad_norm", "lr"}), with no host sync.
+
+    ``DTensor`` leaves (a sharded step's) are updated shard by shard, each
+    rank its own: each gradient is first placed as its parameter is (a
+    partial sum reduced), the global norm is the one reduction over the
+    mesh, and the moments lie at the parameters' placements."""
+    p_leaves, g_leaves = tree_leaves(params), tree_leaves(grads)
+    if sharded(*p_leaves):
+        g_leaves = [g.redistribute(p.device_mesh, p.placements)
+                    if sharded(g) and g.placements != p.placements else g
+                    for p, g in zip(p_leaves, g_leaves)]
+    gnorm = global_norm(g_leaves)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = schedule_lr(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2
     c1 = 1 - b1 ** step.to(torch.float32)
     c2 = 1 - b2 ** step.to(torch.float32)
-    leaves = zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),
-                 tree_leaves(state.v))
-    for p, g, m, v in leaves:
-        g = g.mul_(scale) if g.dtype == torch.float32 else g.float() * scale
+    l_scale, l_c1, l_c2, l_lr = (_local(t) for t in (scale, c1, c2, lr))
+    for p, g, m, v in zip(p_leaves, g_leaves, tree_leaves(state.m), tree_leaves(state.v)):
+        p, g, m, v = (_local(t) for t in (p, g, m, v))
+        g = g.mul_(l_scale) if g.dtype == torch.float32 else g.float() * l_scale
         for part in _slices(p, g, m, v):
-            _adamw_part(*part, b1, b2, c1, c2, lr, cfg)
+            _adamw_part(*part, b1, b2, l_c1, l_c2, l_lr, cfg)
     return params, OptState(state.m, state.v, step), {"grad_norm": gnorm, "lr": lr}
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local shard (a 0-d one whole: a partial sum reduced);
+    a plain tensor as it is."""
+    if not sharded(t):
+        return t
+    return t.full_tensor() if t.ndim == 0 else t.to_local()
 
 
 def _adamw_part(p, g, m, v, b1, b2, c1, c2, lr, cfg: OptConfig) -> None:

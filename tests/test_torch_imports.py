@@ -49,8 +49,11 @@ def test_package_imports_without_triton_or_nvcc(tmp_path):
 
 @pytest.mark.parametrize("module", ["sharding/__init__.py", "sharding/ctx.py", "sharding/rules.py",
                                     "launch/mesh.py", "launch/specs.py", "launch/train.py",
-                                    "training/elastic.py"])
+                                    "training/elastic.py", "launch/dryrun.py",
+                                    "launch/roofline.py", "utils/__init__.py", "utils/comms.py",
+                                    "kernels/counts.py"])
 def test_sharding_and_launch_modules_are_covered(module):
-    """The sharding, launch and elastic modules are among the files checked
-    above (no ``jax``, no ``repro``)."""
+    """The sharding, launch (the dry run and its roofline too), elastic and
+    accounting modules are among the files checked above (no ``jax``, no
+    ``repro``)."""
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES

@@ -174,3 +174,83 @@ def psum_ranks(rank, world, xs):
     from repro_torch.training.compress import compressed_psum
 
     return compressed_psum(torch.from_numpy(np.asarray(xs[rank]))).numpy()
+
+
+def sharded_step_ranks(rank, world, arch, weights, moments, tokens, opt_cfg):
+    """One train step of the reduced ``arch`` (remat on) on a (2, 2)
+    ("data", "model") mesh at the "tp" plan's placements: every parameter
+    and both AdamW moments ``DTensor``s (distributed from the same whole
+    trees on every rank; ``moments`` is (m, v, step)), the batch split over
+    "data".  Returns (loss, [each parameter leaf whole after the step]) as
+    numpy."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, params_from_numpy
+    from repro_torch.sharding import logical_to_mesh, make_plan, param_shardings
+    from repro_torch.sharding.rules import map_axes
+    from repro_torch.training import OptState, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = get_config(arch).reduced()
+    mesh = DeviceMesh("cpu", torch.arange(world).reshape(2, 2), mesh_dim_names=("data", "model"))
+    model = build_model(cfg, device="cpu", remat=True)
+    plan = make_plan("tp")
+    p = params_from_numpy(weights, device="cpu")
+    axes = model.param_axes(p)
+    sh = param_shardings(mesh, plan, axes, p)
+    place = lambda tree: map_axes(  # noqa: E731
+        lambda _, t, s: distribute_tensor(t, mesh, s.placements), axes,
+        params_from_numpy(tree, device="cpu"), sh)
+    params = place(weights)
+    m, v, step = moments
+    opt = OptState(place(m), place(v), torch.tensor(step, dtype=torch.int32))
+    tok = torch.from_numpy(tokens)
+    tok_sh = logical_to_mesh(mesh, plan.activation_rules, ("batch", "seq"), tok.shape)
+    batch = {"tokens": distribute_tensor(tok, mesh, tok_sh.placements)}
+    with implicit_replication():
+        params, _, metrics = make_train_step(model, mesh, plan, opt_cfg=opt_cfg)(params, opt, batch)
+    return (float(metrics["loss"].full_tensor()),
+            [t.full_tensor().numpy() for t in tree_leaves(params)])
+
+
+def sharded_decode_ranks(rank, world, arch, weights, cache, tokens, index):
+    """One decode step of the reduced ``arch`` on a (2, 2) ("data",
+    "model") mesh at the "tp" plan's placements: parameters and the cache
+    (``init_cache``'s tree, float32, batch over "data" and the sequence over
+    "model") ``DTensor``s, the tokens split over "data", ``index`` a 0-d
+    position.  Returns (logits, the cache's leaves after the step), whole,
+    as numpy."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, params_from_numpy
+    from repro_torch.sharding import logical_to_mesh, make_plan, param_shardings
+    from repro_torch.sharding.rules import map_axes
+    from repro_torch.training import make_serve_steps
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = get_config(arch).reduced()
+    mesh = DeviceMesh("cpu", torch.arange(world).reshape(2, 2), mesh_dim_names=("data", "model"))
+    model = build_model(cfg, device="cpu")
+    plan = make_plan("tp")
+    p = params_from_numpy(weights, device="cpu")
+    axes = model.param_axes(p)
+    params = map_axes(lambda _, t, s: distribute_tensor(t, mesh, s.placements), axes, p,
+                      param_shardings(mesh, plan, axes, p))
+    rules = plan.activation_rules
+    c = map_axes(lambda names, a: distribute_tensor(
+        torch.from_numpy(a), mesh, logical_to_mesh(mesh, rules, names, a.shape).placements),
+        model.cache_axes(), cache)
+    tok = torch.from_numpy(tokens)
+    tok = distribute_tensor(tok, mesh, logical_to_mesh(mesh, rules, ("batch", None),
+                                                       tok.shape).placements)
+    with implicit_replication():
+        logits, c = make_serve_steps(model, mesh, plan)[1](params, tok, c, torch.tensor(index))
+    return logits.full_tensor().numpy(), [t.full_tensor().numpy() for t in tree_leaves(c)]
