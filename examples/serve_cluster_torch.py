@@ -37,7 +37,7 @@ from repro_torch.core import (
     make_scheduler,
     summarize,
 )
-from repro_torch.serving import Endpoint, ServingEngine
+from repro_torch.serving import Endpoint, ServingEngine, telemetry
 
 
 def replay_paper_protocol(quick: bool):
@@ -217,6 +217,11 @@ def serve_real_batched(quick: bool, device="cuda"):
             print("  ++ elastic join: worker 99 registered")
     s = eng.summary()
     print(f"  summary: {s['n']} batched requests, cold_rate={s['cold_rate']:.0%}")
+    recs = list(telemetry.RING)[-s["n"]:]  # the program's own records of these requests
+    means = {k: np.mean([r.span_ms(k) for r in recs if r.span(k) is not None])
+             for k in ("materialise", "capture", "generate")}
+    print("  mean spans: " + ", ".join(f"{k} {v:.1f} ms" for k, v in means.items())
+          + " (materialise and capture: cold starts only)")
     return eng
 
 

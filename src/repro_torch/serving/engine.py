@@ -11,7 +11,6 @@ notification mechanism.  All workers share one device: the card unless
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -19,6 +18,7 @@ import torch
 
 from .. import default_device
 from ..core.scheduler import Scheduler, make_scheduler
+from . import telemetry
 from .worker import Endpoint, ExecutionRecord, WorkerHost
 
 
@@ -28,7 +28,8 @@ class RequestResult:
     worker: int
     cold: bool
     latency_ms: float
-    sched_overhead_ms: float
+    sched_overhead_ms: float  # the ``schedule`` span
+    record: Optional[telemetry.RequestRecord] = None
 
 
 class ServingEngine:
@@ -61,15 +62,17 @@ class ServingEngine:
         ep = self.endpoints[func]
         if tokens is None:
             tokens = torch.ones((1, 8), dtype=torch.int32)
-        t0 = time.perf_counter()
-        w = self.sched.schedule(func)
-        t_sched = (time.perf_counter() - t0) * 1e3
-        rec: ExecutionRecord = self.workers[w].execute(ep, tokens, gen_len)
-        self.sched.on_finish(w, func)
-        out = RequestResult(
-            func=func, worker=w, cold=rec.cold,
-            latency_ms=rec.total_ms, sched_overhead_ms=t_sched,
-        )
+        with telemetry.request(func) as trec:
+            with telemetry.span("schedule"):
+                w = self.sched.schedule(func)
+            trec.worker = w
+            rec: ExecutionRecord = self.workers[w].execute(ep, tokens, gen_len)
+            self.sched.on_finish(w, func)
+            out = RequestResult(
+                func=func, worker=w, cold=rec.cold,
+                latency_ms=rec.total_ms, sched_overhead_ms=trec.span_ms("schedule"),
+                record=trec,
+            )
         self.records.append(out)
         return out
 

@@ -21,6 +21,7 @@ import torch
 
 from .. import default_device
 from ..models import build_model
+from . import telemetry
 from .captured import CapturedStep, copy_into, tree_leaves
 
 
@@ -90,31 +91,39 @@ class Instance:
     ``models.params_from_numpy``).
     """
 
-    __slots__ = ("endpoint", "device", "model", "params", "last_used", "_loops")
+    __slots__ = ("endpoint", "device", "model", "params", "last_used", "_loops", "_events")
 
     def __init__(self, endpoint: Endpoint, device=None, params: Optional[Dict] = None):
-        self.endpoint = endpoint
-        self.device = default_device(device)
-        self.model = build_model(endpoint.cfg, param_dtype=endpoint.param_dtype,
-                                 device=self.device)
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(endpoint.seed)
-            params = self.model.init(gen, max_seq=endpoint.max_cache_len)
-        self.params = params
-        self._loops: Dict[int, _DecodeLoop] = {}
-        _sync(self.device)
-        self.last_used = time.monotonic()
+        with telemetry.span("materialise"):
+            self.endpoint = endpoint
+            self.device = default_device(device)
+            self.model = build_model(endpoint.cfg, param_dtype=endpoint.param_dtype,
+                                     device=self.device)
+            if params is None:
+                gen = torch.Generator(device=self.device).manual_seed(endpoint.seed)
+                params = self.model.init(gen, max_seq=endpoint.max_cache_len)
+            self.params = params
+            self._loops: Dict[int, _DecodeLoop] = {}
+            # generate's device intervals: before the prefill, after its
+            # argmax, after the last replay
+            self._events = (tuple(torch.cuda.Event(enable_timing=True) for _ in range(3))
+                            if self.device.type == "cuda" else None)
+            _sync(self.device)
+            self.last_used = time.monotonic()
 
     @torch.no_grad()
     def prepare(self, batch: int) -> None:
         """On the card, allocate the decode loop's buffers for ``batch`` rows
         and capture its step (cold start does this at the request's batch
         size; ``generate`` does it for a size it has not seen).  Nothing on
-        the CPU, where ``generate`` runs eagerly."""
-        if self.device.type == "cuda" and batch not in self._loops:
-            self._loops[batch] = _DecodeLoop(self.model, self.params, batch,
-                                             self.decode_cache(batch), self.device)
-            _sync(self.device)
+        the CPU, where ``generate`` runs eagerly, but the ``capture`` span."""
+        if batch in self._loops:
+            return
+        with telemetry.span("capture"):
+            if self.device.type == "cuda":
+                self._loops[batch] = _DecodeLoop(self.model, self.params, batch,
+                                                 self.decode_cache(batch), self.device)
+                _sync(self.device)
 
     def prefill_batch(self, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``generate``'s prefill input: the tokens, and for an
@@ -144,25 +153,42 @@ class Instance:
         encodes zero frames and decodes over zero memory (ROADMAP Queue 3).
         Kept so that the two packages generate the same tokens.  On the card
         each decode step is one replay of the captured step; on the CPU it
-        runs eagerly.
+        runs eagerly.  On the card the open request record gets the
+        prefill's and the replays' device intervals.
         """
-        model, ep = self.model, self.endpoint
-        tokens = tokens.to(self.device)
-        B, S = tokens.shape
-        _, last_logits = model.prefill(self.params, self.prefill_batch(tokens))
-        out = [last_logits.argmax(-1)]
-        idx = min(S, ep.max_cache_len - gen_len - 1)
-        if self.device.type == "cuda":
-            self.prepare(B)
-            out = self._loops[B].run(out[0], idx, gen_len - 1)
-        else:
-            cache = self.decode_cache(B)
-            for i in range(gen_len - 1):
-                logits, cache = model.decode_step(self.params, out[-1][:, None], cache, idx + i)
-                out.append(logits.argmax(-1))
-        result = torch.stack(out, 1)
-        _sync(self.device)
-        return result
+        with telemetry.span("generate"):
+            model, ep = self.model, self.endpoint
+            tokens = tokens.to(self.device)
+            B, S = tokens.shape
+            ev = self._events
+            on_card = self.device.type == "cuda"
+            if on_card:
+                ev[0].record()
+            _, last_logits = model.prefill(self.params, self.prefill_batch(tokens))
+            out = [last_logits.argmax(-1)]
+            idx = min(S, ep.max_cache_len - gen_len - 1)
+            if on_card:
+                ev[1].record()
+                self.prepare(B)
+                loop = self._loops[B]
+                replays = loop.step.replays
+                out = loop.run(out[0], idx, gen_len - 1)
+                replays = loop.step.replays - replays
+                ev[2].record()
+            else:
+                cache = self.decode_cache(B)
+                for i in range(gen_len - 1):
+                    logits, cache = model.decode_step(self.params, out[-1][:, None], cache,
+                                                      idx + i)
+                    out.append(logits.argmax(-1))
+            result = torch.stack(out, 1)
+            _sync(self.device)
+            rec = telemetry.current()
+            if on_card and rec is not None:
+                rec.prefill_ms = ev[0].elapsed_time(ev[1])
+                rec.decode_ms = ev[1].elapsed_time(ev[2])
+                rec.replays = replays
+            return result
 
 
 @dataclasses.dataclass
@@ -224,24 +250,27 @@ class WorkerHost:
 
     # ------------------------------------------------------------ execute
     def execute(self, ep: Endpoint, tokens: torch.Tensor, gen_len: int = 4) -> ExecutionRecord:
-        cold = not self.idle.get(ep.name)
-        t0 = time.perf_counter()
-        if cold:
-            need = ep.est_bytes()
-            while self.used_bytes + need > self.pool and self._evict_lru():
-                pass
-            inst = Instance(ep, self.device)  # materialise ...
-            inst.prepare(tokens.shape[0])     # ... + capture decode == cold start
-            self.used_bytes += need
-        else:
-            inst = self.idle[ep.name].pop()
-        t1 = time.perf_counter()
-        inst.generate(tokens, gen_len)
-        t2 = time.perf_counter()
-        inst.last_used = time.monotonic()
-        self.idle.setdefault(ep.name, []).append(inst)
-        return ExecutionRecord(
-            func=ep.name, worker=self.wid, cold=cold,
-            init_ms=(t1 - t0) * 1e3 if cold else 0.0,
-            exec_ms=(t2 - t1) * 1e3,
-        )
+        """Serve one request on this worker; ``init_ms`` runs from the
+        start of the ``execute`` span to that of ``generate`` (cold starts
+        only), ``exec_ms`` is the ``generate`` span."""
+        with telemetry.request(ep.name) as rec, telemetry.span("execute") as sp:
+            cold = not self.idle.get(ep.name)
+            rec.worker, rec.cold = self.wid, cold
+            if cold:
+                need = ep.est_bytes()
+                while self.used_bytes + need > self.pool and self._evict_lru():
+                    pass
+                inst = Instance(ep, self.device)  # materialise ...
+                inst.prepare(tokens.shape[0])     # ... + capture decode == cold start
+                self.used_bytes += need
+            else:
+                inst = self.idle[ep.name].pop()
+            inst.generate(tokens, gen_len)
+            inst.last_used = time.monotonic()
+            self.idle.setdefault(ep.name, []).append(inst)
+            g0, g1 = rec.span("generate")
+            return ExecutionRecord(
+                func=ep.name, worker=self.wid, cold=cold,
+                init_ms=telemetry.ms(sp.start, g0) if cold else 0.0,
+                exec_ms=telemetry.ms(g0, g1),
+            )

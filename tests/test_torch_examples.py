@@ -85,6 +85,8 @@ def test_serve_cluster_real_models_on_the_cpu():
     s = eng.summary()
     assert s["n"] == 8 and 0.0 < s["cold_rate"] < 1.0
     assert 99 in eng.workers
+    assert any(ln.strip().startswith("mean spans: materialise ") and "capture " in ln
+               and "generate " in ln for ln in lines)
 
 
 def test_serve_cluster_real_models_has_no_silent_cpu_fallback(monkeypatch):

@@ -654,6 +654,42 @@ def test_generate_replays_the_captured_step(cuda, name):
     assert sorted(inst._loops) == [1, 2]
 
 
+def test_request_record_on_the_card(cuda, monkeypatch):
+    """A cold and then a warm request through ``WorkerHost.execute``: the
+    record holds a ``capture`` span (cold only), the prefill's and the
+    replays' device intervals inside the ``generate`` span, ``gen_len - 1``
+    replays, and the request calls ``torch.cuda.synchronize`` as often as
+    the worker did before it kept records: once a request, twice more on a
+    cold start (materialise, capture), plus what ``torch.cuda.graph`` calls
+    itself, counted on a bare capture."""
+    from repro_torch.serving import WorkerHost, telemetry
+
+    calls = []
+    real = torch.cuda.synchronize
+
+    def counting(*a, **kw):
+        calls.append(a)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counting)
+    x = torch.zeros(4, device=cuda)
+    with torch.cuda.graph(torch.cuda.CUDAGraph()):
+        x.add_(1)
+    in_graph = len(calls)
+    host, ep, gen_len = WorkerHost(0, device=cuda), _tiny_endpoint("minicpm_2b"), 6
+    tokens = torch.ones((1, 20), dtype=torch.int32)
+    for cold in (True, False):
+        calls.clear()
+        er = host.execute(ep, tokens, gen_len)
+        rec = telemetry.RING[-1]
+        assert len(calls) == (3 + in_graph if cold else 1)
+        assert er.cold == rec.cold == cold and not rec.failed
+        assert (rec.span("capture") is not None) == cold
+        assert rec.replays == gen_len - 1
+        assert 0 < rec.prefill_ms and 0 < rec.decode_ms
+        assert rec.prefill_ms + rec.decode_ms <= er.exec_ms == rec.span_ms("generate")
+
+
 def test_batcher_on_card_matches_cpu(cuda):
     """Reduced llava-next-mistral-7b (float32 weights and cache): the
     batcher on the card, one graph replay a step, gives the CPU batcher's
