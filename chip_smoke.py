@@ -308,7 +308,9 @@ trees on one card, copy this script into a checkout of the other tree (a
 ``git archive`` unpacked under ``build/``) and run it there and here, in
 turns, with ``--sched-only``.  ``--bwd-only`` does the same for the float32
 ``flash_attention_bwd`` rows at minicpm-2b's and zamba2-2.7b's train shapes
-and at the softcap test's data.
+and at the softcap test's data, and ``--linear-only`` for the
+``linear_tf32x3`` rows at the served prefill's products (with the kernel's
+registers and spills).
 
 In the ``{"kernels": [...]}`` line the ``ssd_scan``, ``ssd_scan_bwd``,
 ``flash_attention``, ``flash_attention_bwd`` and ``decode_attention`` rows
@@ -330,7 +332,14 @@ scheduling rows also carry
 ``sched_events`` row's ``sim`` and ``cluster`` entries hold those paths'
 streams: events, bursts, ms back to back, ns/event and the latency bound;
 ``cluster`` also each driver's records, host seconds and records/s, and the
-path's ``launches`` by kernel.
+path's ``launches`` by kernel.  The ``linear_tf32x3`` row is minicpm-2b's
+q/k/v launch at the warm4 mix's mean prompt (1,523 rows); its ``shapes``
+the other products that the float32 paths give it (``LINEAR_SHAPES``:
+minicpm-2b's, zamba2-2.7b's, whisper-small's and mamba2-130m's head), each with its error
+against its plain version (``max_abs_err``, ``plain_rel_err``) and
+against a float64 product (``f64_rel_err``) and ``tflops``, and
+``prefill`` the sums over one minicpm-2b prefill; a row's launches are
+every path's at its weights' shapes, and every launch falls in a row.
 """
 
 from __future__ import annotations
@@ -838,6 +847,102 @@ def check_close(torch, name, got, want, dtype):
     if got.dtype != dtype or not torch.allclose(got.float(), want.float(), **tol):
         fail(f"{name} differs from its plain version: max abs err {err:.3e} ({tol})")
     return err
+
+
+#: the dense products that the float32 paths send to ``linear_tf32x3``, as
+#: ``ops.dense`` groups them: label -> (rows M, K, the weights' widths,
+#: layout).  q/k/v and gate/up share their input and a launch; the
+#: unembedding reads the tied table (vocab, d) transposed ("nk").  The
+#: minicpm-2b rows (the dense path) at the warm4 mix's mean prompt; zamba2's
+#: shared block and head (the hybrid path) at its 1,024-token prompts;
+#: whisper-small's (the whisper paths) at its 440-token prompts, but o (also
+#: the cross-attention's q), down and the cross k/v at the 1,500 rows of
+#: audio (at 440 rows they keep ``torch.matmul``: ``ops.LINEAR_MIN_TILES``;
+#: the cross k/v is projected in every decode step too);
+#: mamba2-130m's head (the serve path; its Mamba2 layers have no dense
+#: product).  A row's launches are those of every path at its weights'
+#: shapes.
+LINEAR_SHAPES = {"qkv": (1523, 2304, (2304,) * 3, "kn"), "o": (1523, 2304, (2304,), "kn"),
+                 "gate_up": (1523, 2304, (5760,) * 2, "kn"), "down": (1523, 5760, (2304,), "kn"),
+                 "unembed": (1523, 2304, (122753,), "nk"),
+                 "zamba2_qkv": (1024, 2560, (2560,) * 3, "kn"),
+                 "zamba2_o": (1024, 2560, (2560,), "kn"),
+                 "zamba2_gate_up": (1024, 2560, (10240,) * 2, "kn"),
+                 "zamba2_down": (1024, 10240, (2560,), "kn"),
+                 "zamba2_unembed": (1024, 2560, (32000,), "nk"),
+                 "whisper_qkv": (440, 768, (768,) * 3, "kn"),
+                 "whisper_o": (1500, 768, (768,), "kn"),
+                 "whisper_cross_kv": (1500, 768, (768,) * 2, "kn"),
+                 "whisper_up": (440, 768, (3072,), "kn"),
+                 "whisper_down": (1500, 3072, (768,), "kn"),
+                 "whisper_unembed": (440, 768, (51865,), "nk"),
+                 "mamba2_unembed": (1024, 768, (50280,), "nk")}
+LINEAR_LAYERS = 40   # minicpm-2b: each product but the unembedding a layer
+#: the kernel against its plain version (float32 sums in another order) and
+#: against a float64 product (~5e-7 at these depths): max |diff| over the
+#: other's largest; one TF32 product misses it by far
+LINEAR_TOL = 5e-6
+
+
+def linear_rows(torch, ops, ref, rows):
+    """``linear_tf32x3`` at each of ``LINEAR_SHAPES``: its error against its
+    plain version on the same inputs (``max_abs_err``, and over the plain
+    version's largest, ``plain_rel_err``, within ``LINEAR_TOL``) and against
+    a float64 product (``f64_rel_err``, max |diff| over max |float64|), ms
+    in CUDA events (10 back-to-back calls, median of 5), the bound at the
+    split-precision rate, the plain version's ms and the library's (one
+    float32 ``torch.matmul`` a weight: the path it replaces, which the port
+    no longer takes there); ``prefill`` sums one minicpm-2b prefill's
+    products."""
+    g = torch.Generator(device=DEVICE).manual_seed(33)
+    shapes, total = {}, dict(ms=0.0, bound_ms=0.0, plain_ms=0.0, library_ms=0.0)
+    for label, (M, K, widths, layout) in LINEAR_SHAPES.items():
+        x = torch.randn(M, K, generator=g, device=DEVICE)
+        if layout == "nk":
+            ws = [(torch.randn(n, K, generator=g, device=DEVICE) * 0.02).T for n in widths]
+        else:
+            ws = [torch.randn(K, n, generator=g, device=DEVICE) / K ** 0.5 for n in widths]
+        outs = ops.linear_tf32x3(x, *ws)
+        abs_err = plain_err = f64_err = 0.0
+        for w, got in zip(ws, outs):
+            plain = ref.linear_tf32x3_ref(x, w)
+            abs_err = max(abs_err, max_abs(got, plain))
+            plain_err = max(plain_err, max_abs(got, plain) / float(plain.abs().max()))
+            del plain
+            want = x.double() @ w.double()
+            f64_err = max(f64_err, float((got.double() - want).abs().max() / want.abs().max()))
+            del want
+        if not plain_err < LINEAR_TOL or not f64_err < LINEAR_TOL:
+            fail(f"linear_tf32x3 {label}: {plain_err:.3e} of its plain version's largest value "
+                 f"from it, {f64_err:.3e} of a float64 product's: over {LINEAR_TOL}")
+        del outs
+        ms = time_cuda(torch, lambda: ops.linear_tf32x3(x, *ws), reps=5, calls=10)
+        plain_ms = time_cuda(torch, lambda: [ref.linear_tf32x3_ref(x, w) for w in ws], reps=3)
+        lib_ms = time_cuda(torch, lambda: [torch.matmul(x, w) for w in ws], reps=5, calls=10)
+        nbytes, nops = kcounts().linear_counts(M, K, widths)
+        b_ms, b_by = bound(nbytes, nops)
+        shapes[label] = dict(max_abs_err=abs_err, plain_rel_err=plain_err, f64_rel_err=f64_err,
+                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                             bound_by=b_by, tflops=nops / ms / 1e9,
+                             key=tuple((K, n) for n in widths))
+        if label in ("qkv", "o", "gate_up", "down", "unembed"):
+            per = 1 if label == "unembed" else LINEAR_LAYERS
+            for k in total:
+                total[k] += per * shapes[label][k]
+        log(f"[linear] {label} M={M} K={K} N={widths} ({layout}): {ms:.4f} ms "
+            f"({nops / ms / 1e9:.1f} TFLOP/s), bound {b_ms:.4f} ({b_by}), plain {plain_ms:.4f}, "
+            f"matmul {lib_ms:.4f} ({nops / lib_ms / 1e9:.1f} TFLOP/s), against the plain "
+            f"version {plain_err:.2e}, against float64 {f64_err:.2e}")
+        del x, ws
+    log(f"[linear] one minicpm-2b prefill's products: {total['ms']:.2f} ms against matmul "
+        f"{total['library_ms']:.2f} ms, bound {total['bound_ms']:.2f} ms")
+    main = shapes.pop("qkv")
+    rows["linear_tf32x3"] = dict(
+        name="linear_tf32x3", route="cuda", source="src/repro_torch/kernels/csrc/linear_tf32x3.cu",
+        replaces="none (the JAX package leaves its dense products to XLA)",
+        **{k: main[k] for k in ("max_abs_err", "plain_rel_err", "f64_rel_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms", "key")},
+        shapes=shapes, prefill=total)
 
 
 def phase_attention(torch, np, ops, ref, rows):
@@ -2007,7 +2112,6 @@ def check_batch_step(torch, ops, ref, moe, b, snap, kernel="decode_attention"):
 
     counts = ops.launch_counts()
     eager = step(both, recorder(moe.route, routes))
-    ops.restore_launches(counts)
     if not torch.equal(eager, b.logits):
         fail(f"batch step {b.steps}: the replayed logits differ from the eager step's by "
              f"{max_abs(eager, b.logits):.3e}")
@@ -2022,6 +2126,7 @@ def check_batch_step(torch, ops, ref, moe, b, snap, kernel="decode_attention"):
         logits = step(plain, recorder(moe.route, own))
         free = (sum(int((a[1] != c[1]).sum()) for a, c in zip(routes, own)),
                 sum(a[1].numel() for a in routes), rel_rows(b.logits, logits))
+    ops.restore_launches(counts)
     return max(layer_errs), err, rel, max_abs(*wants), rel_rows(*wants), free
 
 
@@ -3297,6 +3402,9 @@ def main(argv=None) -> int:
                          "comparing the "
                          "kernels of two trees on one card, run from a copy of this script "
                          "in each")
+    ap.add_argument("--linear-only", action="store_true",
+                    help="run only the linear_tf32x3 rows at the served prefills' shapes, with "
+                         "the kernel's registers and spills, and print no result line")
     ap.add_argument("--bwd-only", action="store_true",
                     help="run only the float32 flash_attention_bwd rows at minicpm-2b's and "
                          "zamba2-2.7b's train shapes and at the softcap test's data, and print "
@@ -3327,6 +3435,13 @@ def main(argv=None) -> int:
     from repro_torch.launch import train as launch_train
     from repro_torch.training import data as train_data
 
+    if args.linear_only:
+        default_device()
+        card = phase_device(torch, build, ("linear_tf32x3",))
+        log(build.ptxas_report(names=("linear_tf32x3",)))
+        linear_rows(torch, ops, ref, {})
+        print(card)
+        return 0
     if args.bwd_only:
         card = phase_device(torch, build, ("flash_attention", "flash_attention_bwd"))
         for label, shape, kw in (
@@ -3355,6 +3470,7 @@ def main(argv=None) -> int:
     rows = {}
     probe = phase_kernels(torch, np, build, ops, ref, rows)
     phase_attention(torch, np, ops, ref, rows)
+    linear_rows(torch, ops, ref, rows)
     launches, path_launches, path_shapes = {}, {}, {}
     counted = make_counted(torch, ops, captured, launches, path_launches, path_shapes)
     events, bursts = counted("sched", ("sched_events", "sched_step"),
@@ -3382,27 +3498,35 @@ def main(argv=None) -> int:
     m_eng = ServingEngine([Endpoint(f"mamba{i}", mcfg, seed=i) for i in range(3)],
                           n_workers=2, scheduler="hiku")
     m_wid, m_prompt, m_reqs, m_cold = counted(
-        "serve", ("ssd_scan",), lambda: serve(torch, np, m_eng, "mamba", mcfg.vocab,
-                                              f"serve mamba2-130m {mcfg.n_layers}L"))
+        "serve", ("ssd_scan", "linear_tf32x3"),
+        lambda: serve(torch, np, m_eng, "mamba", mcfg.vocab,
+                      f"serve mamba2-130m {mcfg.n_layers}L"))
     eager, replayed = path_launches["serve"]
-    if eager["ssd_scan"] != m_reqs * mcfg.n_layers or replayed["steps"] != 7 * m_reqs:
-        fail(f"serve path: ssd_scan {eager['ssd_scan']} for {m_reqs} prefills of "
+    # each prefill's one dense product on the kernel: the unembedding
+    if (eager["ssd_scan"] != m_reqs * mcfg.n_layers or replayed["steps"] != 7 * m_reqs
+            or eager["linear_tf32x3"] != m_reqs or replayed["linear_tf32x3"]):
+        fail(f"serve path: ssd_scan {eager['ssd_scan']}, linear_tf32x3 {eager['linear_tf32x3']} "
+             f"+ {replayed['linear_tf32x3']} for {m_reqs} prefills of "
              f"{mcfg.n_layers} layers, {replayed['steps']} decode replays for {m_reqs} x 7 steps")
 
     dcfg = full_width(get_config, "minicpm_2b", DENSE_WIDTH)
     d_eps = [Endpoint(f"minicpm{i}", dcfg, seed=i, max_cache_len=2048) for i in range(3)]
     d_eng = ServingEngine(d_eps, n_workers=2, scheduler="hiku", mem_pool_bytes=32 * 2**30)
     d_wid, d_prompt, d_reqs, d_cold = counted(
-        "dense", ("flash_attention", "decode_attention"),
+        "dense", ("flash_attention", "decode_attention", "linear_tf32x3"),
         lambda: serve(torch, np, d_eng, "minicpm", dcfg.vocab,
                       f"dense minicpm-2b {dcfg.n_layers}L d{dcfg.d_model} vocab {dcfg.vocab}"))
     L = dcfg.n_layers  # one launch per attention layer per prefill / per decode step
     eager, replayed = path_launches["dense"]
     # prefill eagerly per request; decode: one eager step per cold start (the
     # capture's first call), then 7 replays of L decode launches per request
+    # and each prefill's dense products in 4 launches a layer (q/k/v and
+    # gate/up share theirs) and one for the unembedding
     if (eager["flash_attention"] != L * d_reqs or eager["decode_attention"] != L * d_cold
-            or replayed["steps"] != 7 * d_reqs or replayed["decode_attention"] != L * 7 * d_reqs):
-        fail(f"dense path launched flash {eager['flash_attention']}, decode "
+            or replayed["steps"] != 7 * d_reqs or replayed["decode_attention"] != L * 7 * d_reqs
+            or eager["linear_tf32x3"] != (4 * L + 1) * d_reqs or replayed["linear_tf32x3"]):
+        fail(f"dense path launched flash {eager['flash_attention']}, linear_tf32x3 "
+             f"{eager['linear_tf32x3']}, decode "
              f"{eager['decode_attention']} eagerly and {replayed['decode_attention']} in "
              f"{replayed['steps']} replays, for {d_reqs} requests of 7 decode steps and "
              f"{d_cold} cold starts")
@@ -3427,20 +3551,26 @@ def main(argv=None) -> int:
     h_eps = [Endpoint(f"zamba{i}", hcfg, seed=i, max_cache_len=2048) for i in range(3)]
     h_eng = ServingEngine(h_eps, n_workers=2, scheduler="hiku", mem_pool_bytes=32 * 2**30)
     h_wid, h_prompt, h_reqs, h_cold = counted(
-        "hybrid", ("ssd_scan", "flash_attention", "decode_attention"),
+        "hybrid", ("ssd_scan", "flash_attention", "decode_attention", "linear_tf32x3"),
         lambda: serve(torch, np, h_eng, "zamba", hcfg.vocab,
                       f"hybrid zamba2-2.7b {hcfg.n_layers}L d{hcfg.d_model} vocab {hcfg.vocab}"))
     G = hcfg.n_layers // hcfg.hybrid.every  # shared-block applications: one attention each
     eager, replayed = path_launches["hybrid"]
+    # each prefill's dense products: q/k/v, o, gate/up and down a shared-block
+    # application and the unembedding (the block's input projection from the
+    # concat, like the Mamba2 layers' projections, stays on torch.matmul)
     if (eager["ssd_scan"] != hcfg.n_layers * h_reqs or eager["flash_attention"] != G * h_reqs
             or eager["decode_attention"] != G * h_cold or replayed["steps"] != 7 * h_reqs
-            or replayed["decode_attention"] != G * 7 * h_reqs):
+            or replayed["decode_attention"] != G * 7 * h_reqs
+            or eager["linear_tf32x3"] != (4 * G + 1) * h_reqs or replayed["linear_tf32x3"]):
         fail(f"hybrid path launched ssd_scan {eager['ssd_scan']}, flash {eager['flash_attention']}, "
+             f"linear_tf32x3 {eager['linear_tf32x3']} + {replayed['linear_tf32x3']}, "
              f"decode {eager['decode_attention']} eagerly and {replayed['decode_attention']} in "
              f"{replayed['steps']} replays, for {h_reqs} requests of 7 decode steps and "
              f"{h_cold} cold starts")
     log(f"[hybrid] {h_reqs} requests, {h_cold} cold starts: ssd_scan {hcfg.n_layers} x {h_reqs}, "
-        f"flash_attention {G} x {h_reqs}; decode_attention {G} x {h_cold} eager + {G} x 7 x "
+        f"flash_attention {G} x {h_reqs}, linear_tf32x3 {4 * G + 1} x {h_reqs}; "
+        f"decode_attention {G} x {h_cold} eager + {G} x 7 x "
         f"{h_reqs} in {replayed['steps']} replays, as expected; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     h_short = torch.from_numpy(np.random.default_rng(5).integers(0, hcfg.vocab, (1, 128))
@@ -3548,7 +3678,7 @@ def main(argv=None) -> int:
              for i in range(3)]
     w_eng = ServingEngine(w_eps, n_workers=2, scheduler="hiku", mem_pool_bytes=32 * 2**30)
     w_wid, w_prompt, w_reqs, w_cold = counted(
-        "whisper", ("flash_attention", "decode_attention"),
+        "whisper", ("flash_attention", "decode_attention", "linear_tf32x3"),
         lambda: serve(torch, np, w_eng, "whisper", wcfg.vocab,
                       f"whisper whisper-small {wcfg.n_encoder_layers}+{wcfg.n_layers}L "
                       f"d{wcfg.d_model} vocab {wcfg.vocab}", prompt_len=WHISPER_PROMPT))
@@ -3556,11 +3686,24 @@ def main(argv=None) -> int:
     per_prefill = E + 2 * L
     w_inst = w_eng.workers[w_wid].idle["whisper0"][0]
     per_step = w_inst.model.decode_attention_calls()
+    # linear_tf32x3 takes a product of 64 tiles of 128 x 128 or more
+    # (``ops.LINEAR_MIN_TILES``).  At 440 rows (4 tiles high) that is
+    # whisper's q/k/v, up and unembedding (72, 96 and 1,624 tiles), not its
+    # o, cross q, cross k/v or down (24, 24, 48, 24): 2 launches an encoder
+    # and a decoder layer and the unembedding, in a serve prefill (as many
+    # zero frames as tokens).  At 1,500 rows of audio (12 high) each encoder
+    # product (4 a layer) and the cross k/v; at 8 x 440 and 8 x 1,500 rows
+    # all 7 products of a decoder layer.  A decode step projects its cross
+    # k/v from the memory anew: on the kernel over 1,500 rows, not over the
+    # 8 zero rows of ``generate``'s cache
+    lin_serve = 2 * E + 2 * L + 1
     eager, replayed = path_launches["whisper"]
     if (eager["flash_attention"] != per_prefill * w_reqs
             or eager["decode_attention"] != per_step * w_cold or replayed["steps"] != 7 * w_reqs
-            or replayed["decode_attention"] != per_step * 7 * w_reqs):
-        fail(f"whisper path launched flash {eager['flash_attention']}, decode "
+            or replayed["decode_attention"] != per_step * 7 * w_reqs
+            or eager["linear_tf32x3"] != lin_serve * w_reqs or replayed["linear_tf32x3"]):
+        fail(f"whisper path launched flash {eager['flash_attention']}, linear_tf32x3 "
+             f"{eager['linear_tf32x3']} + {replayed['linear_tf32x3']}, decode "
              f"{eager['decode_attention']} eagerly and {replayed['decode_attention']} in "
              f"{replayed['steps']} replays, for {w_reqs} requests of 7 decode steps and "
              f"{w_cold} cold starts")
@@ -3568,7 +3711,8 @@ def main(argv=None) -> int:
         f"{sum(t.numel() * t.element_size() for t in captured.tree_leaves(w_inst.params)) / 1e9:.3f}"
         f" GB in float32 an endpoint (position tables of {WHISPER_CACHE} rows); {w_reqs} "
         f"requests, {w_cold} cold starts: flash_attention {per_prefill} a prefill ({E} encoder, "
-        f"{L} self, {L} cross) x {w_reqs}; decode_attention {per_step} a step ({L} self, {L} "
+        f"{L} self, {L} cross) x {w_reqs}, linear_tf32x3 {lin_serve} x {w_reqs}; "
+        f"decode_attention {per_step} a step ({L} self, {L} "
         f"cross) x {w_cold} eager (each capture's first call) + x 7 x {w_reqs} in "
         f"{replayed['steps']} replays, as expected; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
@@ -3577,31 +3721,45 @@ def main(argv=None) -> int:
     from repro_torch.models import frontends
 
     n_prefill, n_steps = counted(
-        "whisper_audio", ("flash_attention", "decode_attention"),
+        "whisper_audio", ("flash_attention", "decode_attention", "linear_tf32x3"),
         lambda: whisper_audio(torch, np, Model, frontends, w_inst, "[whisper audio]"))
     eager, replayed = path_launches["whisper_audio"]
+    # prefills of 4 and of 440 tokens over 1,500 frames (the 4-token one's
+    # decoder products but the cross k/v stay on torch.matmul, the
+    # 440-token one's q/k/v, cross k/v, up and unembedding take the kernel),
+    # then the two at B=8 (all of them); each decode step's cross k/v over
+    # the 1,500 rows of audio
+    lin_audio = ((4 * E + L) + (4 * E + 3 * L + 1) + (n_prefill - 2) * (4 * E + 7 * L + 1)
+                 + L * n_steps)
     if (eager["flash_attention"] != per_prefill * n_prefill
-            or eager["decode_attention"] != per_step * n_steps or replayed["steps"]):
+            or eager["decode_attention"] != per_step * n_steps or replayed["steps"]
+            or eager["linear_tf32x3"] != lin_audio):
         fail(f"whisper audio path launched flash {eager['flash_attention']}, decode "
-             f"{eager['decode_attention']} ({replayed['steps']} replays), for {n_prefill} "
+             f"{eager['decode_attention']}, linear_tf32x3 {eager['linear_tf32x3']} (not "
+             f"{lin_audio}; {replayed['steps']} replays), for {n_prefill} "
              f"prefills and {n_steps} decode steps")
     log(f"[whisper audio] flash_attention {per_prefill} x {n_prefill} prefills, "
-        f"decode_attention {per_step} x {n_steps} steps, as expected; peak device memory "
+        f"decode_attention {per_step} x {n_steps} steps, linear_tf32x3 {lin_audio}, as "
+        f"expected; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     _, _, w_replays = counted(
-        "whisper_batch", ("decode_attention",),
+        "whisper_batch", ("decode_attention", "linear_tf32x3"),
         lambda: run_batcher(torch, np, ops, ref, moe, serving, w_inst.model, w_inst.params,
                             torch.float32, batch_requests(np, wcfg.vocab),
                             f"[whisper] whisper-small batch, {WHISPER_FRAMES} memory rows, f32"))
     eager, replayed = path_launches["whisper_batch"]
+    # each step projects the cross k/v of its 8 slots' 1,500 memory rows
     if (eager["decode_attention"] != per_step or replayed["steps"] != w_replays
             or replayed["decode_attention"] != per_step * w_replays
-            or eager["flash_attention"] or replayed["flash_attention"]):
+            or eager["flash_attention"] or replayed["flash_attention"]
+            or eager["linear_tf32x3"] != L or replayed["linear_tf32x3"] != L * w_replays):
         fail(f"whisper batch path launched decode {eager['decode_attention']} eagerly and "
-             f"{replayed['decode_attention']} in {replayed['steps']} replays, for one capture "
-             f"and {w_replays} replays of {per_step}")
+             f"{replayed['decode_attention']} in {replayed['steps']} replays, linear_tf32x3 "
+             f"{eager['linear_tf32x3']} and {replayed['linear_tf32x3']}, for one capture "
+             f"and {w_replays} replays of {per_step} and {L}")
     log(f"[whisper] batch: decode_attention {per_step} x 1 eager + {per_step} x {w_replays} "
-        f"replays, as expected; peak device memory "
+        f"replays, linear_tf32x3 {L} x 1 eager + {L} x {w_replays} replays, as expected; "
+        f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     del w_eng, w_inst
     gc.collect()
@@ -3713,6 +3871,28 @@ def main(argv=None) -> int:
                                             "bound_by", "library_ms", "burst", "ns_per_event",
                                             "ms_4096", "sim", "cluster", "batch", "shapes")
                         if k in row})
+    # linear_tf32x3: each row's launches are every path's at its weights'
+    # shapes; the float32 serving paths launch it, no other path does
+    lin = rows["linear_tf32x3"]
+    lin_rows = (lin, *lin["shapes"].values())
+    lin_keys = {key for key in at_shape if key[0] == "linear_tf32x3"}
+    for sub in lin_rows:
+        want = sub.pop("key")
+        mine = {key for key in lin_keys if tuple(tuple(shape) for shape, _ in key[2:]) == want}
+        sub["launches"] = sum(at_shape[key] for key in mine)
+        lin_keys -= mine
+        whisper_keys -= mine
+    if lin_keys:
+        fail(f"linear_tf32x3 launched at weight shapes that no row holds: {lin_keys}")
+    stray = {q: n["linear_tf32x3"] for q, n in path.items() if n["linear_tf32x3"] and q not in
+             ("serve", "dense", "hybrid", "whisper", "whisper_audio", "whisper_batch")}
+    if stray:
+        fail(f"linear_tf32x3 launched on paths with no float32 prefill: {stray}")
+    loss["linear_tf32x3"] = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in lin_rows)
+    kernels.append({k: lin[k] for k in ("name", "route", "source", "replaces", "launches",
+                                        "max_abs_err", "plain_rel_err", "f64_rel_err", "ms",
+                                        "plain_ms", "bound_ms", "bound_by", "library_ms", "shapes",
+                                        "prefill")})
     if whisper_keys:
         fail(f"the whisper paths launched at shapes that no whisper_* row holds: {whisper_keys}")
     log("[done] time over the bound on the main paths: " + ", ".join(

@@ -28,7 +28,7 @@ from typing import Dict, Iterable, List, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("sched", "ssd_scan", "ssd_scan_bwd", "flash_attention", "flash_attention_bwd",
-           "decode_attention")
+           "decode_attention", "linear_tf32x3")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -131,6 +131,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.decode_attention_max_group.restype = i
         lib.decode_attention_latent_launch.argtypes = [p] * 8 + [i] * 8 + [f, i, i, p]
         lib.decode_attention_latent_launch.restype = i
+    elif name == "linear_tf32x3":
+        lib.linear_tf32x3_launch.argtypes = [p] * 7 + [i] * 11 + [p]
+        lib.linear_tf32x3_launch.restype = i
 
 
 def ptxas_report(csrc: Path = CSRC, names: Iterable[str] = SOURCES) -> str:

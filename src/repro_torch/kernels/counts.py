@@ -116,3 +116,12 @@ def flash_bwd_counts(B, S, H, KH, hd, causal, window, elem, Sk=None, hd_v=None):
         + B * H * S * 4
     pairs = B * H * live_pairs(S, causal, window, Sk)
     return nbytes, 2 * (3 * hd + 2 * hd_v) * pairs, 2 * (4 * hd + 3 * hd_v) * pairs
+
+
+def linear_counts(M, K, widths, elem=4):
+    """``linear_tf32x3`` of an (M, K) input with weights of ``widths``
+    columns: the input read once, each weight read once, each output
+    written once; 2 M K N operations a product (the split's three TF32
+    products are the kernel's, not the function's)."""
+    n = sum(widths)
+    return (M * K + K * n + M * n) * elem, 2 * M * K * n

@@ -41,6 +41,15 @@ active accounting (``counts.account``: the dry run's), and counts nothing in
 cannot read (a decode's ``valid_len`` as a tensor, a burst's kinds), it
 counts the most: every cache row, every event an ARRIVAL.
 
+Dense products.  ``dense`` is the models' projections (q/k/v, o, the MLP,
+the unembedding): a product that ``tc_refusal`` lets through (float32 on
+the card, no gradient, at least ``LINEAR_MIN_ROWS`` rows, strides TMA
+reads, at least ``LINEAR_MIN_TILES`` tiles) runs on ``linear_tf32x3``; any
+other keeps ``torch.matmul``, the path such products took before the
+kernel, so the CPU, bfloat16 models, decode steps, train steps,
+``DTensor``s and the dry run's twins see the same arithmetic as then.
+``linear_tf32x3`` itself has no twin.
+
 Sharded inputs.  The model kernels take ``DTensor``s too: sharded only on
 the batch dim over the data axes ("pod", "data") and on the head dim over
 "model" (where each rank then holds whole GQA query groups, or SSM head
@@ -63,7 +72,8 @@ from . import build, counts, ref
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"sched_events": 0, "sched_step": 0, "ssd_scan": 0,
                             "ssd_scan_bwd": 0, "flash_attention": 0, "flash_attention_bwd": 0,
-                            "decode_attention": 0, "decode_attention_latent": 0}
+                            "decode_attention": 0, "decode_attention_latent": 0,
+                            "linear_tf32x3": 0}
 
 #: head dims the attention kernels are instantiated for (the repo's attention
 #: configs, plus 16 and 32 for the tiny serving and test configs)
@@ -107,6 +117,22 @@ DECODE_MAX_SPLITS = 1024
 #: ``csrc/decode_attention.cu``'s ``kMaxG``), for the twins' checks
 SSD_MAX_CHUNK = 1024
 DECODE_MAX_GROUP = 32
+
+#: the most products of one A that one ``linear_tf32x3`` launch runs
+#: (``csrc/linear_tf32x3.cu``'s ``kMaxGroup``), and the fewest rows (after
+#: the leading dims are flattened) that ``dense`` sends to it: one wgmma's
+#: 64-row M tile
+LINEAR_MAX_GROUP = 3
+LINEAR_MIN_ROWS = 64
+#: the kernel's tile of C (a CTA each, one CTA an SM), and the fewest tiles
+#: that ``dense`` sends to it: about half of the H100's 132 SMs.  With fewer
+#: most SMs idle, where cuBLAS's float32 GEMMs spread the product over the
+#: whole card.  Device time in CUDA graphs against float32 ``torch.matmul``:
+#: 1.7-2.3 x at 24 tiles (whisper-small's o and down at 440 rows), 0.89 x at
+#: 48, 0.47-0.78 x at 72 to 216; whisper-small's 440-token prefill 8.96 ms
+#: with this rule, 11.09 with every product on the kernel
+LINEAR_TILE = 128
+LINEAR_MIN_TILES = 64
 
 #: input dtypes the model kernels' wrappers take
 FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float8_e4m3fn,
@@ -981,3 +1007,163 @@ def decode_attention_latent(q_lat, q_rope, c_cache, r_cache, valid_len, scale: f
     _raise_on(err, "decode_attention_latent")
     _launched("decode_attention_latent", q_lat, q_rope, c_cache, r_cache, scale)
     return out
+
+
+# ------------------------------------------------------- dense products
+#: dense products since the process started, by route: on ``linear_tf32x3``
+#: ("tc") and on ``torch.matmul`` ("other"); ``serving/telemetry.py`` keeps
+#: each request's share
+PRODUCTS: Dict[str, int] = {"tc": 0, "other": 0}
+
+
+def _rows(x: torch.Tensor) -> Optional[torch.Tensor]:
+    """``x`` (..., K), at least 2-D, as an (M, K) view with unit steps along
+    K, or None where it has none."""
+    if x.ndim < 2:
+        return None
+    try:
+        a = x.view(-1, x.shape[-1])
+    except RuntimeError:
+        return None
+    return a if a.stride(1) == 1 else None
+
+
+def _weight_layout(w: torch.Tensor) -> Optional[Tuple[bool, int]]:
+    """(nk, ldb) of a (K, N) float32 weight: ``nk`` False where its rows
+    (K) lie ``ldb`` apart with unit steps along N, True where it is the
+    transpose of an (N, K) table whose rows lie ``ldb`` apart; None for any
+    other layout."""
+    if w.ndim != 2:
+        return None
+    if w.stride(1) == 1:
+        return False, w.stride(0)
+    if w.stride(0) == 1:
+        return True, w.stride(1)
+    return None
+
+
+def _tma_layouts(a: torch.Tensor, ws) -> Optional[List[Tuple[bool, int]]]:
+    """Each weight's ``_weight_layout`` where ``a`` (M, K) and ``ws`` lie as
+    TMA reads them: ``a``'s rows and each weight's rows (or its table's) a
+    multiple of 16 bytes apart with unit steps inside, every weight with K
+    rows and all in one layout; None otherwise."""
+    layouts = [_weight_layout(w) for w in ws]
+    if (a.stride(1) != 1 or a.stride(0) % 4
+            or any(lay is None or lay[1] % 4 or w.shape[0] != a.shape[1]
+                   for lay, w in zip(layouts, ws))
+            or len({lay[0] for lay in layouts}) > 1):
+        return None
+    return layouts
+
+
+def _tc_plan(x: torch.Tensor, ws) -> Tuple[Optional[str], Optional[torch.Tensor], Optional[list]]:
+    """(None, ``x`` as (M, K) rows, the weights' ``_tma_layouts``) where
+    ``dense`` sends ``x @ w`` for each of ``ws`` to ``linear_tf32x3``, else
+    (``tc_refusal``'s reason, None, None)."""
+    ts = (x, *ws)
+    if not ws or any(type(t) not in (torch.Tensor, torch.nn.Parameter) for t in ts):
+        return "type", None, None
+    if any(t.dtype != torch.float32 for t in ts):
+        return "dtype", None, None
+    if _wants_grad(*ts):
+        return "grad", None, None
+    a = _rows(x)
+    if a is None or a.shape[0] < LINEAR_MIN_ROWS:
+        return "rows", None, None
+    layouts = _tma_layouts(a, ws)
+    if layouts is None or not _aligned(*ts):
+        return "strides", None, None
+    if (-(-a.shape[0] // LINEAR_TILE) * sum(-(-w.shape[1] // LINEAR_TILE) for w in ws)
+            < LINEAR_MIN_TILES):
+        return "tiles", None, None
+    if any(t.device.type != "cuda" for t in ts) or _abstract(*ts):
+        return "device", None, None
+    return None, a, layouts
+
+
+def tc_refusal(x: torch.Tensor, *ws: torch.Tensor) -> Optional[str]:
+    """Why ``dense`` keeps ``x @ w`` for each of ``ws`` on ``torch.matmul``,
+    or None where they go to the tensor-core kernel ``linear_tf32x3``.  The
+    first of these that fails: "type" (every operand a plain tensor or
+    parameter, no ``DTensor``), "dtype" (float32), "grad" (no gradient
+    wanted), "rows" (``x`` at least 2-D with ``LINEAR_MIN_ROWS`` rows once
+    its leading dims are flattened), "strides" (``_tma_layouts``, and every
+    base 16-byte aligned), "tiles" (the products' ``LINEAR_TILE`` tiles of
+    C at least ``LINEAR_MIN_TILES``), "device" (data on the card: not the
+    CPU, not fake or ``meta``).  Decode steps (a row a slot), bfloat16
+    models, train steps, sharded weights and products too small to fill
+    half the card are refused."""
+    return _tc_plan(x, ws)[0]
+
+
+def linear_tf32x3(a: torch.Tensor, *ws: torch.Tensor) -> List[torch.Tensor]:
+    """``a @ w`` for each of ``ws`` in split-precision TF32 on the tensor
+    cores (``csrc/linear_tf32x3.cu``): a (M, K) float32, rows at a stride
+    with unit steps along K; each w (K, N_w) float32, its rows at a stride
+    with unit steps along N_w, or the transpose of an (N_w, K) table (all of
+    ``ws`` alike).  Returns the (M, N_w) float32 products, contiguous.  Up to
+    ``LINEAR_MAX_GROUP`` weights share one launch; more take several.  On the
+    CPU each is ``ref.linear_tf32x3_ref``."""
+    if not ws:
+        raise ValueError("linear_tf32x3 needs at least one weight")
+    for name, t in (("a", a), *((f"w{i}", w) for i, w in enumerate(ws))):
+        if t.dtype != torch.float32 or t.ndim != 2:
+            raise TypeError(f"linear_tf32x3: {name} must be a 2-D float32 tensor, got "
+                            f"{t.dtype} of {tuple(t.shape)}")
+    if any(w.shape[0] != a.shape[1] for w in ws):
+        raise ValueError(f"linear_tf32x3: a is {tuple(a.shape)}, the weights "
+                         f"{[tuple(w.shape) for w in ws]}: each must have a's K rows")
+    layouts = None
+    if _on_cuda(a, *ws):
+        layouts = _tma_layouts(a, ws)
+        if layouts is None:
+            raise ValueError("linear_tf32x3: a's rows and each weight's rows (or its table's) "
+                             "must lie a multiple of 4 floats apart with unit steps inside, all "
+                             "weights in one layout")
+        if not _aligned(a, *ws):
+            raise ValueError("linear_tf32x3 reads its operands by TMA: their storage must be "
+                             "16-byte aligned")
+        if a.shape[0] == 0:
+            return [a.new_empty((0, w.shape[1])) for w in ws]
+    return _linear_launch(a, ws, layouts)
+
+
+def _linear_launch(a: torch.Tensor, ws, layouts) -> List[torch.Tensor]:
+    """``linear_tf32x3`` without its checks: ``a`` and ``ws`` as
+    ``_tc_plan`` or ``linear_tf32x3`` found them, ``layouts`` theirs.  On
+    the CPU each product is the plain version."""
+    if a.device.type == "cpu":
+        return [ref.linear_tf32x3_ref(a, w) for w in ws]
+    M, K = a.shape
+    lib = build.load("linear_tf32x3")
+    outs = []
+    for i in range(0, len(ws), LINEAR_MAX_GROUP):
+        group, lay = ws[i:i + LINEAR_MAX_GROUP], layouts[i:i + LINEAR_MAX_GROUP]
+        cs = [torch.empty((M, w.shape[1]), dtype=torch.float32, device=a.device) for w in group]
+        pad = LINEAR_MAX_GROUP - len(group)
+        with torch.cuda.device(a.device):
+            err = lib.linear_tf32x3_launch(
+                a.data_ptr(), *(w.data_ptr() for w in group), *(None,) * pad,
+                *(c.data_ptr() for c in cs), *(None,) * pad,
+                *(w.shape[1] for w in group), *(0,) * pad, *(ly[1] for ly in lay), *(0,) * pad,
+                len(group), M, K, a.stride(0), int(lay[0][0]), _stream(a))
+        _raise_on(err, "linear_tf32x3")
+        _launched("linear_tf32x3", a, *group)
+        outs += cs
+    return outs
+
+
+def dense(x: torch.Tensor, *ws: torch.Tensor):
+    """``x @ w`` for each of ``ws`` (each (K, N_w), ``x`` (..., K)): one
+    tensor for one weight, a list for several.  Where ``tc_refusal`` finds
+    nothing against them, the products run on ``linear_tf32x3`` (weights
+    that share ``x`` share its launches); otherwise each is
+    ``torch.matmul``, as on the CPU.  ``PRODUCTS`` counts them by route."""
+    why, a, layouts = _tc_plan(x, ws)
+    if why is None:
+        outs = [c.view(*x.shape[:-1], c.shape[1]) for c in _linear_launch(a, ws, layouts)]
+        PRODUCTS["tc"] += len(ws)
+    else:
+        outs = [x @ w for w in ws]
+        PRODUCTS["other"] += len(ws)
+    return outs[0] if len(ws) == 1 else outs

@@ -8,6 +8,7 @@
   flash_attention_bwd_ref <-> csrc/flash_attention_bwd.cu (dq, dk, dv)
   decode_attention_ref <-> csrc/decode_attention.cu
   decode_attention_latent_ref <-> csrc/decode_attention.cu, the absorbed-MLA entry
+  linear_tf32x3_ref <-> csrc/linear_tf32x3.cu (the split-precision dense product)
 
 ``kernels/ops.py`` takes these for tensors on the CPU; the tests and
 ``chip_smoke.py`` hold each kernel against its plain version on the card.
@@ -364,11 +365,13 @@ def decode_attention_latent_ref(q_lat: torch.Tensor, q_rope: torch.Tensor, c_cac
 
 
 # ------------------------------------------------------------------ TF32
-# The backward kernels run their float32 products on tensor cores in split
-# precision: x = big + small with big = tf32(x) and small = tf32(x - big),
-# a.b = big.big + big.small + small.big, each product exact in float32 and
-# summed in float32 (small.small, ~2^-22 |a||b|, is dropped).  These plain
-# versions let the tests measure what that does; no kernel path calls them.
+# The backward kernels and the dense-product kernel (``linear_tf32x3``) run
+# their float32 products on tensor cores in split precision: x = big + small
+# with big = tf32(x) and small = tf32(x - big), a.b = big.big + big.small +
+# small.big, each product exact in float32 and summed in float32
+# (small.small, ~2^-22 |a||b|, is dropped).  These plain versions let the
+# tests measure what that does; ``linear_tf32x3_ref`` is also the
+# dense-product kernel's plain version.
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
     """float32 ``x`` rounded to TF32 (10 explicit mantissa bits) to nearest,
     ties away from zero, as ``cvt.rna.tf32.f32`` does: 0x1000 added to the
@@ -386,6 +389,12 @@ def einsum_tf32x3(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     a_small, b_small = round_tf32(a - a_big), round_tf32(b - b_big)
     return (torch.einsum(equation, a_small, b_big) + torch.einsum(equation, a_big, b_small)
             + torch.einsum(equation, a_big, b_big))
+
+
+def linear_tf32x3_ref(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` (a (M, K), w (K, N), float32) as ``linear_tf32x3`` computes
+    it on the card: the split-precision tensor-core product."""
+    return einsum_tf32x3("mk,kn->mn", a, w)
 
 
 def einsum_tf32(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -82,22 +82,26 @@ def _kernel_window(window: int) -> Optional[int]:
     return None if window >= GLOBAL_WINDOW else int(window)
 
 
-def _project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhe->bshe")``.  On ``DTensor``s each rank projects its
-    own rows onto its own heads (all of them where they do not split over
-    "model"): ``DTensor``'s own einsum may split the flattened heads where
-    they cannot be unflattened."""
-    if sharded(x, w):
-        return on_local_shards(lambda a, b: torch.einsum("bsd,dhe->bshe", a, b), [x, w],
-                               [(0, None), (None, 1)], [(0, 2)],
-                               w.shape[1] % model_size(x, w) == 0)
-    return torch.einsum("bsd,dhe->bshe", x, w)
+def _project_heads(x: torch.Tensor, *ws: torch.Tensor):
+    """``einsum("bsd,dhe->bshe")`` of ``x`` with each of ``ws``, as a list:
+    ``ops.dense`` of x and each weight's heads flattened, so that the
+    projections of one input share its launches.  On ``DTensor``s each rank
+    projects its own rows onto its own heads (all of them where they do not
+    split over "model"): ``DTensor``'s own einsum may split the flattened
+    heads where they cannot be unflattened."""
+    if sharded(x, *ws):
+        return [on_local_shards(lambda a, b: torch.einsum("bsd,dhe->bshe", a, b), [x, w],
+                                [(0, None), (None, 1)], [(0, 2)],
+                                w.shape[1] % model_size(x, w) == 0) for w in ws]
+    ys = ops.dense(x, *(w.reshape(w.shape[0], -1) for w in ws))
+    return [y.unflatten(-1, w.shape[1:]) for y, w in zip([ys] if len(ws) == 1 else ys, ws)]
 
 
 def _qkv(p, x: torch.Tensor, src: torch.Tensor):
-    q = _project_heads(x, p["wq"])
-    k = _project_heads(src, p["wk"])
-    v = _project_heads(src, p["wv"])
+    if src is x:
+        q, k, v = _project_heads(x, p["wq"], p["wk"], p["wv"])
+    else:
+        (q,), (k, v) = _project_heads(x, p["wq"]), _project_heads(src, p["wk"], p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if "q_norm" in p:
@@ -119,7 +123,7 @@ def _out_proj(p, out: torch.Tensor) -> torch.Tensor:
     """``einsum("bshe,hed->bsd")`` as one matmul over (h, e) flattened: the
     einsum copies ``wo`` into (e, h, d) order first, a whole weight a call."""
     H, hd, d = p["wo"].shape
-    y = hold_grad(merge_heads(out) @ p["wo"].reshape(H * hd, d))
+    y = hold_grad(ops.dense(merge_heads(out), p["wo"].reshape(H * hd, d)))
     return y + p["bo"] if "bo" in p else y
 
 

@@ -11,6 +11,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
 from ..sharding.ctx import hold_grad, reduce_partial, sharded
 
 
@@ -152,11 +153,14 @@ def init_mlp(cfg, generator: torch.Generator, device, dtype=torch.float32,
 
 def apply_mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
     act = act_fn(cfg.act)
-    up = hold_grad(x @ p["wi_up"])
+    if "wi_gate" in p:  # gate and up share x: one launch on the card
+        gate, up = (hold_grad(t) for t in ops.dense(x, p["wi_gate"], p["wi_up"]))
+    else:
+        up = hold_grad(ops.dense(x, p["wi_up"]))
     if "bi" in p:
         up = up + p["bi"]
-    h = act(hold_grad(x @ p["wi_gate"])) * up if "wi_gate" in p else act(up)
-    y = hold_grad(h @ p["wo"])
+    h = act(gate) * up if "wi_gate" in p else act(up)
+    y = hold_grad(ops.dense(h, p["wo"]))
     if "bo" in p:
         y = y + p["bo"]
     return y
@@ -211,11 +215,11 @@ def embed_tokens(p, tokens: torch.Tensor, cfg, dtype) -> torch.Tensor:
 
 def unembed(p, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.tied_embeddings:
-        logits = hold_grad(x @ p["tokens"].to(x.dtype).T)
+        logits = hold_grad(ops.dense(x, p["tokens"].to(x.dtype).T))
         if cfg.scale_emb != 1.0:  # MiniCPM: 1/scale_emb folded into the tied head
             logits = logits / cfg.scale_emb
     else:
-        logits = hold_grad(x @ p["unembed"].to(x.dtype))
+        logits = hold_grad(ops.dense(x, p["unembed"].to(x.dtype)))
     if cfg.logit_soft_cap:
         c = cfg.logit_soft_cap
         logits = c * torch.tanh(logits / c)

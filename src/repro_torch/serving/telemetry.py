@@ -27,6 +27,8 @@ import itertools
 import time
 from typing import Deque, List, Optional, Tuple
 
+from ..kernels import ops
+
 #: Unix-epoch ns minus ``perf_counter_ns``, read once
 _EPOCH_OFFSET_NS = time.time_ns() - time.perf_counter_ns()
 
@@ -46,7 +48,11 @@ class RequestRecord:
     """One request through the serving path.  ``spans`` are (name,
     start_ns, end_ns) in the order they were opened; ``prefill_ms`` and
     ``decode_ms`` are device intervals (None off the card), ``replays``
-    the decode graph replays they cover."""
+    the decode graph replays they cover.  ``products_tc`` and
+    ``products_other`` count the dense products that ``kernels.ops.dense``
+    ran while the record was open (``ops.PRODUCTS``' growth, set when it
+    closes), on the tensor-core kernel and on ``torch.matmul`` (a graph
+    replay runs no Python and counts none)."""
 
     id: int
     func: str
@@ -57,6 +63,8 @@ class RequestRecord:
     prefill_ms: Optional[float] = None
     decode_ms: Optional[float] = None
     replays: int = 0
+    products_tc: int = 0
+    products_other: int = 0
 
     def span(self, name: str) -> Optional[Tuple[int, int]]:
         """(start_ns, end_ns) of the first span called ``name``, None where
@@ -86,10 +94,10 @@ def current() -> Optional[RequestRecord]:
 class request:
     """``with request(func) as rec``: opens a record unless one is open
     already (then ``rec`` is that one and this ``with`` leaves it open),
-    and on leaving closes it, marks it ``failed`` if the body raised, and
-    appends it to ``RING``."""
+    and on leaving closes it, marks it ``failed`` if the body raised, sets
+    its product counts and appends it to ``RING``."""
 
-    __slots__ = ("func", "owner")
+    __slots__ = ("func", "owner", "products")
 
     def __init__(self, func: str):
         self.func = func
@@ -99,6 +107,7 @@ class request:
         self.owner = _open is None
         if self.owner:
             _open = RequestRecord(next(_IDS), self.func)
+            self.products = dict(ops.PRODUCTS)
         return _open
 
     def __exit__(self, exc_type, exc, tb) -> bool:
@@ -106,6 +115,8 @@ class request:
         if self.owner:
             rec, _open = _open, None
             rec.failed = exc_type is not None
+            rec.products_tc = ops.PRODUCTS["tc"] - self.products["tc"]
+            rec.products_other = ops.PRODUCTS["other"] - self.products["other"]
             RING.append(rec)
         return False
 

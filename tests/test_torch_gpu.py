@@ -259,6 +259,8 @@ def test_each_wrapper_call_counts_one_launch(cuda):
             *_latent_inputs(1, 64, 16, torch.float32, torch.float32, 2, cuda), 40, 0.1),
         "sched_events": lambda: ops.sched_events(*args),
         "sched_step": lambda: ops.sched_step(*args[1:2], *args[3:]),
+        # three weights of one input: one launch
+        "linear_tf32x3": lambda: ops.linear_tf32x3(q.view(64, 64), *(q.view(64, 64),) * 3),
     }
     _, _, saved = ops._ssd_forward(x, dt, A, Bm, Cm, 128, None, keep=True)
     calls["ssd_scan_bwd"] = lambda: ops.ssd_scan_bwd(x, dt, A, Bm, Cm, 128, None, x, None, saved)
@@ -688,6 +690,151 @@ def test_request_record_on_the_card(cuda, monkeypatch):
         assert rec.replays == gen_len - 1
         assert 0 < rec.prefill_ms and 0 < rec.decode_ms
         assert rec.prefill_ms + rec.decode_ms <= er.exec_ms == rec.span_ms("generate")
+
+
+# --------------------------------------------------- dense products
+#: the kernel's error, max |diff| over max |float64 product|, at the served
+#: prefill's depths (K 2,304 and 5,760): a float32 product's own is ~3e-7
+#: of its largest there; split precision drops small.small (2^-22 of each
+#: term) and the tensor cores truncate each k-step, into a fresh 32-deep
+#: accumulator a k-tile (~5e-7 in all: ``tests/test_torch_tf32x3.py``);
+#: 5e-6 leaves ten times that, and one TF32 product (~1e-4 here) misses it
+LIN_TOL = 5e-6
+_MINICPM = dict(d=2304, f=5760, H=36, hd=64, V=122753)
+
+
+def _served_weight(name, g, cuda):
+    """A weight of one of the served prefill's products, as ``dense`` gets
+    it: q/k/v (d, H, hd) and o (H, hd, d) flattened, the MLP's (d, f) and
+    (f, d), the tied table (V, d) transposed; drawn at 1/sqrt(fan in)."""
+    d, f, H, hd, V = (_MINICPM[k] for k in ("d", "f", "H", "hd", "V"))
+    shape, flat = {"qkv": ((d, H, hd), (d, H * hd)), "o": ((H, hd, d), (H * hd, d)),
+                   "gate_up": ((d, f), (d, f)), "down": ((f, d), (f, d))}.get(name, (None, None))
+    if shape is None:  # the unembedding: the embedding table's transpose
+        return (torch.randn(V, d, generator=g, device=cuda) * 0.02).T
+    return (torch.randn(shape, generator=g, device=cuda) / shape[0] ** 0.5).reshape(flat)
+
+
+@pytest.mark.parametrize("M", [64, 1106, 1523, 2034, 1531])
+@pytest.mark.parametrize("name", ["qkv", "o", "gate_up", "down", "unembed"])
+def test_linear_tf32x3_served_shapes(cuda, name, M):
+    """``linear_tf32x3`` at the served prefill's products (the shortest,
+    mean and longest prompt of the mix, a ragged 1,531 and one wgmma tile of
+    64 rows) against its plain version and a float64 product, within
+    ``LIN_TOL``; one TF32 product misses by far."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    w = _served_weight(name, g, cuda)
+    x = torch.randn(M, w.shape[0], generator=g, device=cuda)
+    ops.reset_launches()
+    got = ops.linear_tf32x3(x, w)[0]
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["linear_tf32x3"] == 1 and got.shape == (M, w.shape[1])
+    want = x.double() @ w.double()
+    scale = want.abs().max()
+    err = float((got.double() - want).abs().max() / scale)
+    plain = ref.linear_tf32x3_ref(x, w)
+    assert err < LIN_TOL, err
+    assert float((plain.double() - want).abs().max() / scale) < LIN_TOL
+    assert float((got - plain).abs().max() / scale) < LIN_TOL
+    one_tf32 = float((ref.einsum_tf32("mk,kn->mn", x, w).double() - want).abs().max() / scale)
+    assert one_tf32 > 20 * err, (one_tf32, err)
+
+
+#: the other float32 paths' products on the kernel, as ``ops.dense`` groups
+#: them: (rows, K, widths, the tied table read transposed)
+_OTHER_SERVED = {
+    "zamba2_qkv": (1024, 2560, [2560] * 3, False), "zamba2_o": (1024, 2560, [2560], False),
+    "zamba2_gate_up": (1024, 2560, [10240] * 2, False),
+    "zamba2_down": (1024, 10240, [2560], False), "zamba2_unembed": (1024, 2560, [32000], True),
+    "whisper_qkv": (440, 768, [768] * 3, False), "whisper_o": (1500, 768, [768], False),
+    "whisper_cross_kv": (8 * 1500, 768, [768] * 2, False),
+    "whisper_up": (440, 768, [3072], False), "whisper_down": (1500, 3072, [768], False),
+    "whisper_unembed": (440, 768, [51865], True), "mamba2_unembed": (1024, 768, [50280], True)}
+
+
+@pytest.mark.parametrize("name", list(_OTHER_SERVED))
+def test_linear_tf32x3_other_served_shapes(cuda, name):
+    """``linear_tf32x3`` at the products that zamba2-2.7b's shared block and
+    head, whisper-small (its cross k/v over 8 slots' 1,500 rows of audio, as
+    the batcher's decode step projects them) and mamba2-130m's head give it,
+    in one call a group: each product against its plain version and a
+    float64 product within ``LIN_TOL``."""
+    M, K, widths, tied = _OTHER_SERVED[name]
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    x = torch.randn(M, K, generator=g, device=cuda)
+    ws = ([(torch.randn(n, K, generator=g, device=cuda) * 0.02).T for n in widths] if tied
+          else [torch.randn(K, n, generator=g, device=cuda) / K ** 0.5 for n in widths])
+    ops.reset_launches()
+    outs = ops.linear_tf32x3(x, *ws)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["linear_tf32x3"] == 1
+    for w, got in zip(ws, outs):
+        want = x.double() @ w.double()
+        assert float((got.double() - want).abs().max() / want.abs().max()) < LIN_TOL
+        plain = ref.linear_tf32x3_ref(x, w)
+        assert float((got - plain).abs().max() / plain.abs().max()) < LIN_TOL
+
+
+@pytest.mark.parametrize("widths", [[2304] * 3, [5760] * 2, [2304, 512, 512],
+                                    [256, 2300, 128, 640]],
+                         ids=["qkv", "gate_up", "gqa", "four"])
+def test_linear_tf32x3_group_matches_singles(cuda, widths):
+    """Weights that share their input, in one call: one launch for up to
+    three (q/k/v, gate and up, a GQA split of unequal widths), two for
+    four; each product bit for bit the one it makes alone."""
+    g = torch.Generator(device=cuda).manual_seed(len(widths))
+    x = torch.randn(1531, 2304, generator=g, device=cuda)
+    ws = [torch.randn(2304, n, generator=g, device=cuda) / 48 for n in widths]
+    ops.reset_launches()
+    outs = ops.linear_tf32x3(x, *ws)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["linear_tf32x3"] == -(-len(ws) // ops.LINEAR_MAX_GROUP)
+    for w, got in zip(ws, outs):
+        assert torch.equal(got, ops.linear_tf32x3(x, w)[0])
+
+
+def test_dense_routes_on_the_card(cuda):
+    """``ops.dense`` on the card: a prefill's rows go to the kernel, a
+    decode step's (a row a slot), a bfloat16 weight, a product under
+    autograd and one of too few tiles keep ``torch.matmul`` (no launch),
+    and the kernel's product matches ``x @ w`` to ``LIN_TOL``."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2, 512, 256, generator=g, device=cuda)
+    w = torch.randn(256, 1024, generator=g, device=cuda) / 16
+    ops.reset_launches()
+    y = ops.dense(x, w)
+    assert ops.LAUNCHES["linear_tf32x3"] == 1 and y.shape == (2, 512, 1024)
+    want = x.double() @ w.double()
+    assert float((y.double() - want).abs().max() / want.abs().max()) < LIN_TOL
+    ops.reset_launches()
+    ops.dense(x[:, :4], w)
+    ops.dense(x.bfloat16(), w.bfloat16())
+    ops.dense(x, w.clone().requires_grad_())
+    ops.dense(x[0, :100], w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["linear_tf32x3"] == 0
+
+
+def test_minicpm_request_products_on_tensor_cores(cuda):
+    """A warm full-width minicpm-2b request through ``WorkerHost.execute``
+    (1,106 prompt tokens) records every dense product of its prefill on the
+    kernel: 40 layers x 7 and the unembedding, none on ``torch.matmul``
+    (the decode steps are graph replays and count none); in 40 x 4 + 1
+    launches (q/k/v and gate/up each one)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Endpoint, WorkerHost, telemetry
+
+    ep = Endpoint("minicpm-2b", get_config("minicpm_2b"), seed=1, max_cache_len=2048)
+    host = WorkerHost(0, mem_pool_bytes=16 * 2**30, device=cuda)
+    tokens = torch.randint(0, ep.cfg.vocab, (1, 1106), generator=torch.Generator().manual_seed(0))
+    host.execute(ep, tokens, 13)
+    ops.reset_launches()
+    host.execute(ep, tokens, 13)
+    rec = telemetry.RING[-1]
+    L = ep.cfg.n_layers
+    assert not rec.cold and not rec.failed
+    assert (rec.products_tc, rec.products_other) == (7 * L + 1, 0)
+    assert ops.LAUNCHES["linear_tf32x3"] == 4 * L + 1
 
 
 def test_batcher_on_card_matches_cpu(cuda):

@@ -1,12 +1,14 @@
-"""The numerics argument for the backward kernels' tensor-core products.
+"""The numerics argument for the kernels' tensor-core products.
 
-``csrc/flash_attention_bwd.cu`` and ``csrc/ssd_scan_bwd.cu`` run their
+``csrc/flash_attention_bwd.cu``, ``csrc/ssd_scan_bwd.cu`` and
+``csrc/linear_tf32x3.cu`` (the served prefill's dense products) run their
 float32 products on TF32 tensor cores in split precision: x = big + small,
 big = tf32(x), small = tf32(x - big), a.b = small.big + big.small + big.big.
 These tests hold that scheme, as ``kernels/ref.py`` writes it out on the
 CPU, against float64 and against the kernels' tolerances, at the depths the
 kernels use, and show that one TF32 product (what ``allow_tf32`` would give)
-misses them, so the split is needed.  Inputs come from numpy seeds.
+misses them, so the split is needed; for the dense products, through one
+full-width minicpm-2b layer to its logits.  Inputs come from numpy seeds.
 """
 
 import numpy as np
@@ -262,3 +264,67 @@ def test_softcap_bwd_float32_logits_within_limit(causal, window):
 
     assert all(within(kernel)), within(kernel)
     assert not all(within(split))
+
+
+def _attention64(flash):
+    """``ops.flash_attention`` with float64 q, k, v in float64 (causal
+    softmax attention, the port's plain version otherwise)."""
+
+    def attend(q, k, v, causal=True, window=None, softcap=None):
+        if q.dtype != torch.float64:
+            return flash(q, k, v, causal, window, softcap)
+        assert window is None and softcap is None and k.shape[2] == q.shape[2]
+        S, hd = q.shape[1], q.shape[-1]
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / hd ** 0.5
+        live = torch.ones(S, S, dtype=torch.bool).tril()
+        probs = torch.softmax(logits.masked_fill(~live, float("-inf")), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+    return attend
+
+
+def test_minicpm_layer_logits_split_within_a_tenth_of_the_check(monkeypatch):
+    """One minicpm-2b layer at full width (d 2,304, 36 heads of 64, SwiGLU
+    5,760), its vocabulary cut to 4,096, over 128 tokens, with every dense
+    product routed as on the card and computed as ``linear_tf32x3``'s plain
+    version (``ref.einsum_tf32x3``): the logits' relative error (max |diff|
+    over max |reference|, the check's ``prefill_logit_err``) against the
+    same layer in float64 (products and attention; the norms and RoPE round
+    to float32 in both, ~6e-8 of their values) stays under a tenth of the
+    check's 1e-4 (~2.5e-7 at seed 0).  One TF32 product in each place
+    misses that tenth by far (~9e-5 on this one layer; the check's control
+    reads ~1e-3 on the whole model)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config("minicpm_2b"), n_layers=1, vocab=4096)
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (1, 128)))
+
+    def logits(dtype, tree):
+        return Model(cfg, dtype, device="cpu").forward(tree, {"tokens": tokens}, "prefill")[0]
+
+    monkeypatch.setattr(ops, "flash_attention", _attention64(ops.flash_attention))
+    want = logits(torch.float64, _tree(params, torch.float64))
+    # every product as on the card
+    monkeypatch.setattr(ops, "_tc_plan", lambda x, ws: (None, x.reshape(-1, x.shape[-1]), None))
+    got = logits(torch.float32, params)
+    monkeypatch.setattr(ref, "linear_tf32x3_ref",
+                        lambda a, w: ref.einsum_tf32("mk,kn->mn", a, w))
+    control = logits(torch.float32, params)
+
+    def err(t):
+        return float((t.double() - want).abs().max() / want.abs().max())
+
+    assert err(got) < 1e-5 < err(control) / 5, (err(got), err(control))
+
+
+def _tree(p, dtype):
+    if isinstance(p, dict):
+        return {k: _tree(v, dtype) for k, v in p.items()}
+    if isinstance(p, (list, tuple)):
+        return type(p)(_tree(v, dtype) for v in p)
+    return p.to(dtype) if isinstance(p, torch.Tensor) and p.is_floating_point() else p
